@@ -1,0 +1,100 @@
+"""Embedding modules: word + position (+ GSG semantic) stacks.
+
+Port of ``care_tpu/models/embeddings.py`` (reference
+``models/components/Embeddings.py``). Position ids are passed explicitly, so
+one module serves the full-sequence forward and the one-token KV-cached
+decode step.
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from care_tpu_torch.models.common import xavier_param, unsupported
+
+
+def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
+    """Classic sin/cos positional table, [max_len, d_model]."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * -(np.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+class PositionalEmbedding(nn.Module):
+    """Position embedding: a trainable table (``embedding``) or the fixed
+    sinusoid, kept as a buffer outside the parameters."""
+
+    def __init__(self, max_len: int, dim_hidden: int, trainable: bool,
+                 generator: torch.Generator):
+        super().__init__()
+        if trainable:
+            self.embedding = xavier_param((max_len, dim_hidden), generator)
+        else:
+            self.register_buffer(
+                "embedding", torch.from_numpy(sinusoid_table(max_len,
+                                                             dim_hidden)),
+                persistent=False)
+
+    def forward(self, position_ids):
+        return self.embedding[position_ids]
+
+
+class NaiveEmbeddings(nn.Module):
+    """Word + learned position + LN + dropout: the concept-slot embeddings
+    of the SemanticContainer (reference ``Embeddings.py:30-87``)."""
+
+    def __init__(self, n_words: int, n_positions: int, dim_hidden: int,
+                 layer_norm_eps: float, hidden_dropout_prob: float,
+                 generator: torch.Generator, has_dropout: bool = True):
+        super().__init__()
+        self.word_embeddings = xavier_param((n_words, dim_hidden), generator)
+        self.position_embeddings = xavier_param((n_positions, dim_hidden),
+                                                generator)
+        self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
+        self.dropout = nn.Dropout(hidden_dropout_prob if has_dropout else 0.0)
+
+    def forward(self, input_ids):
+        embs = self.word_embeddings[input_ids]
+        embs = embs + self.position_embeddings[None, :embs.shape[1]]
+        return self.dropout(self.LayerNorm(embs))
+
+
+class Embeddings(nn.Module):
+    """Decoder input embeddings (reference ``Embeddings.py:90-188``):
+    word + position (+ the GSG ``semantic_hidden_states`` added to every
+    token in ``emb`` mode) -> LN -> dropout."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        for key in ("pretrained_embs_path", "with_category", "RPE",
+                    "transformer_pre_ln"):
+            if opt.get(key):
+                raise unsupported(key, opt[key])
+        use_attr_type = opt.get("use_attr_type", "") or ""
+        if "pp_emb" in use_attr_type:
+            raise unsupported("use_attr_type", use_attr_type)
+        self.semantic_flag = "emb" in use_attr_type
+        self.word_embeddings = xavier_param(
+            (opt["vocab_size"], opt["dim_hidden"]), generator,
+            zero_pad_row=True)
+        self.position_embeddings = PositionalEmbedding(
+            opt["max_len"], opt["dim_hidden"],
+            opt.get("trainable_pe", False), generator)
+        self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
+                                      eps=opt["layer_norm_eps"])
+        self.dropout = nn.Dropout(opt["hidden_dropout_prob"])
+
+    def forward(self, input_ids, semantic_hidden_states=None,
+                position_ids=None):
+        embeddings = self.word_embeddings[input_ids]
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[-1],
+                                        device=input_ids.device)[None, :]
+        embeddings = embeddings + self.position_embeddings(position_ids)
+        if self.semantic_flag and semantic_hidden_states is not None:
+            embeddings = embeddings + semantic_hidden_states[:, None, :]
+        return self.dropout(self.LayerNorm(embeddings))

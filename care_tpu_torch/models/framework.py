@@ -1,0 +1,132 @@
+"""The Captioner: encoder -> concept predictor -> decoder -> vocab head.
+
+Port of ``care_tpu/models/framework.py`` (reference ``models/Framework.py``):
+``encoding_phase`` runs the encoder and the predictor and merges the
+predictor's outputs into the decoder inputs (the LSG ``concat`` mode appends
+the concept-slot embeddings to the encoder states); ``decoding_phase`` runs
+the decoder and the head; ``init_decode_state`` / ``decode_step`` drive the
+KV-cached decode. Submodules are named after the JAX package's parameter
+tree (``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``,
+...), which ``models/weights.py`` relies on.
+"""
+
+from typing import Any, Dict, List
+
+import torch
+from torch import nn
+
+from care_tpu_torch.models.common import unsupported
+from care_tpu_torch.models.decoders import get_decoder
+from care_tpu_torch.models.encoders import MultipleStreams
+from care_tpu_torch.models.heads import get_cls_head
+from care_tpu_torch.models.predictors import Predictor, has_predictor
+from care_tpu_torch.utils.device import resolve_device
+
+
+def input_keys_for_decoder(opt: dict) -> List[str]:
+    """Which encoding-phase outputs are static decoder inputs
+    (reference ``Framework.py:20-40``), for the modes this port runs."""
+    keys = ["encoder_hidden_states"]
+    if "emb" in (opt.get("use_attr_type") or ""):
+        keys.append("semantic_hidden_states")
+    return keys
+
+
+def _check_opt(opt: dict) -> None:
+    for key in ("with_backbones", "pointer", "retrieval", "with_category"):
+        if opt.get(key):
+            raise unsupported(key, opt[key])
+
+
+class Captioner(nn.Module):
+    """One module owning encoder / predictor / decoder / head."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        _check_opt(opt)
+        self.opt = opt
+        self.encoder = MultipleStreams(opt, generator)
+        self.predictor = (Predictor(opt, generator) if has_predictor(opt)
+                          else None)
+        self.decoder = get_decoder(opt, generator)
+        self.cls_head = get_cls_head(opt, generator)
+        self.decoder_input_keys = input_keys_for_decoder(opt)
+
+    # ------------------------------------------------------------------
+    def encoding_phase(self, feats: List[torch.Tensor]) -> Dict[str, Any]:
+        data = self.encoder(list(feats[:len(self.opt["modality"])]))
+        inputs_for_predictor = data.pop("inputs_for_predictor", data)
+        inputs_for_decoder = data.pop("inputs_for_decoder", data)
+        if self.predictor is not None:
+            inputs_for_decoder.update(self.predictor(
+                inputs_for_predictor["encoder_hidden_states"],
+                mean_encoder_hidden_states=inputs_for_predictor[
+                    "mean_encoder_hidden_states"]))
+            if "concat" in (self.opt.get("use_attr_type") or ""):
+                inputs_for_decoder["encoder_hidden_states"] = torch.cat(
+                    [inputs_for_decoder["encoder_hidden_states"],
+                     inputs_for_decoder["semantic_embs"]], dim=1)
+        return inputs_for_decoder
+
+    def prepare_inputs_for_decoder(self, encoding_phase_outputs: Dict[str, Any],
+                                   batch: Dict[str, Any]) -> Dict[str, Any]:
+        out = {}
+        for key in self.decoder_input_keys:
+            if key in encoding_phase_outputs:
+                out[key] = encoding_phase_outputs[key]
+            elif key in batch:
+                out[key] = batch[key]
+            else:
+                raise KeyError(f"decoder input `{key}` not found")
+        return out
+
+    def decoding_phase(self, input_ids, inputs_for_decoder: Dict[str, Any],
+                       last_time_step_logits: bool = False) -> Dict[str, Any]:
+        outputs = self.decoder(input_ids, **inputs_for_decoder)
+        hidden_states = outputs["hidden_states"]
+        if last_time_step_logits:
+            hidden_states = hidden_states[:, -1, :]
+        outputs["logits"] = self.cls_head(hidden_states)
+        return outputs
+
+    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """feedforward_step (reference ``Framework.py:215-234``)."""
+        encoding_phase_outputs = self.encoding_phase(batch["feats"])
+        inputs_for_decoder = self.prepare_inputs_for_decoder(
+            encoding_phase_outputs, batch)
+        return {**encoding_phase_outputs,
+                **self.decoding_phase(batch["input_ids"], inputs_for_decoder)}
+
+    # ------------------------------------------------------------------
+    # KV-cached incremental decoding
+    # ------------------------------------------------------------------
+    def init_decode_state(self, inputs_for_decoder: Dict[str, Any],
+                          max_len: int, beam_size: int = 1) -> Dict[str, Any]:
+        """``beam_size`` > 1 expects un-enlarged inputs: the self-KV cache is
+        laid out at B*beam rows while cross K/V stay at B."""
+        enc = inputs_for_decoder["encoder_hidden_states"]
+        return self.decoder.init_decode_state(
+            batch_size=enc.shape[0] * beam_size, max_len=max_len,
+            beam_size=beam_size, encoder_hidden_states=enc,
+            semantic_hidden_states=inputs_for_decoder.get(
+                "semantic_hidden_states"))
+
+    def decode_step_hidden(self, token_ids, position: int, state):
+        """One AR step returning the decoder hidden states [B, H] before the
+        vocab projection: the fused head + top-k serving path streams the
+        projection itself, so the [B, V] logits are never formed."""
+        return self.decoder.decode_step(token_ids, position, state)
+
+    def decode_step(self, token_ids, position: int, state):
+        """One AR step: returns (logits [B, V], state)."""
+        h, state = self.decoder.decode_step(token_ids, position, state)
+        return self.cls_head(h), state
+
+
+def build_captioner(opt: dict, device=None, seed: int = 0) -> Captioner:
+    """The Captioner for ``opt``, its weights drawn from a
+    ``torch.Generator`` seeded with ``seed``, in eval mode, on ``device``
+    (``None`` = the CUDA card; raises without one unless ``"cpu"``)."""
+    device = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    return Captioner(opt, generator).eval().to(device)

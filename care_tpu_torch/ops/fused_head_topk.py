@@ -1,0 +1,201 @@
+"""Fused vocab projection + beam top-k: the [rows, V] logits never live in
+device memory as a whole.
+
+The port of ``care_tpu/ops/fused_head_topk.py:fused_head_beam_topk``. Each
+beam step's expansion needs, per decoder row, the log-softmax of its logits
+only at the few entries that can enter the beam. So the vocab projection
+streams into per-row statistics: the max ``m`` and sum of exponentials ``s``
+of the logits, and the row's top-``K`` raw logits ``cv`` with their vocab
+ids. ``_finalize`` turns those into the beam's top-``K`` over the flat
+``k * V + v`` space, exactly as log_softmax + top-k over ``[N, K*V]`` would.
+
+Two implementations of the statistics:
+
+* ``_stats_plain``: chunk by chunk in plain tensor code, as the JAX
+  package's ``_stats_xla``; the CPU path, and what the tests and
+  ``chip_smoke.py`` hold the kernel against;
+* ``_stats_cuda``: the hand-written kernel ``csrc/fused_head_topk.cu``,
+  which replaces the TPU kernel ``_fused_kernel``.
+
+``fused_head_beam_topk`` takes the kernel for a CUDA tensor and the plain
+version for a CPU tensor; there is no other fallback.
+
+Layouts follow torch: the projection ``W`` is ``[V, H]`` (the
+``nn.Linear`` weight of the head), where the JAX package's kernel is
+``[H, V]``. Ties between equal values resolve lowest vocab id first in both
+implementations, the order ``lax.top_k`` gives.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from care_tpu_torch.ops import _build
+from care_tpu_torch.ops.topk import top_k
+
+DEAD = -1e20
+# finite stand-in for -inf on vocab-padding columns of the plain version:
+# exp() underflows to exactly 0, and it stays below any real logit
+_PAD_LOGIT = -1e30
+
+# kernel launches made by the CUDA path of `fused_head_beam_topk`, so that a
+# run can show the main path went through the kernel
+launches = 0
+
+
+def _clamp_chunk(V: int, chunk_size: int) -> int:
+    """Never use a chunk wider than the (128-aligned) vocab itself."""
+    return min(chunk_size, max(128, -(-V // 128) * 128))
+
+
+def _logits(h, W, bias):
+    """h [rows, H] @ W [n, H]^T (+ bias [n]) as f32, rounded like the JAX
+    package's kernel: the product accumulates in f32; with bf16 inputs it is
+    rounded to bf16 and the bias added in bf16."""
+    x = h.float() @ W.float().t()
+    if h.dtype != torch.float32:
+        x = x.to(h.dtype)
+    if bias is not None:
+        x = x + bias
+    return x.float()
+
+
+def _stats_plain(h, W, b, beam_k: int, chunk_size: int):
+    """Returns (cv [rows, K] f32, ids [rows, K] int64, m [rows] f32,
+    s [rows] f32), chunk by chunk over the vocab like ``_stats_xla``."""
+    rows = h.shape[0]
+    V = W.shape[0]
+    chunk_size = _clamp_chunk(V, chunk_size)
+    m = torch.full((rows,), float("-inf"), device=h.device)
+    s = torch.zeros((rows,), device=h.device)
+    cand_v, cand_i = [], []
+    for c0 in range(0, V, chunk_size):
+        w = W[c0:c0 + chunk_size]
+        pad = chunk_size - w.shape[0]
+        bias = None if b is None else b[c0:c0 + chunk_size]
+        if pad:
+            w = torch.cat([w, w.new_zeros(pad, w.shape[1])])
+            if bias is None:
+                bias = torch.zeros(V - c0, dtype=h.dtype, device=h.device)
+            bias = torch.cat([bias, bias.new_full((pad,), _PAD_LOGIT)])
+        logits = _logits(h, w, bias)
+        m_new = torch.maximum(m, logits.max(dim=-1).values)
+        s = (s * torch.exp(m - m_new)
+             + torch.exp(logits - m_new[:, None]).sum(dim=-1))
+        m = m_new
+        vals, args = top_k(logits, beam_k)
+        cand_v.append(vals)
+        cand_i.append(args + c0)
+    # candidates sit in (chunk, rank) order, so among equal values the
+    # lower position holds the lower vocab id
+    cv, sel = top_k(torch.cat(cand_v, dim=1), beam_k)
+    ids = torch.gather(torch.cat(cand_i, dim=1), 1, sel)
+    return cv, ids, m, s
+
+
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9
+
+
+@functools.cache
+def _library():
+    lib = _build.load("fused_head_topk")
+    for fn in (lib.care_fused_head_topk_f32, lib.care_fused_head_topk_bf16):
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.care_fused_head_topk_tile_cols.argtypes = []
+    lib.care_fused_head_topk_tile_cols.restype = ctypes.c_int
+    return lib
+
+
+def _stats_cuda(h, W, b, beam_k: int):
+    """The kernel's (cv, ids, m, s), ids int32; the same contract as
+    ``_stats_plain``. Launches on the current stream without syncing."""
+    global launches
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused head kernel takes f32 or bf16, not {h.dtype}")
+    if W.dtype != h.dtype or (b is not None and b.dtype != h.dtype):
+        raise TypeError("h, W and b must share one dtype")
+    if h.dim() != 2 or W.dim() != 2 or h.shape[1] != W.shape[1]:
+        raise ValueError(f"h {tuple(h.shape)} and W {tuple(W.shape)} "
+                         "must be [rows, H] and [V, H]")
+    rows, H = h.shape
+    V = W.shape[0]
+    if b is not None and tuple(b.shape) != (V,):
+        raise ValueError(f"bias {tuple(b.shape)} must be [{V}]")
+    if not 1 <= beam_k <= V:
+        raise ValueError(f"beam_k {beam_k} must lie in [1, V={V}]")
+    for name, t in (("h", h), ("W", W), ("b", b)):
+        if t is not None and (t.device != h.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous tensor on "
+                             f"{h.device}")
+    lib = _library()
+    n_tiles = -(-V // lib.care_fused_head_topk_tile_cols())
+    f32 = dict(dtype=torch.float32, device=h.device)
+    i32 = dict(dtype=torch.int32, device=h.device)
+    part_m = torch.empty((rows, n_tiles), **f32)
+    part_s = torch.empty((rows, n_tiles), **f32)
+    part_v = torch.empty((rows, n_tiles, beam_k), **f32)
+    part_i = torch.empty((rows, n_tiles, beam_k), **i32)
+    m = torch.empty((rows,), **f32)
+    s = torch.empty((rows,), **f32)
+    cv = torch.empty((rows, beam_k), **f32)
+    ids = torch.empty((rows, beam_k), **i32)
+    fn = (lib.care_fused_head_topk_f32 if h.dtype == torch.float32
+          else lib.care_fused_head_topk_bf16)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    rc = fn(h.data_ptr(), W.data_ptr(), None if b is None else b.data_ptr(),
+            rows, H, V, beam_k, part_m.data_ptr(), part_s.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), m.data_ptr(), s.data_ptr(),
+            cv.data_ptr(), ids.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused head kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return cv, ids, m, s
+
+
+def _finalize(cv, ids, m, s, scores, eos_row, beam_k: int, V: int):
+    """(per-row raw-logit candidates, softmax stats) -> the beam's top-k.
+    cv/ids: [rows, n_cand] with ties in lowest-id-first order."""
+    N, Kb = scores.shape
+    n_cand = cv.shape[1]
+    # log_softmax association: (x - max) - log(sumexp), then the DEAD
+    # clamp, then the beam-score add, op for op as the unfused path
+    logp = (cv - m[:, None]) - torch.log(s)[:, None]
+    logp = torch.clamp_min(logp, DEAD)
+    lk = scores[:, :, None] + logp.reshape(N, Kb, n_cand)
+    lk = lk.masked_fill(eos_row[:, :, None], DEAD)
+    flat_val = lk.reshape(N, Kb * n_cand)
+    flat_idx = (torch.arange(Kb, device=ids.device)[None, :, None] * V
+                + ids.reshape(N, Kb, n_cand).long()).reshape(N, Kb * n_cand)
+    best, sel = top_k(flat_val, beam_k)
+    return best, torch.gather(flat_idx, 1, sel)
+
+
+def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
+                         chunk_size: int = 1024):
+    """h: [N*K, H] decoder hidden states; W: [V, H] vocab projection; b: [V]
+    or None; scores: [N, K] f32 cumulative beam scores; eos_row: [N, K] bool,
+    rows already finished. Returns (best_scores [N, K], best_ids [N, K]
+    int64) over the flat k*V + v space, as
+
+        logp = log_softmax((h @ W.T + b).float())
+        lk   = scores[:, :, None] + maximum(logp, DEAD).reshape(N, K, V)
+        lk   = where(eos_row[:, :, None], DEAD, lk)
+        top_k(lk.reshape(N, K * V), K)
+
+    would give. ``chunk_size`` sets the vocab chunk of the plain CPU path
+    only; the kernel tiles the vocab its own way. Both give the same ids.
+    """
+    rows = h.shape[0]
+    V = W.shape[0]
+    N, Kb = scores.shape
+    if rows != N * Kb:
+        raise ValueError(f"h has {rows} rows for {N} x {Kb} beams")
+    if h.device.type == "cuda":
+        cv, ids, m, s = _stats_cuda(h, W, b, beam_k)
+    elif h.device.type == "cpu":
+        cv, ids, m, s = _stats_plain(h, W, b, beam_k, chunk_size)
+    else:
+        raise RuntimeError(f"no fused head path for device {h.device}")
+    return _finalize(cv, ids, m, s, scores, eos_row, beam_k, V)

@@ -1,0 +1,134 @@
+"""The port's options and boundaries: ``care_tpu_torch.config.get_opt``
+against the JAX package's, its presets against the YAML grid, the import
+boundary (the port loads neither JAX nor ``care_tpu``), CUDA as the default
+device, and ``NotImplementedError`` for every option the serving slice
+does not implement.
+"""
+
+import glob
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+import yaml
+
+from care_tpu.config import get_opt as jax_get_opt
+from care_tpu_torch.config import get_opt as port_get_opt
+from care_tpu_torch.config.presets import PRESETS
+from care_tpu_torch.decoding import get_translator
+from care_tpu_torch.models import build_captioner
+
+from helpers import cpu_subprocess_env, tiny_opt
+from test_torch_support import flagship_small_opt
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAGSHIP = {"dataset": "MSRVTT", "method": "Transformer", "task": "CARE",
+            "feats": "ViT", "decoder_modality_flags": "VA",
+            "predictor_modality_flags": "VAT", "vocab_size": 11000}
+TINY = {"dataset": "MSRVTT", "method": "Transformer", "task": "Base",
+        "feats": "ViT", "modality": "mi", "vocab_size": 60, "max_len": 10,
+        "n_frames": 6, "num_hidden_layers_decoder": 1, "beam_size": 5,
+        "topk": 1}
+
+
+@pytest.mark.parametrize("overrides,kwargs", [
+    (FLAGSHIP, dict(read_vocab=False, resolve_paths=False)),
+    (FLAGSHIP, {}),
+    (TINY, dict(read_vocab=False, resolve_paths=False)),
+    ({"method": "NACF", "task": "Base"}, {}),
+    ({"task": "DAP_RNN", "arch": "large", "feats": "SwinBERTDense"}, {}),
+    ({**FLAGSHIP, "task": "CABase",
+      "final_overrides": {"beam_size": 3}}, {}),
+])
+def test_get_opt_matches_jax(overrides, kwargs):
+    assert port_get_opt(overrides, **kwargs) == jax_get_opt(overrides,
+                                                            **kwargs)
+
+
+def test_tiny_opt_matches_jax():
+    opt = tiny_opt()
+    port = port_get_opt(TINY, read_vocab=False, resolve_paths=False)
+    port.setdefault("dim_m", 24)
+    port.setdefault("dim_i", 16)
+    assert port == opt
+
+
+@pytest.mark.parametrize("group", sorted(PRESETS))
+def test_presets_equal_yaml_grid(group):
+    path = os.path.join(REPO, "care_tpu", "config", "yamls", group + ".yaml")
+    with open(path) as f:
+        assert PRESETS[group] == yaml.safe_load(f)
+
+
+def test_yaml_grid_has_no_other_files():
+    names = {os.path.basename(p)[:-5] for p in glob.glob(
+        os.path.join(REPO, "care_tpu", "config", "yamls", "*.yaml"))}
+    assert names == set(PRESETS)
+
+
+def test_port_imports_neither_jax_nor_care_tpu():
+    """Import every module of the port, and chip_smoke.py, in a fresh
+    interpreter: neither JAX nor the JAX package may be loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import care_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    care_tpu_torch.__path__, 'care_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'care_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert len(mods) >= 17, mods\n"
+        "print(len(mods))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=cpu_subprocess_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    opt = flagship_small_opt()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_captioner(opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        get_translator(opt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_captioner(opt, device="cuda")
+    model = build_captioner(opt, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    assert not model.training
+
+
+UNSUPPORTED = [
+    ("compositional_intra", True), ("compositional_inter", True),
+    ("compositional_ffn", True), ("RPE", True),
+    ("transformer_pre_ln", True), ("pointer", "Pointer"),
+    ("decoder", "SingleLayerRNNDecoder"), ("use_pallas_attention", True),
+    ("fused_head_backend", "xla"), ("compute_dtype_decode", "bfloat16"),
+    ("decoding_type", "NARFormer"), ("encoder", "EncoderWithHighWayBN"),
+    ("fusion", "channel_concat"), ("use_attr_type", "emb_att"),
+]
+
+
+@pytest.mark.parametrize("key,value", UNSUPPORTED)
+def test_unsupported_options_raise(key, value):
+    opt = dict(flagship_small_opt(), **{key: value})
+    with pytest.raises(NotImplementedError, match=key):
+        build_captioner(opt, device="cpu")
+        get_translator(opt, device="cpu")
+
+
+def test_ensembles_and_fused_batches_raise():
+    opt = flagship_small_opt()
+    model = build_captioner(opt, device="cpu")
+    translator = get_translator(opt, device="cpu")
+    batch = {"feats": []}
+    with pytest.raises(NotImplementedError, match="ensembles"):
+        translator.translate_batch([model, model], batch)
+    with pytest.raises(NotImplementedError, match="translate_batches_fused"):
+        translator.translate_batches_fused([model], [batch])

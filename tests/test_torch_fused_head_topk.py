@@ -1,0 +1,174 @@
+"""The port's fused vocab projection + beam top-k
+(``care_tpu_torch/ops/fused_head_topk.py``) against the JAX package's
+``fused_head_beam_topk``, run as the JAX suite runs it on the CPU: the
+Pallas kernel in interpret mode, and the ``xla`` backend. On the CPU the
+port takes its plain version (``_stats_plain`` + ``_finalize``); the CUDA
+kernel is held against that plain version by the ``gpu`` test below.
+
+The cases are those of ``tests/test_fused_head_topk.py``. Ids must be
+identical; values agree within 1e-6 (both sides compute in f32, and only
+the order of the f32 sums inside the products and the softmax differs).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from care_tpu_torch.ops import fused_head_topk as port_fht
+
+BACKENDS = ["pallas", "xla"]
+DEAD = port_fht.DEAD
+
+
+def _jax(h, W, b, scores, eos_row, K, chunk, backend, dtype="float32"):
+    # imported here: the gpu tests below need neither JAX nor the JAX
+    # package, which does not import on the machine with the card
+    import jax.numpy as jnp
+    from care_tpu.ops import fused_head_topk as jax_fht
+    dtype = jnp.dtype(dtype)
+    v, i = jax_fht.fused_head_beam_topk(
+        jnp.asarray(h, dtype), jnp.asarray(W, dtype),
+        None if b is None else jnp.asarray(b, dtype),
+        jnp.asarray(scores), jnp.asarray(eos_row), K, chunk_size=chunk,
+        backend=backend, block_rows=8, interpret=backend == "pallas")
+    return np.asarray(v), np.asarray(i)
+
+
+def _port(h, W, b, scores, eos_row, K, chunk, dtype=torch.float32):
+    v, i = port_fht.fused_head_beam_topk(
+        torch.as_tensor(h, dtype=dtype),
+        torch.as_tensor(np.ascontiguousarray(W.T), dtype=dtype),
+        None if b is None else torch.as_tensor(b, dtype=dtype),
+        torch.as_tensor(scores), torch.as_tensor(eos_row), K,
+        chunk_size=chunk)
+    return v.numpy(), i.numpy()
+
+
+def _case(name):
+    """(h [N*K, H], W [H, V] (the JAX layout), b, scores, eos_row, K, chunk)."""
+    rng = np.random.RandomState(0)
+    if name == "ties":
+        # W columns engineered so many logits collide exactly, within and
+        # across chunks (tests/test_fused_head_topk.py tie case)
+        N, Kb, H, V = 1, 2, 8, 260
+        rng = np.random.RandomState(3)
+        h = np.ones((N * Kb, H), np.float32)
+        cols = rng.randint(0, 5, size=(V,)).astype(np.float32) / 8.0
+        W = (np.tile(cols[None, :], (H, 1)) / H).astype(np.float32)
+        return (h, W, None, np.zeros((N, Kb), np.float32),
+                np.zeros((N, Kb), bool), Kb, 128)
+    if name == "duplicated_columns":
+        # every column repeats 37 columns later, across chunk borders
+        N, Kb, H, V = 2, 3, 16, 700
+        h = rng.randn(N * Kb, H).astype(np.float32)
+        W = (rng.randn(H, 37) * 0.1).astype(np.float32)[:, np.arange(V) % 37]
+        return (h, W, None, rng.randn(N, Kb).astype(np.float32),
+                np.zeros((N, Kb), bool), Kb, 128)
+    if name == "all_eos":
+        N, Kb, H, V = 2, 3, 16, 500
+        rng = np.random.RandomState(1)
+        return (rng.randn(N * Kb, H).astype(np.float32),
+                (rng.randn(H, V) * 0.1).astype(np.float32), None,
+                rng.randn(N, Kb).astype(np.float32),
+                np.ones((N, Kb), bool), Kb, 128)
+    if name == "ragged_rows":
+        # 3 x 5 = 15 rows: not a multiple of the kernel's 8-row blocks
+        N, Kb, H, V = 3, 5, 24, 333
+        eos = np.zeros((N, Kb), bool)
+        eos[2, 1] = True
+        return (rng.randn(N * Kb, H).astype(np.float32),
+                (rng.randn(H, V) * 0.2).astype(np.float32), None,
+                rng.randn(N, Kb).astype(np.float32), eos, Kb, 128)
+    # "V<V>_chunk<c>[_bias]": V not (or) a multiple of the chunk, +/- bias
+    parts = name.split("_")
+    V, chunk = int(parts[0][1:]), int(parts[1][5:])
+    N, Kb, H = 3, 4, 32
+    h = rng.randn(N * Kb, H).astype(np.float32)
+    W = (rng.randn(H, V) * 0.1).astype(np.float32)
+    b = (rng.randn(V) * 0.1).astype(np.float32) if "bias" in parts else None
+    scores = rng.randn(N, Kb).astype(np.float32)
+    scores[:, 2] = DEAD                 # a dead-score beam row
+    eos = np.zeros((N, Kb), bool)
+    eos[1, 0] = True
+    return h, W, b, scores, eos, Kb, chunk
+
+
+CASES = ["V300_chunk128", "V1000_chunk256", "V1031_chunk256",
+         "V1031_chunk256_bias", "V300_chunk128_bias", "ties",
+         "duplicated_columns", "ragged_rows", "all_eos"]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_jax(case, backend):
+    h, W, b, scores, eos, K, chunk = _case(case)
+    want_v, want_i = _jax(h, W, b, scores, eos, K, chunk, backend)
+    got_v, got_i = _port(h, W, b, scores, eos, K, chunk)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)
+    if case == "all_eos" and backend == "xla":
+        # every candidate ties at DEAD; the xla backend keeps C*K
+        # candidates per row where the kernel (and the port) keep K, so
+        # the lowest-position picks name other ids: only values compare
+        # (the beam never admits such picks as hypotheses)
+        assert np.all(got_v == DEAD)
+        return
+    np.testing.assert_array_equal(got_i, want_i)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_bf16_inputs_checked_on_values(backend):
+    """bf16 h/W and bias. The port rounds the f32 product to bf16, adds the
+    bias in bf16 and goes to f32 for the softmax, as ``_stats_pallas``
+    states; XLA on the CPU keeps excess precision and drops those bf16
+    round trips. Inputs are drawn so that every logit, before and after
+    the bias, is exact in bf16: then both readings give the same values,
+    and the many exact ties check the tie order too."""
+    rng = np.random.RandomState(2)
+    N, Kb, H, V = 2, 3, 32, 700
+    h = (rng.randint(-1, 2, (N * Kb, H)) / 2).astype(np.float32)
+    W = (rng.randint(-1, 2, (H, V)) / 4).astype(np.float32)
+    b = (rng.randint(-2, 3, (V,)) / 8).astype(np.float32)
+    scores = rng.randn(N, Kb).astype(np.float32)
+    eos = np.zeros((N, Kb), bool)
+    want_v, want_i = _jax(h, W, b, scores, eos, Kb, 256, backend,
+                          "bfloat16")
+    got_v, got_i = _port(h, W, b, scores, eos, Kb, 256, torch.bfloat16)
+    np.testing.assert_allclose(got_v, want_v, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got_i, want_i)
+
+
+def test_cpu_call_launches_no_kernel(monkeypatch):
+    monkeypatch.setattr(port_fht, "launches", 0)
+    h, W, b, scores, eos, K, chunk = _case("V300_chunk128")
+    _port(h, W, b, scores, eos, K, chunk)
+    assert port_fht.launches == 0
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain(cuda_device, dtype):
+    """The CUDA kernel against the plain version at the flagship's shape
+    (64 videos x beam 5 rows, H 512, V 11000), with engineered ties."""
+    g = torch.Generator().manual_seed(0)
+    rows, H, V, K = 320, 512, 11000, 5
+    h = (torch.randint(-4, 5, (rows, H), generator=g) / 8).to(cuda_device,
+                                                               dtype)
+    W = (torch.randint(-8, 9, (37, H), generator=g) / 64)[
+        torch.arange(V) % 37].to(cuda_device, dtype)
+    before = port_fht.launches
+    got = port_fht._stats_cuda(h, W, None, K)
+    want = port_fht._stats_plain(h, W, None, K, 1024)
+    torch.cuda.synchronize()
+    assert port_fht.launches == before + 1
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
+    assert torch.equal(got[1].long(), want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(got[3].log(), want[3].log(), rtol=1e-5,
+                               atol=1e-6)
