@@ -24,7 +24,8 @@
 // passes:
 //   pass 1, grid (vocab tiles of BN columns) x (row tiles of BM rows): each
 //     block computes its BM x BN tile of the logits with a plain shared-
-//     memory tiled product, keeps it in shared memory, and writes per
+//     memory tiled product (tile_logits.cuh), keeps it in shared memory, and
+//     writes per
 //     (row, tile) the tile max, the tile sum of exp relative to that max,
 //     and the tile's top-K (value, id);
 //   pass 2, one warp per row: merges the row's tiles into (m, s) and picks
@@ -42,60 +43,11 @@
 // void*. Each entry point launches on the given stream, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tile_logits.cuh"
 
 namespace {
 
-constexpr int BM = 64;          // rows per tile
-constexpr int BN = 128;         // vocab columns per tile
-constexpr int BK = 16;          // depth of one step over H
-constexpr int THREADS = 256;    // 16 x 16 threads, each owning TM x TN outputs
-constexpr int TM = BM / 16;
-constexpr int TN = BN / 16;
-constexpr int WARPS = THREADS / 32;
-constexpr int NO_ID = 0x7fffffff;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// logit of one column from its f32 accumulator, in `_stats_pallas`'s order
-__device__ __forceinline__ float epilogue(float acc, const float* b, int col) {
-  return b ? acc + b[col] : acc;
-}
-__device__ __forceinline__ float epilogue(float acc, const __nv_bfloat16* b,
-                                          int col) {
-  float x = __bfloat162float(__float2bfloat16_rn(acc));
-  if (b) x = __bfloat162float(__float2bfloat16_rn(x + __bfloat162float(b[col])));
-  return x;
-}
-
-// (x, id) ranks before (y, jd): larger value first, then lower id
-__device__ __forceinline__ bool ranks_before(float x, int id, float y, int jd) {
-  return x > y || (x == y && id < jd);
-}
-
-__device__ __forceinline__ void warp_best(float& v, int& id) {
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    int oid = __shfl_xor_sync(0xffffffffu, id, o);
-    if (ranks_before(ov, oid, v, id)) { v = ov; id = oid; }
-  }
-}
-
-// online-softmax merge of (m2, s2) into (m, s); m = -inf means empty
-__device__ __forceinline__ void merge_stats(float& m, float& s, float m2,
-                                            float s2) {
-  if (m2 == -INFINITY) return;
-  if (m == -INFINITY) { m = m2; s = s2; return; }
-  float mn = fmaxf(m, m2);
-  s = s * expf(m - mn) + s2 * expf(m2 - mn);
-  m = mn;
-}
+using namespace care;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -103,59 +55,14 @@ tile_stats_kernel(const T* __restrict__ h, const T* __restrict__ W,
                   const T* __restrict__ b, int rows, int H, int V, int K,
                   float* __restrict__ part_m, float* __restrict__ part_s,
                   float* __restrict__ part_v, int* __restrict__ part_i) {
-  // +1 pads keep the transposing stores free of bank conflicts
-  __shared__ float As[BK][BM + 1];
-  __shared__ float Bs[BK][BN + 1];
-  __shared__ float Cs[BM][BN + 1];
+  __shared__ TileSmem sm;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
   const int col0 = blockIdx.x * BN;
   const int row0 = blockIdx.y * BM;
   const int n_tiles = gridDim.x;
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < H; k0 += BK) {
-    for (int idx = tid; idx < BM * BK; idx += THREADS) {
-      int r = idx / BK, kk = idx % BK;
-      int gr = row0 + r, gk = k0 + kk;
-      As[kk][r] = (gr < rows && gk < H) ? to_f32(h[(size_t)gr * H + gk]) : 0.f;
-    }
-    for (int idx = tid; idx < BN * BK; idx += THREADS) {
-      int c = idx / BK, kk = idx % BK;
-      int gc = col0 + c, gk = k0 + kk;
-      Bs[kk][c] = (gc < V && gk < H) ? to_f32(W[(size_t)gc * H + gk]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], w[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) w[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      int c = tx + 16 * j;
-      int gc = col0 + c;
-      Cs[ty + 16 * i][c] = gc < V ? epilogue(acc[i][j], b, gc) : -INFINITY;
-    }
-  __syncthreads();
+  tile_logits<T>(h, W, b, rows, H, V, row0, col0, sm);
 
   const int warp = tid / 32, lane = tid % 32;
   for (int r = warp; r < BM && row0 + r < rows; r += WARPS) {
@@ -165,7 +72,7 @@ tile_stats_kernel(const T* __restrict__ h, const T* __restrict__ W,
 #pragma unroll
     for (int q = 0; q < BN / 32; ++q) {
       int c = lane + 32 * q;
-      x[q] = Cs[r][c];
+      x[q] = sm.Cs[r][c];
       ok[q] = col0 + c < V;
       if (ok[q]) mx = fmaxf(mx, x[q]);
     }

@@ -33,6 +33,40 @@ def xavier_param(shape, generator: torch.Generator,
     return nn.Parameter(table)
 
 
+class Dropout(nn.Module):
+    """Inverted dropout whose keep mask comes from an explicit
+    ``torch.Generator`` (``F.dropout`` takes none), so that a training run
+    repeats from its seed whatever else draws random numbers. Active only
+    in training mode; ``generator`` None draws from torch's default
+    generator of the tensor's device. ``set_dropout_generator`` hands one
+    generator to every ``Dropout`` of a model."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout probability {p} must lie in [0, 1)")
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) >= self.p
+        return x * keep.to(x.dtype) / (1.0 - self.p)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
+
+
+def set_dropout_generator(model: nn.Module, generator) -> None:
+    """Every ``Dropout`` of ``model`` draws from ``generator`` from now on
+    (a ``torch.Generator`` on the model's device, or None)."""
+    for module in model.modules():
+        if isinstance(module, Dropout):
+            module.generator = generator
+
+
 ACTIVATIONS = {
     "relu": torch.relu,
     "gelu": lambda x: nn.functional.gelu(x, approximate="tanh"),

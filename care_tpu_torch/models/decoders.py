@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from care_tpu_torch import constants
-from care_tpu_torch.models.common import unsupported
+from care_tpu_torch.models.common import Dropout, unsupported
 from care_tpu_torch.models.embeddings import Embeddings
 from care_tpu_torch.models.layers import DecoderLayer
 from care_tpu_torch.ops.attention import NEG_INF
@@ -71,7 +71,7 @@ class TransformerDecoder(nn.Module):
         self.num_layers = opt["num_hidden_layers_decoder"]
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(opt, generator))
-        self.dropout = nn.Dropout(opt["hidden_dropout_prob"])
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     @property
     def layers(self):

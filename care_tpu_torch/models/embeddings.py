@@ -10,7 +10,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import xavier_param, unsupported
+from care_tpu_torch.models.common import (Dropout, unsupported,
+                                          xavier_param)
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -55,7 +56,7 @@ class NaiveEmbeddings(nn.Module):
         self.position_embeddings = xavier_param((n_positions, dim_hidden),
                                                 generator)
         self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
-        self.dropout = nn.Dropout(hidden_dropout_prob if has_dropout else 0.0)
+        self.dropout = Dropout(hidden_dropout_prob if has_dropout else 0.0)
 
     def forward(self, input_ids):
         embs = self.word_embeddings[input_ids]
@@ -86,7 +87,7 @@ class Embeddings(nn.Module):
             opt.get("trainable_pe", False), generator)
         self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
                                       eps=opt["layer_norm_eps"])
-        self.dropout = nn.Dropout(opt["hidden_dropout_prob"])
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     def forward(self, input_ids, semantic_hidden_states=None,
                 position_ids=None):

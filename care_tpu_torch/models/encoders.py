@@ -12,7 +12,7 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import dense, unsupported
+from care_tpu_torch.models.common import Dropout, dense, unsupported
 
 
 class LinearLNDrop(nn.Module):
@@ -21,7 +21,7 @@ class LinearLNDrop(nn.Module):
         super().__init__()
         self.linear = dense(dim_in, dim_out, generator)
         self.ln = nn.LayerNorm(dim_out, eps=eps)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x):
         return self.dropout(self.ln(self.linear(x)))

@@ -81,21 +81,32 @@ class Captioner(nn.Module):
         return out
 
     def decoding_phase(self, input_ids, inputs_for_decoder: Dict[str, Any],
-                       last_time_step_logits: bool = False) -> Dict[str, Any]:
+                       last_time_step_logits: bool = False,
+                       compute_logits: bool = True) -> Dict[str, Any]:
+        """``compute_logits=False`` (the fused-xent training path,
+        ``ops/fused_xent.py``) skips the vocab projection: the criterion
+        takes its statistics from ``hidden_states`` and the head's weight,
+        so the ``[B, L, V]`` logits never exist."""
         outputs = self.decoder(input_ids, **inputs_for_decoder)
+        if not compute_logits and not last_time_step_logits:
+            return outputs
         hidden_states = outputs["hidden_states"]
         if last_time_step_logits:
             hidden_states = hidden_states[:, -1, :]
         outputs["logits"] = self.cls_head(hidden_states)
         return outputs
 
-    def forward(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """feedforward_step (reference ``Framework.py:215-234``)."""
+    def forward(self, batch: Dict[str, Any],
+                compute_logits: bool = True) -> Dict[str, Any]:
+        """feedforward_step (reference ``Framework.py:215-234``). In
+        training mode (``model.train()``) every dropout is active and draws
+        from the generator given to ``set_dropout_generator``."""
         encoding_phase_outputs = self.encoding_phase(batch["feats"])
         inputs_for_decoder = self.prepare_inputs_for_decoder(
             encoding_phase_outputs, batch)
         return {**encoding_phase_outputs,
-                **self.decoding_phase(batch["input_ids"], inputs_for_decoder)}
+                **self.decoding_phase(batch["input_ids"], inputs_for_decoder,
+                                      compute_logits=compute_logits)}
 
     # ------------------------------------------------------------------
     # KV-cached incremental decoding

@@ -11,7 +11,8 @@ KV-cached one-token step. Masks are additive f32 biases (0 / -1e9).
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import dense, get_activation, unsupported
+from care_tpu_torch.models.common import (Dropout, dense, get_activation,
+                                          unsupported)
 from care_tpu_torch.ops.attention import dot_product_attention
 
 
@@ -26,7 +27,8 @@ def merge_heads(x):
 
 
 class MultiHeadAttention(nn.Module):
-    """Attention + output dense + dropout + residual + LN.
+    """Attention (with dropout on its probabilities) + output dense +
+    dropout + residual + LN.
 
     ``hybrid_length`` > 0 adds a learned per-head bias ``hybrid_bias``
     [H, Lk] over the key axis (the "HA" of CARE's LSG, reference
@@ -36,7 +38,8 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, dim_hidden: int, num_attention_heads: int,
                  hidden_dropout_prob: float, layer_norm_eps: float,
                  generator: torch.Generator, exclude_bias: bool = False,
-                 hybrid_length: int = 0):
+                 hybrid_length: int = 0,
+                 attention_probs_dropout_prob: float = 0.0):
         super().__init__()
         self.num_attention_heads = num_attention_heads
         use_bias = not exclude_bias
@@ -50,7 +53,8 @@ class MultiHeadAttention(nn.Module):
         else:
             self.hybrid_bias = None
         self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
-        self.out_dropout = nn.Dropout(hidden_dropout_prob)
+        self.attn_dropout = Dropout(attention_probs_dropout_prob)
+        self.out_dropout = Dropout(hidden_dropout_prob)
 
     def project_q(self, x):
         return split_heads(self.query(x), self.num_attention_heads)
@@ -97,7 +101,8 @@ class MultiHeadAttention(nn.Module):
                 raise ValueError(f"cannot group q {tuple(q.shape)} over "
                                  f"k {tuple(k.shape)}")
             q = q.reshape(bk, bq // bk, nh, dh).transpose(1, 2)
-        context, probs = dot_product_attention(q, k, v, bias=bias)
+        context, probs = dot_product_attention(q, k, v, bias=bias,
+                                               dropout=self.attn_dropout)
         if grouped:
             context = context.transpose(1, 2).reshape(bq, nh, 1, dh)
             probs = probs.transpose(1, 2).reshape(bq, nh, 1, probs.shape[-1])
@@ -124,7 +129,7 @@ class PositionwiseFeedForward(nn.Module):
         self.dense1 = dense(dim_hidden, dim_intermediate, generator)
         self.dense2 = dense(dim_intermediate, dim_hidden, generator)
         self.act = get_activation(hidden_act)
-        self.dropout = nn.Dropout(hidden_dropout_prob)
+        self.dropout = Dropout(hidden_dropout_prob)
         self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
 
     def forward(self, hidden_states):
@@ -173,6 +178,8 @@ class DecoderLayer(nn.Module):
         common = dict(dim_hidden=opt["dim_hidden"],
                       num_attention_heads=opt["num_attention_heads"],
                       hidden_dropout_prob=opt["hidden_dropout_prob"],
+                      attention_probs_dropout_prob=opt[
+                          "attention_probs_dropout_prob"],
                       layer_norm_eps=opt["layer_norm_eps"],
                       exclude_bias=opt.get("mha_exclude_bias", False),
                       generator=generator)

@@ -7,6 +7,12 @@ mechanical: a ``Linear``'s ``weight`` is the flax ``kernel`` transposed
 ([in, out] -> [out, in]), a ``LayerNorm``'s ``weight`` is its ``scale``,
 and every other parameter (embedding tables, the hybrid bias) keeps its
 name and shape. Arrays are copied, never aliased.
+
+``params_to_jax(model)`` and ``grads_to_jax(model)`` go the other way: the
+port's parameters, or their ``.grad``s, as a nested dict of numpy arrays
+under the flax tree's names and layouts, so that gradients and updated
+parameters can be compared leaf by leaf. ``jax_leaf_key`` is the one name
+map all three share; the optimizer's path filters use it too.
 """
 
 import numpy as np
@@ -22,6 +28,18 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
+def jax_leaf_key(model: nn.Module, name: str):
+    """(flax path as a tuple, transpose?) of the port parameter ``name``
+    (a key of ``model.named_parameters()``)."""
+    *mod_path, attr = name.split(".")
+    module = model.get_submodule(".".join(mod_path))
+    if isinstance(module, nn.Linear) and attr == "weight":
+        return tuple(mod_path) + ("kernel",), True
+    if isinstance(module, nn.LayerNorm) and attr == "weight":
+        return tuple(mod_path) + ("scale",), False
+    return tuple(mod_path) + (attr,), False
+
+
 def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
     """Copy ``params`` into ``model`` in place and return it. Raises on a
     shape mismatch, on a port parameter with no JAX leaf, and on a JAX leaf
@@ -30,14 +48,7 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
     used = set()
     with torch.no_grad():
         for name, param in model.named_parameters():
-            *mod_path, attr = name.split(".")
-            module = model.get_submodule(".".join(mod_path))
-            jax_attr, transpose = attr, False
-            if isinstance(module, nn.Linear) and attr == "weight":
-                jax_attr, transpose = "kernel", True
-            elif isinstance(module, nn.LayerNorm) and attr == "weight":
-                jax_attr = "scale"
-            key = tuple(mod_path) + (jax_attr,)
+            key, transpose = jax_leaf_key(model, name)
             if key not in leaves:
                 raise KeyError(f"no JAX parameter {'/'.join(key)} for {name}")
             value = np.array(leaves[key], dtype=np.float32)
@@ -52,3 +63,36 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
     if unused:
         raise KeyError(f"JAX parameters the port does not take: {unused}")
     return model
+
+
+def _to_jax_tree(model: nn.Module, pick) -> dict:
+    tree: dict = {}
+    for name, param in model.named_parameters():
+        key, transpose = jax_leaf_key(model, name)
+        if not key[:-1]:
+            raise KeyError(f"port parameter {name} has no flax name")
+        tensor = pick(name, param)
+        value = tensor.detach().to("cpu", torch.float32).numpy().copy()
+        node = tree
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = np.ascontiguousarray(value.T) if transpose else value
+    return tree
+
+
+def params_to_jax(model: nn.Module) -> dict:
+    """The port's parameters as the flax ``params`` tree (numpy copies,
+    Linear weights transposed back to ``[in, out]`` kernels). Raises on a
+    parameter that has no flax name (one held by the model itself rather
+    than a named submodule)."""
+    return _to_jax_tree(model, lambda name, param: param)
+
+
+def grads_to_jax(model: nn.Module) -> dict:
+    """The parameters' ``.grad``s in the same tree; raises on a parameter
+    without a gradient."""
+    def pick(name, param):
+        if param.grad is None:
+            raise ValueError(f"{name} has no gradient")
+        return param.grad
+    return _to_jax_tree(model, pick)

@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on first use
 with ``nvcc`` for Hopper (``sm_90a``) into ``care_tpu_torch/build/``, a
 directory the repository does not track, then loaded with ``ctypes``. A
-library is rebuilt when its source is newer. A failed build raises with the
+library is rebuilt when its source, or any shared header ``csrc/*.cuh``, is
+newer. A failed build raises with the
 compiler's output. Importing this module builds nothing.
 """
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -40,8 +42,10 @@ def build(name: str) -> dict:
     src = os.path.join(CSRC_DIR, name + ".cu")
     lib = os.path.join(BUILD_DIR, f"lib{name}.so")
     log_path = lib + ".log"
+    newest = max(map(os.path.getmtime,
+                     [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]))
     if (os.path.exists(lib) and os.path.exists(log_path)
-            and os.path.getmtime(lib) >= os.path.getmtime(src)):
+            and os.path.getmtime(lib) >= newest):
         with open(log_path) as f:
             return {"path": lib, "seconds": 0.0, "log": f.read()}
     os.makedirs(BUILD_DIR, exist_ok=True)

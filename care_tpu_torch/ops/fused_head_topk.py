@@ -20,6 +20,15 @@ Two implementations of the statistics:
 ``fused_head_beam_topk`` takes the kernel for a CUDA tensor and the plain
 version for a CPU tensor; there is no other fallback.
 
+``vocab_argmax_lse`` is the second function of the JAX module: per row the
+first-occurrence argmax, the max logit and the log-sum-exp of the vocab
+logits, optionally the logit at a given token id, again without the
+logits. NAR decoding needs it, and with the sum of the logits added it is
+the forward of the fused training cross-entropy (``ops/fused_xent.py``). It
+has the same two implementations, ``_argmax_lse_plain`` and
+``_argmax_lse_cuda`` (``csrc/vocab_argmax_lse.cu``, which replaces the TPU
+kernel ``_argmax_lse_kernel``), chosen by the tensor's device alone.
+
 Layouts follow torch: the projection ``W`` is ``[V, H]`` (the
 ``nn.Linear`` weight of the head), where the JAX package's kernel is
 ``[H, V]``. Ties between equal values resolve lowest vocab id first in both
@@ -42,6 +51,8 @@ _PAD_LOGIT = -1e30
 # kernel launches made by the CUDA path of `fused_head_beam_topk`, so that a
 # run can show the main path went through the kernel
 launches = 0
+# the same for the CUDA path of `vocab_argmax_lse` / `argmax_lse_stats`
+argmax_lse_launches = 0
 
 
 def _clamp_chunk(V: int, chunk_size: int) -> int:
@@ -112,23 +123,11 @@ def _stats_cuda(h, W, b, beam_k: int):
     """The kernel's (cv, ids, m, s), ids int32; the same contract as
     ``_stats_plain``. Launches on the current stream without syncing."""
     global launches
-    if h.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused head kernel takes f32 or bf16, not {h.dtype}")
-    if W.dtype != h.dtype or (b is not None and b.dtype != h.dtype):
-        raise TypeError("h, W and b must share one dtype")
-    if h.dim() != 2 or W.dim() != 2 or h.shape[1] != W.shape[1]:
-        raise ValueError(f"h {tuple(h.shape)} and W {tuple(W.shape)} "
-                         "must be [rows, H] and [V, H]")
+    _check_head_operands(h, W, b)
     rows, H = h.shape
     V = W.shape[0]
-    if b is not None and tuple(b.shape) != (V,):
-        raise ValueError(f"bias {tuple(b.shape)} must be [{V}]")
     if not 1 <= beam_k <= V:
         raise ValueError(f"beam_k {beam_k} must lie in [1, V={V}]")
-    for name, t in (("h", h), ("W", W), ("b", b)):
-        if t is not None and (t.device != h.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous tensor on "
-                             f"{h.device}")
     lib = _library()
     n_tiles = -(-V // lib.care_fused_head_topk_tile_cols())
     f32 = dict(dtype=torch.float32, device=h.device)
@@ -152,6 +151,23 @@ def _stats_cuda(h, W, b, beam_k: int):
         raise RuntimeError(f"fused head kernel launch failed: CUDA error {rc}")
     launches += 1
     return cv, ids, m, s
+
+
+def _check_head_operands(h, W, b):
+    """What both kernels ask of (h [rows, H], W [V, H], b [V] or None)."""
+    if h.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused head kernel takes f32 or bf16, not {h.dtype}")
+    if W.dtype != h.dtype or (b is not None and b.dtype != h.dtype):
+        raise TypeError("h, W and b must share one dtype")
+    if h.dim() != 2 or W.dim() != 2 or h.shape[1] != W.shape[1]:
+        raise ValueError(f"h {tuple(h.shape)} and W {tuple(W.shape)} "
+                         "must be [rows, H] and [V, H]")
+    if b is not None and tuple(b.shape) != (W.shape[0],):
+        raise ValueError(f"bias {tuple(b.shape)} must be [{W.shape[0]}]")
+    for name, t in (("h", h), ("W", W), ("b", b)):
+        if t is not None and (t.device != h.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous tensor on "
+                             f"{h.device}")
 
 
 def _finalize(cv, ids, m, s, scores, eos_row, beam_k: int, V: int):
@@ -199,3 +215,135 @@ def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
     else:
         raise RuntimeError(f"no fused head path for device {h.device}")
     return _finalize(cv, ids, m, s, scores, eos_row, beam_k, V)
+
+
+# ---------------------------------------------------------------------------
+# argmax / max / lse (/ token logit / sum) of the vocab logits
+# ---------------------------------------------------------------------------
+
+def _argmax_lse_plain(h, W, b, tokens, chunk_size: int, want_sum: bool):
+    """(argmax [rows] int64, max, lse, token logit or None, sum or None),
+    f32, chunk by chunk over the vocab like the ``lax.scan`` form of the JAX
+    package. ``tokens`` [rows] int or None."""
+    rows = h.shape[0]
+    V = W.shape[0]
+    chunk_size = _clamp_chunk(V, chunk_size)
+    dev = h.device
+    m = torch.full((rows,), float("-inf"), device=dev)
+    s = torch.zeros((rows,), device=dev)
+    av = torch.full((rows,), float("-inf"), device=dev)
+    ai = torch.zeros((rows,), dtype=torch.long, device=dev)
+    tok = None if tokens is None else torch.zeros((rows,), device=dev)
+    tot = torch.zeros((rows,), device=dev) if want_sum else None
+    for c0 in range(0, V, chunk_size):
+        logits = _logits(h, W[c0:c0 + chunk_size],
+                         None if b is None else b[c0:c0 + chunk_size])
+        # torch.max returns the first of equal maxima
+        mc, ci = logits.max(dim=-1)
+        m_new = torch.maximum(m, mc)
+        s = (s * torch.exp(m - m_new)
+             + torch.exp(logits - m_new[:, None]).sum(dim=-1))
+        m = m_new
+        better = mc > av                  # strict: the lower chunk keeps ties
+        av = torch.where(better, mc, av)
+        ai = torch.where(better, ci + c0, ai)
+        if tokens is not None:
+            ids = torch.arange(c0, c0 + logits.shape[1], device=dev)
+            tok = tok + torch.where(ids[None, :] == tokens[:, None], logits,
+                                    0.0).sum(dim=-1)
+        if want_sum:
+            tot = tot + logits.sum(dim=-1)
+    return ai, av, m + torch.log(s), tok, tot
+
+
+_ARGMAX_LSE_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                        + [ctypes.c_void_p] * 10)
+
+
+@functools.cache
+def _argmax_lse_library():
+    lib = _build.load("vocab_argmax_lse")
+    for fn in (lib.care_vocab_argmax_lse_f32, lib.care_vocab_argmax_lse_bf16):
+        fn.argtypes = _ARGMAX_LSE_ARGTYPES
+        fn.restype = ctypes.c_int
+    lib.care_vocab_argmax_lse_tile_cols.argtypes = []
+    lib.care_vocab_argmax_lse_tile_cols.restype = ctypes.c_int
+    return lib
+
+
+def _argmax_lse_cuda(h, W, b, tokens, want_sum: bool):
+    """The kernel's version of ``_argmax_lse_plain`` (argmax int32).
+    Launches on the current stream without syncing."""
+    global argmax_lse_launches
+    _check_head_operands(h, W, b)
+    rows, H = h.shape
+    V = W.shape[0]
+    if tokens is not None:
+        if tuple(tokens.shape) != (rows,) or tokens.device != h.device:
+            raise ValueError(f"token ids {tuple(tokens.shape)} must be "
+                             f"[{rows}] on {h.device}")
+        tokens = tokens.to(torch.int32).contiguous()
+    lib = _argmax_lse_library()
+    n_tiles = -(-V // lib.care_vocab_argmax_lse_tile_cols())
+    f32 = dict(dtype=torch.float32, device=h.device)
+    i32 = dict(dtype=torch.int32, device=h.device)
+    part_m = torch.empty((rows, n_tiles), **f32)
+    part_s = torch.empty((rows, n_tiles), **f32)
+    part_i = torch.empty((rows, n_tiles), **i32)
+    part_t = torch.empty((rows, n_tiles), **f32) if want_sum else None
+    amax = torch.empty((rows,), **i32)
+    mx = torch.empty((rows,), **f32)
+    lse = torch.empty((rows,), **f32)
+    # the one tile that holds a row's token writes it; ids outside the
+    # vocab leave the zero
+    tok = None if tokens is None else torch.zeros((rows,), **f32)
+    tot = torch.empty((rows,), **f32) if want_sum else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    fn = (lib.care_vocab_argmax_lse_f32 if h.dtype == torch.float32
+          else lib.care_vocab_argmax_lse_bf16)
+    stream = torch.cuda.current_stream(h.device).cuda_stream
+    rc = fn(h.data_ptr(), W.data_ptr(), ptr(b), ptr(tokens), rows, H, V,
+            int(want_sum), part_m.data_ptr(), part_s.data_ptr(),
+            part_i.data_ptr(), ptr(part_t), amax.data_ptr(), mx.data_ptr(),
+            lse.data_ptr(), ptr(tok), ptr(tot), stream)
+    if rc != 0:
+        raise RuntimeError("vocab argmax/lse kernel launch failed: CUDA "
+                           f"error {rc}")
+    argmax_lse_launches += 1
+    return amax, mx, lse, tok, tot
+
+
+def argmax_lse_stats(h, W, b, tokens, chunk_size: int = 1024,
+                     want_sum: bool = False):
+    """h [rows, H], W [V, H], b [V] or None, tokens [rows] int or None ->
+    (argmax [rows] int64, max logit, lse, token logit or None, sum of
+    logits or None), the statistics in f32. A CUDA tensor takes the kernel,
+    a CPU tensor the plain version (the only use of ``chunk_size``)."""
+    if h.device.type == "cuda":
+        out = _argmax_lse_cuda(h, W, b, tokens, want_sum)
+    elif h.device.type == "cpu":
+        out = _argmax_lse_plain(h, W, b, tokens, chunk_size, want_sum)
+    else:
+        raise RuntimeError(f"no fused head path for device {h.device}")
+    return (out[0].long(),) + tuple(out[1:])
+
+
+@torch.no_grad()
+def vocab_argmax_lse(h, W, b, token_ids=None, chunk_size: int = 1024):
+    """(argmax, max logit, logsumexp[, token logit]) of ``h @ W.T + b`` over
+    the vocab axis, without the ``[..., V]`` logits: what the NAR decode
+    loop needs (the argmax token and its probability ``exp(max - lse)``;
+    teacher rescoring's ``exp(tok - lse)``). Serving only, no gradient.
+
+    h: [..., H]; W: [V, H]; b: [V] or None; token_ids: [...] int or None.
+    Each output is shaped like ``h.shape[:-1]``; argmax is int64 and ties
+    go to the lowest id, as ``argmax`` over the full row would give.
+    """
+    lead = h.shape[:-1]
+    hf = h.reshape(-1, h.shape[-1]).contiguous()
+    tf = None if token_ids is None else token_ids.reshape(-1)
+    ai, av, lse, tok, _ = argmax_lse_stats(hf, W, b, tf, chunk_size)
+    out = (ai.reshape(lead), av.reshape(lead), lse.reshape(lead))
+    if token_ids is not None:
+        out = out + (tok.reshape(lead),)
+    return out

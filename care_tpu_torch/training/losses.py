@@ -1,0 +1,271 @@
+"""Loss / criterion system.
+
+Port of ``care_tpu/training/losses.py`` (reference ``misc/Crit/``) for the
+crits the flagship trains with:
+
+* the language NLL with label smoothing on log-softmax, the stripping of
+  the G-LSG concept-prefix positions, and the word-accuracy and perplexity
+  recorders, dense (``_lang_step``) or from the fused statistics of
+  ``ops/fused_xent.py`` (``_lang_step_fused``);
+* the noisy-OR MIL concept loss, BCE on the merged concept probabilities
+  normalised by the number of positives (clamped to [0.01, 0.99]), the
+  sparse-sampling L1 regulariser, and the F1@{5..50} and mAP recorders;
+* the ``Criterion`` aggregator with named scales.
+
+Every value is a tensor on the model's device; the trainer fetches them
+once per epoch. The ``length``, ``attn`` and ``gate`` crits, decoder-side
+concept flags, visual-word generation and pointer ``probs`` are not ported
+yet and raise ``NotImplementedError``.
+"""
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from care_tpu_torch import constants
+from care_tpu_torch.models.common import unsupported
+from care_tpu_torch.ops.fused_xent import vocab_xent_stats
+from care_tpu_torch.ops.topk import top_k
+
+
+def _as_list(x):
+    return x if isinstance(x, (list, tuple)) else [x]
+
+
+# ---------------------------------------------------------------------------
+# language generation
+# ---------------------------------------------------------------------------
+
+def _strip_positions(opt, x, labels):
+    """Drop the positions of ``x`` [B, L', ...] that carry no label: the
+    concept prefix, the ``pp`` slot, or the last position."""
+    use_attr = opt.get("use_attr", False)
+    t = opt.get("use_attr_type") or ""
+    if use_attr and "prefix" in t:
+        assert x.shape[1] == labels.shape[1] + opt["use_attr_topk"]
+        return x[:, opt["use_attr_topk"]:]
+    if use_attr and "pp" in t:
+        assert x.shape[1] == labels.shape[1] + 1
+        return x[:, 1:]
+    if x.shape[1] == labels.shape[1] + 1:
+        return x[:, :-1]
+    assert x.shape[1] == labels.shape[1], (x.shape, labels.shape)
+    return x
+
+
+def _lang_reduce(opt, nll, smooth, preds, labels):
+    """(sum-loss, recorders) from the per-position NLL, the smoothing term
+    and the argmax."""
+    label_smoothing = opt.get("label_smoothing", 0.0)
+    loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
+    keep = labels != constants.PAD
+    mask = keep.float()
+    correct = (preds == labels) & keep
+    metrics = {
+        "word_acc_num": correct.float().sum(),
+        "word_acc_den": mask.sum(),
+        "xent_sum": (nll * mask).sum(),
+        "xent_count": mask.sum(),
+    }
+    return (loss * mask).sum(), metrics
+
+
+def _lang_step(opt, logits, labels):
+    """One (logits, labels) pair -> (sum-loss, metrics)."""
+    logits = _strip_positions(opt, logits, labels)
+    logprobs = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logprobs, 2, labels[:, :, None])[:, :, 0]
+    smooth = -logprobs.mean(dim=-1)
+    return _lang_reduce(opt, nll, smooth, logprobs.argmax(dim=-1), labels)
+
+
+def _lang_step_fused(opt, hidden, weight, labels):
+    """Fused-xent variant of ``_lang_step``: the criterion's four
+    statistics stream from (hidden, head weight [V, H]), so the [B, L, V]
+    logits never exist; the same position slicing, loss algebra and
+    recorders."""
+    hidden = _strip_positions(opt, hidden, labels)
+    V = weight.shape[0]
+    lse, lab, tot, amax = vocab_xent_stats(
+        hidden, weight, None, labels, opt.get("fused_xent_chunk", 1024))
+    # log_softmax identities: nll = lse - label_logit;
+    # -mean(logprobs) = lse - sum(logits)/V; argmax(logits)==argmax(logp)
+    return _lang_reduce(opt, lse - lab, lse - tot / V, amax, labels)
+
+
+def lang_loss(opt, results) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    if opt.get("visual_word_generation", False):
+        raise unsupported("visual_word_generation")
+    if results.get("probs") is not None:
+        raise unsupported("probs (pointer copy probabilities)")
+    labels = _as_list(results["labels"])
+
+    if results.get("logits") is None and "cls_head_kernel" in results:
+        # fused-xent path (the trainer hands over the head's weight; one
+        # hidden stream, plain head: eligibility is decided there)
+        assert len(labels) == 1
+        hidden = results["hidden_states"]
+        s, m = _lang_step_fused(opt, hidden, results["cls_head_kernel"],
+                                labels[0])
+        return s / hidden.shape[0], {
+            "word_acc_num0": m["word_acc_num"],
+            "word_acc_den0": m["word_acc_den"],
+            "xent_sum": m["xent_sum"],
+            "xent_count": m["xent_count"],
+        }
+
+    logits = _as_list(results["logits"])
+    if len(labels) != len(logits):
+        labels = labels * len(logits)
+    denom = logits[0].shape[0]
+    total = 0.0
+    metrics: Dict[str, torch.Tensor] = {}
+    for i, (lg, lb) in enumerate(zip(logits, labels)):
+        s, m = _lang_step(opt, lg, lb)
+        total = total + s / denom
+        metrics[f"word_acc_num{i}"] = m["word_acc_num"]
+        metrics[f"word_acc_den{i}"] = m["word_acc_den"]
+        # perplexity accumulates across the caption-generation passes
+        metrics["xent_sum"] = metrics.get("xent_sum", 0.0) + m["xent_sum"]
+        metrics["xent_count"] = (metrics.get("xent_count", 0.0)
+                                 + m["xent_count"])
+    return total, metrics
+
+
+# ---------------------------------------------------------------------------
+# noisy-OR concept loss
+# ---------------------------------------------------------------------------
+
+def _noisy_or_mil(opt, preds_attr, avg_prob_attr, labels_attr,
+                  with_metrics: bool = False):
+    preds_attr = torch.clamp(preds_attr, 0.01, 0.99)
+    labels_attr = labels_attr[:, :preds_attr.shape[1]].float()
+
+    n_positive = labels_attr.sum(dim=1)
+    n_attributes = preds_attr.shape[1]
+
+    bce = -(labels_attr * torch.log(preds_attr)
+            + (1.0 - labels_attr) * torch.log(1.0 - preds_attr))
+    loss = bce.sum(dim=1) / torch.clamp_min(n_positive, 1.0)
+
+    if (opt.get("attribute_prediction_sparse_sampling", False)
+            and avg_prob_attr is not None):
+        threshold = n_positive / n_attributes
+        loss = loss + torch.abs(torch.maximum(avg_prob_attr, threshold)
+                                - threshold)
+
+    metrics: Dict[str, torch.Tensor] = {}
+    if with_metrics:
+        # F1@k ladder (reference pred_attribute.py evaluation ks), clamped
+        # to the attribute-vocabulary size for small (synthetic) corpora
+        topk_list = [k for k in (5, 10, 20, 30, 40, 50)
+                     if k <= n_attributes] or [n_attributes]
+        _, candidates = top_k(preds_attr, max(topk_list))
+        hits = torch.gather(labels_attr, 1, candidates)
+        for topk in topk_list:
+            n_hit = hits[:, :topk].sum(dim=1)
+            n_hit = torch.where(n_hit == 0, 1e-3, n_hit)
+            precision = n_hit / topk
+            recall = n_hit / torch.clamp_min(n_positive, 1e-6)
+            f1 = 2 * precision * recall / (precision + recall)
+            metrics[f"f1_{topk}_sum"] = f1.sum()
+            metrics[f"f1_{topk}_count"] = f1.new_tensor(
+                float(preds_attr.shape[0]))
+        # mAP: mean over samples of AP over positive labels; stable sorts,
+        # so equal probabilities rank lowest index first
+        order = torch.argsort(-preds_attr, dim=1, stable=True)
+        rank = torch.argsort(order, dim=1, stable=True)
+        pos_mask = labels_attr > 0
+        big = torch.where(pos_mask, rank, n_attributes + 1)
+        sorted_hit_rank = torch.sort(big, dim=1).values    # positives first
+        ids = torch.arange(n_attributes, device=preds_attr.device)[None, :]
+        valid = ids < n_positive[:, None]
+        prec = (ids + 1.0) / (sorted_hit_rank + 1.0)
+        ap = (torch.where(valid, prec, 0.0).sum(dim=1)
+              / torch.clamp_min(n_positive, 1.0))
+        has_pos = n_positive > 0
+        metrics["ap_sum"] = torch.where(has_pos, ap, 0.0).sum()
+        metrics["ap_count"] = has_pos.float().sum()
+    return loss.sum(), metrics
+
+
+def attribute_losses(opt, results, with_metrics: bool = False):
+    """The concept losses for ``attribute_prediction_flags``; only the
+    encoder-side flag ``V`` is ported."""
+    flags = opt["attribute_prediction_flags"]
+    scales = opt.get("attribute_prediction_scales", [1.0])
+    if not isinstance(scales, list):
+        scales = [scales]
+    if len(scales) == 1:
+        scales = scales * len(flags)
+    assert len(scales) == len(flags)
+
+    labels_attr = results["labels_attr"]
+    denom = labels_attr.shape[0]
+    out: Dict[str, torch.Tensor] = {}
+    metrics: Dict[str, torch.Tensor] = {}
+    total = 0.0
+    for flag, scale in zip(flags, scales):
+        if flag != "V":
+            raise unsupported("attribute_prediction_flags", flags)
+        s, m = _noisy_or_mil(opt, results["preds_attr"],
+                             results["avg_prob_attr"], labels_attr,
+                             with_metrics=with_metrics)
+        loss = s / denom
+        out[f"{flag}-Attr"] = loss * scale
+        total = total + loss * scale
+        for k, v in m.items():
+            metrics[f"{flag}_{k}"] = v
+    return total, out, metrics
+
+
+# ---------------------------------------------------------------------------
+# criterion aggregator
+# ---------------------------------------------------------------------------
+
+PORTED_CRITS = ("lang", "attribute")
+
+
+class Criterion:
+    """Weighted multi-task loss with named components
+    (reference ``misc/Crit/base.py:50-113``)."""
+
+    def __init__(self, opt: dict, skip_crit_list: List[str] = (),
+                 override_opt: Optional[dict] = None,
+                 with_metrics: bool = False):
+        o = dict(opt)
+        if override_opt:
+            o.update(override_opt)
+        self.opt = o
+        self.crits = [c for c in o["crits"] if c not in skip_crit_list]
+        for crit in self.crits:
+            if crit in ("length", "attn", "gate"):
+                raise unsupported("crits", crit)
+            if crit not in PORTED_CRITS:
+                raise ValueError(f"unknown crit `{crit}`")
+        self.with_metrics = with_metrics
+        self.scales = {c: 1.0 for c in self.crits}
+        if "lang" in self.scales:
+            self.scales["lang"] = o.get("language_generation_scale", 1.0)
+
+    def set_scales(self, new_scales: Dict[str, float]):
+        self.scales.update(new_scales)
+
+    def __call__(self, results: Dict[str, Any]):
+        """Returns (total_loss, loss_dict, metrics_dict), all tensors."""
+        total = 0.0
+        losses: Dict[str, torch.Tensor] = {}
+        metrics: Dict[str, torch.Tensor] = {}
+        for crit in self.crits:
+            if crit == "lang":
+                l, m = lang_loss(self.opt, results)
+                losses["Lang Loss"] = l
+                metrics.update(m)
+                total = total + l * self.scales["lang"]
+            else:
+                l, per, m = attribute_losses(self.opt, results,
+                                             with_metrics=self.with_metrics)
+                losses.update(per)
+                metrics.update(m)
+                total = total + l * self.scales.get("attribute", 1.0)
+        return total, losses, metrics

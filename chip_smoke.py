@@ -9,19 +9,27 @@ before the last line:
 
 1. device: the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions. Fails at once without a CUDA device.
-2. build: every kernel of the serving path is compiled with ``nvcc`` from
-   ``care_tpu_torch/csrc`` (all sources at once), printing the build seconds
-   and the ``-Xptxas -v`` register and shared-memory summary.
+2. build: every kernel of the serving and training paths is compiled with
+   ``nvcc`` from ``care_tpu_torch/csrc`` (all sources at once), printing the
+   build seconds and the ``-Xptxas -v`` register and shared-memory summary.
 3. check: each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship's serving path gives it and in the tie, bf16 and
-   ragged-row cases.
+   shapes the flagship's serving and training paths give it and in the tie,
+   bf16, bias and ragged-row cases.
 4. serve: the full-width CARE flagship (MSRVTT, Transformer, CARE, ViT,
    VA/VAT; random weights from a seed) captions 3 batches of 64 synthetic
    videos and one ragged batch of 17 through
    ``get_translator(opt).translate_batch``. The kernel launch counts must
    match the beam steps run, and every returned score must equal the
    teacher-forced score of its tokens from the full forward.
-5. time: each kernel, its plain version and the unfused torch sequence,
+5. train: ``Trainer(opt, loader).fit()`` trains the same flagship with
+   ``fused_xent: True`` for 2 epochs of 4 synthetic batches of 64, dropout
+   on, through the dual-Adam switch. Every step's cross-entropy must go
+   forward through the argmax/lse kernel and backward through the dh and
+   dW kernels (launch counts == steps), every loss must be finite and the
+   last steps' mean below the first. Then fused against dense from one
+   seed with dropout off, the ``auto`` policy at batch 64 and 192, ms per
+   step and peak memory for both, and a profile of one fused step.
+6. time: each kernel, its plain version and the unfused torch sequence,
    100 warm launches timed with CUDA events, beside the kernel's bound.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -43,9 +51,13 @@ from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.ops import _build
 from care_tpu_torch.ops import fused_head_topk as fht
+from care_tpu_torch.ops import fused_xent as fx
+from care_tpu_torch.training import Trainer
+from care_tpu_torch.training.trainer import device_batch
 
 SEED = 0
 BATCH, RAGGED = 64, 17
+TRAIN_BATCHES, TRAIN_EPOCHS = 4, 2
 # NVIDIA H100 SXM data-sheet peaks at 700 W: HBM3 bandwidth, and f32 on the
 # CUDA cores (no tensor cores), the rate the f32 kernels run at
 PEAK_BYTES_PER_S = 3.35e12
@@ -55,7 +67,35 @@ KERNELS = {
     "fused_head_topk": dict(
         route="cuda", source="care_tpu_torch/csrc/fused_head_topk.cu",
         replaces="care_tpu/ops/fused_head_topk.py:151"),
+    "vocab_argmax_lse": dict(
+        route="cuda", source="care_tpu_torch/csrc/vocab_argmax_lse.cu",
+        replaces="care_tpu/ops/fused_head_topk.py:307"),
+    "fused_xent_bwd_dh": dict(
+        route="cuda", source="care_tpu_torch/csrc/fused_xent_bwd_dh.cu",
+        replaces="care_tpu/ops/fused_xent.py:147"),
+    "fused_xent_bwd_dw": dict(
+        route="cuda", source="care_tpu_torch/csrc/fused_xent_bwd_dw.cu",
+        replaces="care_tpu/ops/fused_xent.py:169"),
 }
+# device kernels of each entry, as the profiler names them
+DEVICE_KERNELS = {
+    "fused_head_topk": ("tile_stats_kernel", "merge_kernel"),
+    "vocab_argmax_lse": ("xent_stats_tile_kernel", "xent_stats_reduce_kernel"),
+    "fused_xent_bwd_dh": ("xent_dh_tile_kernel", "xent_dh_reduce_kernel"),
+    "fused_xent_bwd_dw": ("xent_dw_tile_kernel", "xent_dw_reduce_kernel"),
+}
+
+
+def _launch_counts() -> dict:
+    return {"fused_head_topk": fht.launches,
+            "vocab_argmax_lse": fht.argmax_lse_launches,
+            "fused_xent_bwd_dh": fx.dh_launches,
+            "fused_xent_bwd_dw": fx.dw_launches}
+
+
+def _zero_launch_counts() -> None:
+    fht.launches = fht.argmax_lse_launches = 0
+    fx.dh_launches = fx.dw_launches = 0
 
 
 def flagship_opt() -> dict:
@@ -160,7 +200,116 @@ def phase_check(opt) -> dict:
     # every column repeats 37 columns later, across tile and chunk borders
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_head_case("ties", h, W, K, ties_exact=True)
-    return {"fused_head_topk": err}
+    return {"fused_head_topk": err, **_check_xent(opt)}
+
+
+def _xent_inputs(rows, H, V, dtype, exact, with_bias, seed):
+    """The operands of the fused cross-entropy on the card: h, W (as
+    ``_head_inputs``), an optional bias, labels with a fifth of the rows on
+    PAD (id 0) and zero cotangents there, and non-zero cotangents g_lse,
+    g_label, g_sum elsewhere, sized like a mean over 64 captions."""
+    h, W = _head_inputs(rows, H, V, dtype, exact, seed)
+    g = torch.Generator().manual_seed(seed + 100)
+    b = None
+    if with_bias:
+        b = (torch.randint(-8, 9, (V,), generator=g).float() / 16 if exact
+             else torch.randn((V,), generator=g) * 0.2).to("cuda", dtype)
+    labels = torch.randint(6, V, (rows,), generator=g)
+    pad = torch.rand((rows,), generator=g) < 0.2
+    labels[pad] = 0
+    keep = (~pad).float() / 64
+    cot = [keep * (0.9 + 0.2 * torch.rand((rows,), generator=g)),
+           -keep * (0.8 + 0.2 * torch.rand((rows,), generator=g)),
+           -keep * 0.1 / V * (1 + torch.rand((rows,), generator=g))]
+    return h, W, b, labels.cuda(), [c.cuda() for c in cot]
+
+
+def _max_err(label, what, got, want, rtol, atol):
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    assert torch.allclose(got, want, rtol=rtol, atol=atol), (label, what, err)
+    return err
+
+
+def _check_xent_case(label, h, W, b, labels, cot, exact):
+    """K2 (forward statistics), K3a (dh) and K3b (dW, db) against their
+    plain versions on one set of operands. Returns the three errors."""
+    f32 = h.dtype == torch.float32
+    got = fht._argmax_lse_cuda(h, W, b, labels, True)
+    want = fht._argmax_lse_plain(h, W, b, labels, 1024, True)
+    torch.cuda.synchronize()
+    amax = got[0].long()
+    if exact:
+        # exact arithmetic: the maxima, the label logits and the sums are
+        # the same numbers in any order, and ties are exact ties
+        assert torch.equal(amax, want[0]), label
+        for k, what in ((1, "max"), (3, "label logit"), (4, "sum")):
+            assert torch.equal(got[k], want[k]), (label, what)
+    else:
+        top2 = fht._logits(h, W, b).topk(2, dim=-1).values
+        sep = top2[:, 0] - top2[:, 1] > 1e-4
+        assert torch.equal(amax[sep], want[0][sep]), label
+        _max_err(label, "max", got[1], want[1], 1e-5, 1e-5)
+        _max_err(label, "label logit", got[3], want[3], 1e-5, 1e-5)
+        # 11000 f32 terms of size ~0.5 added in another order
+        _max_err(label, "sum", got[4], want[4], 1e-4, 1e-3)
+    err_lse = _max_err(label, "lse", got[2], want[2], 1e-5, 1e-5)
+
+    lse = want[2]
+    gdh, gdw, gdb = fx._bwd_cuda(h, W, b, labels, lse, *cot)
+    wdh, wdw, wdb = fx._bwd_plain(h, W, b, labels, lse, *cot, 1024)
+    torch.cuda.synchronize()
+    # f32: sums over 11000 columns (dh) or the rows (dW, db) in another
+    # order, and expf against torch.exp. bf16: one-ulp differences of exp
+    # can flip the bf16 rounding of a dlogits entry (2**-8 relative), and
+    # the outputs are themselves rounded to bf16
+    rtol, atol = (1e-4, 2e-7) if f32 else (2 ** -6, 1e-4)
+    err_dh = _max_err(label, "dh", gdh, wdh, rtol, atol)
+    err_dw = _max_err(label, "dW", gdw, wdw, rtol, atol)
+    _max_err(label, "db", gdb, wdb, rtol, atol)
+    assert gdh.dtype == h.dtype and gdw.dtype == W.dtype
+    pad = labels == 0
+    if pad.any():
+        assert float(gdh[pad].float().abs().max()) == 0.0, label
+    print(f"check fused xent {label}: rows {h.shape[0]} H {h.shape[1]} "
+          f"V {W.shape[0]} {str(h.dtype)[6:]} bias {b is not None}: "
+          f"argmax ok ({'all rows, bit-equal max/label/sum' if exact else 'rows separated by > 1e-4; max, label 1e-5; sum 1e-4 rel + 1e-3'}); "
+          f"max|dlse| {err_lse:.2e} (1e-5); max|d dh| {err_dh:.2e} "
+          f"max|d dW| {err_dw:.2e} (rtol {rtol:.1e} + atol {atol:.0e}: "
+          f"{'summation order, expf' if f32 else 'bf16 rounding of dlogits and outputs'}); "
+          f"PAD rows' dh exactly 0")
+    return {"vocab_argmax_lse": err_lse, "fused_xent_bwd_dh": err_dh,
+            "fused_xent_bwd_dw": err_dw}
+
+
+def _check_xent(opt) -> dict:
+    H, V = opt["dim_hidden"], opt["vocab_size"]
+    rows = BATCH * (opt["max_len"] - 1)          # 1856: the trainer's shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    errors = _check_xent_case(
+        "flagship", *_xent_inputs(rows, H, V, f32, False, False, 5), False)
+    _check_xent_case(
+        "ragged+bias", *_xent_inputs(RAGGED * (opt["max_len"] - 1), H, V, f32,
+                                     False, True, 6), False)
+    _check_xent_case("bf16", *_xent_inputs(rows, H, V, bf16, True, True, 7),
+                     True)
+    h, W, b, labels, cot = _xent_inputs(rows, H, V, f32, True, False, 8)
+    # every column repeats 37 columns later, across tile and chunk borders
+    W = W[torch.arange(V, device="cuda") % 37].contiguous()
+    _check_xent_case("ties", h, W, b, labels, cot, True)
+    # the serving entry: no token ids, with a bias, leading dims kept
+    h, W, b, labels, _ = _xent_inputs(rows, H, V, f32, False, True, 9)
+    got = fht.vocab_argmax_lse(h.reshape(BATCH, -1, H), W, b)
+    want = fht._argmax_lse_plain(h, W, b, None, 1024, False)
+    torch.cuda.synchronize()
+    assert len(got) == 3 and got[0].shape == (BATCH, rows // BATCH)
+    assert want[3] is None and want[4] is None
+    _max_err("token_ids=None", "max", got[1].reshape(-1), want[1], 1e-5, 1e-5)
+    err = _max_err("token_ids=None", "lse", got[2].reshape(-1), want[2], 1e-5,
+                   1e-5)
+    print(f"check vocab_argmax_lse token_ids=None, bias: 3 outputs, "
+          f"max|dlse| {err:.2e} (1e-5)")
+    return errors
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +365,7 @@ def phase_serve(opt) -> dict:
     batches.append(_synthetic_feats(opt, RAGGED, SEED + 20))
     translator.translate_batch(model, {"feats": batches[0]})      # warm-up
 
-    fht.launches = 0
+    _zero_launch_counts()
     translator.beam_steps = 0
     results, seconds = [], []
     for feats in batches:
@@ -225,7 +374,7 @@ def phase_serve(opt) -> dict:
         results.append(translator.translate_batch(model, {"feats": feats}))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    counts = {"fused_head_topk": fht.launches}
+    counts = {"fused_head_topk": _launch_counts()["fused_head_topk"]}
     steps = translator.beam_steps
     assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
 
@@ -252,37 +401,194 @@ def phase_serve(opt) -> dict:
     print(f"serve: scores re-checked by teacher forcing: {checked}/{total} "
           f"hypotheses, max |diff| {worst:.2e}")
     print(f"serve: first caption tokens {results[0][0][0][0][:12]}")
-    _profile_batch(translator, model, batches[0], seconds[0])
+    _profile(f"batch {BATCH}",
+             lambda: translator.translate_batch(model, {"feats": batches[0]}),
+             seconds[0], ["fused_head_topk"])
     return counts
 
 
-def _profile_batch(translator, model, feats, unprofiled_seconds):
-    """One batch-64 decode again under torch.profiler: the device time by
-    kernel, and the device's busy share of the same batch's unprofiled
-    wall time (the profiler slows the host, not the device)."""
+def _profile(label, run, unprofiled_seconds, kernel_names):
+    """``run`` once more under torch.profiler: the device time by kernel,
+    and the device's busy share of the same work's unprofiled wall time
+    (the profiler slows the host, not the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        translator.translate_batch(model, {"feats": feats})
+        run()
         torch.cuda.synchronize()
+    # device-side events are kernels and copies, plus the device-track
+    # copy of the optimizer's host annotation (``Optimizer.step#Adam.step``),
+    # which spans kernels already counted
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("Optimizer.")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("profile: the profiler saw no device time: not measured")
         return
-    k1_us = sum(e.self_device_time_total for e in kernels
-                if "tile_stats_kernel" in e.key or "merge_kernel" in e.key)
-    print(f"profile: batch {feats[0].shape[0]}: device busy "
+    shares = []
+    for name in kernel_names:
+        us = sum(e.self_device_time_total for e in kernels
+                 if any(k in e.key for k in DEVICE_KERNELS[name]))
+        shares.append(f"{name} {100 * us / busy_us:.1f}%")
+    print(f"profile: {label}: device busy "
           f"{busy_us / 1e3:.3f} ms of {1e3 * unprofiled_seconds:.3f} ms wall "
           f"({100 * busy_us / 1e6 / unprofiled_seconds:.1f}% busy); "
           f"{sum(e.count for e in kernels)} device operations (kernels "
-          f"and copies); "
-          f"fused_head_topk {100 * k1_us / busy_us:.1f}% of device time")
+          f"and copies); of device time: {', '.join(shares)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# training the flagship
+# ---------------------------------------------------------------------------
+
+class SyntheticLoader:
+    """``n_batches`` fixed batches of ``batch_size`` synthetic videos with
+    captions (numpy from a seed): feature streams, BOS-led input ids, labels
+    with PAD after a random length, multi-hot concept labels. Every batch
+    has the same caption lengths, so that the summed losses of different
+    batches compare."""
+
+    def __init__(self, opt, n_batches, batch_size, seed):
+        rs = np.random.RandomState(seed)
+        L, V = opt["max_len"] - 1, opt["vocab_size"]
+        self.batches = []
+        lengths = rs.randint(5, L + 1, (batch_size, 1))
+        for i in range(n_batches):
+            tokens = rs.randint(6, V, (batch_size, L + 1))
+            tokens[:, 0] = constants.BOS
+            valid = np.arange(L)[None, :] < lengths
+            labels = np.where(valid, tokens[:, 1:], constants.PAD)
+            inputs = np.where(valid, tokens[:, :-1], constants.PAD)
+            self.batches.append({
+                "feats": _synthetic_feats(opt, batch_size, seed + 1000 + i),
+                "input_ids": inputs.astype(np.int32),
+                "labels": labels.astype(np.int32),
+                "labels_attr": (rs.rand(
+                    batch_size, opt["attribute_prediction_k"]) < 0.02
+                ).astype(np.float32)})
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+    def set_epoch(self, epoch):
+        pass
+
+
+def _step_losses(trainer):
+    return [l for h in trainer.history for l in h["step_losses"]]
+
+
+def _timed_fit(opt, loader):
+    """A trainer warmed by one epoch, then one epoch on the host clock
+    (ending in a synchronise) with the peak of allocated device memory
+    above what was resident before it. Returns (trainer, ms per step, peak
+    MiB above resident)."""
+    trainer = Trainer(opt, loader)
+    trainer.fit(1)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.fit(1)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / len(loader)
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**20
+    return trainer, ms, peak, resident / 2**20
+
+
+def phase_train(opt) -> dict:
+    base = dict(opt, epochs=TRAIN_EPOCHS, lowlr_start_epoch=1)
+    loader = SyntheticLoader(opt, TRAIN_BATCHES, BATCH, SEED + 30)
+    steps = TRAIN_EPOCHS * TRAIN_BATCHES
+
+    # the main path: Trainer.fit with the fused cross-entropy, dropout on
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(dict(base, fused_xent=True), loader)
+    trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    losses = _step_losses(trainer)
+    assert trainer._fused_xent and trainer.model.training
+    assert trainer.global_step == len(losses) == steps, (losses, steps)
+    assert all(np.isfinite(losses)), losses
+    for name in ("vocab_argmax_lse", "fused_xent_bwd_dh",
+                 "fused_xent_bwd_dw"):
+        assert counts[name] == steps, (name, counts, steps)
+    assert counts["fused_head_topk"] == 0, counts
+    assert trainer._switched and trainer._switch_offset == TRAIN_BATCHES
+    last = float(np.mean(losses[-TRAIN_BATCHES:]))
+    assert last < losses[0], (last, losses)
+    assert last < np.mean(losses[:TRAIN_BATCHES]), (last, losses)
+    log = trainer.history[-1]
+    print(f"train: {steps} steps of batch {BATCH} "
+          f"({BATCH * (opt['max_len'] - 1)} rows into the vocab head), "
+          f"fused_xent on, dropout on, in {seconds:.1f} s with model build "
+          f"and first-launch costs; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"train: step losses {[round(l, 4) for l in losses]}; optimizer "
+          f"switched at step {trainer._switch_offset}; last epoch: Lang "
+          f"{log['Lang Loss']:.4f}, V-Attr {log['V-Attr']:.4f}, word acc "
+          f"{log['Word Acc0']:.4f}, perplexity {log['Perplexity']:.1f}")
+
+    # fused against dense from one seed, dropout off
+    quiet = dict(base, epochs=1, hidden_dropout_prob=0.0,
+                 encoder_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    short = SyntheticLoader(opt, 3, BATCH, SEED + 40)
+    pair = {}
+    for fused in (True, False):
+        t = Trainer(dict(quiet, fused_xent=fused), short)
+        t.fit()
+        assert t._fused_xent is fused
+        pair[fused] = _step_losses(t)
+    rel0 = abs(pair[True][0] - pair[False][0]) / abs(pair[False][0])
+    gaps = [abs(a - b) for a, b in zip(pair[True], pair[False])]
+    assert rel0 <= 1e-5, (rel0, pair)
+    assert max(gaps) <= 1e-3, (gaps, pair)
+    print(f"train: fused vs dense, one seed, dropout off: step-0 relative "
+          f"gap {rel0:.2e} (<= 1e-5: the same function of the same weights),"
+          f" |gap| of steps 0-2 {[f'{g:.2e}' for g in gaps]} (<= 1e-3: "
+          f"rounding drift through the updates)")
+
+    # the auto policy: dense at the flagship's batch 64, fused at 192
+    policy = {}
+    for batch_size in (64, 192):
+        t = Trainer(dict(base, fused_xent="auto", batch_size=batch_size),
+                    loader)
+        t.init_model()
+        t._build_tx(len(loader))
+        t._make_train_step()
+        policy[batch_size] = t._fused_xent
+    assert policy == {64: False, 192: True}, policy
+    print(f"train: fused_xent auto policy: batch 64 -> dense, batch 192 -> "
+          f"fused (threshold {opt['fused_xent_auto_threshold_mb']} MB of "
+          f"logits + gradient)")
+    del t, trainer
+
+    # step time and peak memory, fused and dense in turns, dropout on
+    for fused in (True, False, False, True):
+        t = None                    # free the last trainer before the next
+        t, ms, peak, resident = _timed_fit(
+            dict(base, epochs=1, fused_xent=fused), loader)
+        print(f"train: {'fused' if fused else 'dense'} step "
+              f"{ms:.3f} ms (host clock over {len(loader)} steps, batch "
+              f"{BATCH}), peak device memory {peak:.1f} MiB above the "
+              f"{resident:.1f} MiB resident")
+    batch = device_batch(loader.batches[0], "cuda")
+    _profile("one fused train step", lambda: t._train_step_fn(batch),
+             ms / 1e3,
+             ["vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw"])
+    del counts["fused_head_topk"]
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -303,34 +609,87 @@ def _time_ms(fn, n=100, warm=10):
     return start.elapsed_time(end) / n
 
 
+def _entry(name, errors, counts, ms, plain_ms, unfused_ms, flops, n_bytes,
+           shape, unfused_what):
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    entry = dict(
+        name=name, **KERNELS[name], launches=counts[name],
+        max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
+        bound_ms=1e3 * max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        # no single PyTorch call computes any of these functions; the
+        # unfused sequence of calls is timed beside them instead
+        library_ms=None, unfused_torch_ms=unfused_ms)
+    print(f"time {name} at {shape} f32: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {unfused_what} {unfused_ms:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
+          f"{n_bytes} bytes)")
+    return entry
+
+
 def phase_time(opt, errors, counts) -> list:
     K, H, V = opt["beam_size"], opt["dim_hidden"], opt["vocab_size"]
     rows = BATCH * K
     h, W = _head_inputs(rows, H, V, torch.float32, False, 1)
-    saved = fht.launches
-    ms = _time_ms(lambda: fht._stats_cuda(h, W, None, K))
-    plain_ms = _time_ms(lambda: fht._stats_plain(h, W, None, K, 1024))
-    unfused_ms = _time_ms(
-        lambda: torch.topk(torch.log_softmax(h @ W.t(), dim=-1), K))
-    fht.launches = saved
-    flops = 2 * rows * H * V
-    n_bytes = 4 * (rows * H + V * H) + 4 * rows * (2 + 2 * K)
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
-    entry = dict(
-        name="fused_head_topk", **KERNELS["fused_head_topk"],
-        launches=counts["fused_head_topk"],
-        max_abs_err=errors["fused_head_topk"], ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
-        library_ms=None,
-        # h @ W.T, log_softmax, topk: three calls, not one library call
-        unfused_torch_ms=unfused_ms)
-    print(f"time fused_head_topk at [{rows}, {H}] x [{V}, {H}] f32: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused torch "
-          f"sequence (3 calls) {unfused_ms:.4f} ms, bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
-          f"{n_bytes} bytes)")
-    return [entry]
+    entries = [_entry(
+        "fused_head_topk", errors, counts,
+        _time_ms(lambda: fht._stats_cuda(h, W, None, K)),
+        _time_ms(lambda: fht._stats_plain(h, W, None, K, 1024)),
+        _time_ms(lambda: torch.topk(torch.log_softmax(h @ W.t(), dim=-1), K)),
+        2 * rows * H * V, 4 * (rows * H + V * H) + 4 * rows * (2 + 2 * K),
+        f"[{rows}, {H}] x [{V}, {H}]",
+        "unfused torch sequence (h @ W.T, log_softmax, topk)")]
+
+    # the training shape: batch 64 x 29 positions, no bias
+    rows = BATCH * (opt["max_len"] - 1)
+    shape = f"[{rows}, {H}] x [{V}, {H}]"
+    h, W, _, labels, cot = _xent_inputs(rows, H, V, torch.float32, False,
+                                        False, 5)
+    lse = fht._argmax_lse_plain(h, W, None, labels, 1024, False)[2]
+
+    def dense_forward(h, W):
+        logits = h @ W.t()
+        return (torch.logsumexp(logits, dim=-1),
+                logits.gather(1, labels[:, None])[:, 0], logits.sum(dim=-1),
+                logits.argmax(dim=-1))
+
+    hg, Wg = h.clone().requires_grad_(True), W.clone().requires_grad_(True)
+
+    def dense_forward_backward():
+        out = dense_forward(hg, Wg)
+        loss = sum((c * o).sum() for c, o in zip(cot, out))
+        return torch.autograd.grad(loss, (hg, Wg))
+
+    forward_ms = _time_ms(lambda: dense_forward(h, W))
+    backward_ms = _time_ms(dense_forward_backward) - forward_ms
+    row_bytes = 4 * rows * 5          # lse, three cotangents, labels
+    entries.append(_entry(
+        "vocab_argmax_lse", errors, counts,
+        _time_ms(lambda: fht._argmax_lse_cuda(h, W, None, labels, True)),
+        _time_ms(lambda: fht._argmax_lse_plain(h, W, None, labels, 1024,
+                                               True)),
+        forward_ms, 2 * rows * H * V,
+        4 * (rows * H + V * H) + 4 * rows + 4 * rows * 5, shape,
+        "unfused torch sequence (h @ W.T, logsumexp, gather, sum, argmax)"))
+    entries.append(_entry(
+        "fused_xent_bwd_dh", errors, counts,
+        _time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
+                                      want_dw=False)),
+        _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot, 1024,
+                                       want_dw=False)),
+        backward_ms, 4 * rows * H * V,
+        4 * (2 * rows * H + V * H) + row_bytes, shape,
+        "autograd backward of the unfused sequence (dh and dW together)"))
+    entries.append(_entry(
+        "fused_xent_bwd_dw", errors, counts,
+        _time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
+                                      want_dh=False)),
+        _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot, 1024,
+                                       want_dh=False)),
+        backward_ms, 4 * rows * H * V,
+        4 * (rows * H + 2 * V * H + V) + row_bytes, shape,
+        "autograd backward of the unfused sequence (dh and dW together)"))
+    return entries
 
 
 def main() -> None:
@@ -339,6 +698,7 @@ def main() -> None:
     phase_build()
     errors = phase_check(opt)
     counts = phase_serve(opt)
+    counts.update(phase_train(opt))
     kernels = phase_time(opt, errors, counts)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

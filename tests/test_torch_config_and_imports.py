@@ -82,7 +82,10 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'care_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 17, mods\n"
+        "assert len(mods) >= 22, mods\n"
+        "for m in ('ops.fused_xent', 'training.losses', 'training.optim',\n"
+        "          'training.trainer'):\n"
+        "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=cpu_subprocess_env(), capture_output=True,
