@@ -1,9 +1,10 @@
 """The Transformer decoder: full forward and KV-cached incremental decode.
 
 Port of ``care_tpu/models/decoders.py:TransformerDecoder`` (reference
-``models/Decoder/Transformer.py``) for AR decoding in the flagship's G-LSG
-modes (GSG ``emb`` per-token add, LSG ``concat`` keys). Masks are additive
-0/-1e9 biases computed from the token ids.
+``models/Decoder/Transformer.py``) for AR decoding without concepts or in
+the flagship's G-LSG modes (GSG ``emb`` per-token add, LSG ``concat`` keys),
+post- or pre-LN, with or without relative-position biases. Masks are
+additive 0/-1e9 biases computed from the token ids.
 """
 
 from typing import Any, Dict
@@ -71,6 +72,12 @@ class TransformerDecoder(nn.Module):
         self.num_layers = opt["num_hidden_layers_decoder"]
         for i in range(self.num_layers):
             self.add_module(f"layer_{i}", DecoderLayer(opt, generator))
+        # pre-LN layers leave their output unnormalised: one LN closes the
+        # stack
+        self.LayerNorm = None
+        if opt.get("transformer_pre_ln", False):
+            self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
+                                          eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     @property
@@ -90,8 +97,13 @@ class TransformerDecoder(nn.Module):
         # every encoder position is visible (the reference builds an
         # all-ones source mask), so the cross attention needs no mask
         for layer in self.layers:
-            hidden_states, _ = layer(hidden_states, encoder_hidden_states,
-                                     attention_mask=attention_bias)
+            hidden_states, _ = layer(
+                hidden_states, encoder_hidden_states,
+                attention_mask=attention_bias,
+                decoding_type=self.opt["decoding_type"],
+                n_frames=self.opt["n_frames"])
+        if self.LayerNorm is not None:
+            hidden_states = self.LayerNorm(hidden_states)
         return {"hidden_states": self.dropout(hidden_states)}
 
     # ----- KV-cached incremental decoding ------------------------------------
@@ -140,8 +152,13 @@ class TransformerDecoder(nn.Module):
             q, (k, v) = layer.self_qkv(h)
             st["self_k"][:, :, position:position + 1] = k
             st["self_v"][:, :, position:position + 1] = v
-            h = layer.step(h, (st["self_k"], st["self_v"]), st["inter_kv"],
-                           self_bias, q)
+            # the relative-position rows select by the position in the
+            # full sequence
+            h = layer.step(h, position, (st["self_k"], st["self_v"]),
+                           st["inter_kv"], self_bias=self_bias,
+                           n_frames=self.opt["n_frames"], q=q)
+        if self.LayerNorm is not None:
+            h = self.LayerNorm(h)
         return h[:, 0, :], state
 
 

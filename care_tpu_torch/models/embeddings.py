@@ -12,6 +12,7 @@ from torch import nn
 
 from care_tpu_torch.models.common import (Dropout, unsupported,
                                           xavier_param)
+from care_tpu_torch.ops.attention import relative_position_index
 
 
 def sinusoid_table(max_len: int, d_model: int) -> np.ndarray:
@@ -44,6 +45,37 @@ class PositionalEmbedding(nn.Module):
         return self.embedding[position_ids]
 
 
+class RelativePositionBias(nn.Module):
+    """Per-head relative position bias (reference ``Embeddings.py:191-218``):
+    a table of 2 * max_relative_position + 1 rows, one column per head,
+    looked up by the clipped distance between key and query.
+
+    For video keys the bias over ``n_frames`` positions is tiled across the
+    concatenated modality streams (``tile_to``, reference
+    ``Attention.py:99-100``).
+    """
+
+    def __init__(self, max_relative_position: int, num_heads: int,
+                 generator: torch.Generator, attend_to_video: bool = False):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.attend_to_video = attend_to_video
+        self.embedding = xavier_param(
+            (2 * max_relative_position + 1, num_heads), generator)
+
+    def forward(self, length_q: int, length_k: int, bidirectional: bool = True,
+                tile_to: int = None):
+        """[1, H, length_q, length_k], or [1, H, length_q, tile_to // length_k
+        * length_k] when tiled."""
+        idx = relative_position_index(
+            length_q, length_k, self.max_relative_position,
+            bidirectional or self.attend_to_video, self.embedding.device)
+        values = self.embedding[idx].permute(2, 0, 1)[None]
+        if tile_to is not None and tile_to != length_k:
+            values = values.repeat(1, 1, 1, tile_to // length_k)
+        return values
+
+
 class NaiveEmbeddings(nn.Module):
     """Word + learned position + LN + dropout: the concept-slot embeddings
     of the SemanticContainer (reference ``Embeddings.py:30-87``)."""
@@ -67,12 +99,14 @@ class NaiveEmbeddings(nn.Module):
 class Embeddings(nn.Module):
     """Decoder input embeddings (reference ``Embeddings.py:90-188``):
     word + position (+ the GSG ``semantic_hidden_states`` added to every
-    token in ``emb`` mode) -> LN -> dropout."""
+    token in ``emb`` mode) -> LN -> dropout. With ``RPE`` the absolute
+    position term goes unless ``RPE_keep_abs_pos``; with
+    ``transformer_pre_ln`` the LN goes (the layers normalise their own
+    inputs)."""
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        for key in ("pretrained_embs_path", "with_category", "RPE",
-                    "transformer_pre_ln"):
+        for key in ("pretrained_embs_path", "with_category"):
             if opt.get(key):
                 raise unsupported(key, opt[key])
         use_attr_type = opt.get("use_attr_type", "") or ""
@@ -82,20 +116,27 @@ class Embeddings(nn.Module):
         self.word_embeddings = xavier_param(
             (opt["vocab_size"], opt["dim_hidden"]), generator,
             zero_pad_row=True)
-        self.position_embeddings = PositionalEmbedding(
-            opt["max_len"], opt["dim_hidden"],
-            opt.get("trainable_pe", False), generator)
-        self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
-                                      eps=opt["layer_norm_eps"])
+        self.position_embeddings = None
+        if not opt.get("RPE", False) or opt.get("RPE_keep_abs_pos", False):
+            self.position_embeddings = PositionalEmbedding(
+                opt["max_len"], opt["dim_hidden"],
+                opt.get("trainable_pe", False), generator)
+        self.LayerNorm = None
+        if not opt.get("transformer_pre_ln", False):
+            self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
+                                          eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     def forward(self, input_ids, semantic_hidden_states=None,
                 position_ids=None):
         embeddings = self.word_embeddings[input_ids]
-        if position_ids is None:
-            position_ids = torch.arange(input_ids.shape[-1],
-                                        device=input_ids.device)[None, :]
-        embeddings = embeddings + self.position_embeddings(position_ids)
+        if self.position_embeddings is not None:
+            if position_ids is None:
+                position_ids = torch.arange(input_ids.shape[-1],
+                                            device=input_ids.device)[None, :]
+            embeddings = embeddings + self.position_embeddings(position_ids)
         if self.semantic_flag and semantic_hidden_states is not None:
             embeddings = embeddings + semantic_hidden_states[:, None, :]
-        return self.dropout(self.LayerNorm(embeddings))
+        if self.LayerNorm is not None:
+            embeddings = self.LayerNorm(embeddings)
+        return self.dropout(embeddings)

@@ -9,19 +9,32 @@ before the last line:
 
 1. device: the card's name, ``nvidia-smi``'s name and power limit, the
    torch and CUDA versions. Fails at once without a CUDA device.
-2. build: every kernel of the serving and training paths is compiled with
-   ``nvcc`` from ``care_tpu_torch/csrc`` (all sources at once), printing the
-   build seconds and the ``-Xptxas -v`` register and shared-memory summary.
+2. build: every kernel of the serving and training paths (seven sources)
+   is compiled with ``nvcc`` from ``care_tpu_torch/csrc``, all at once,
+   printing the build seconds and the ``-Xptxas -v`` register and
+   shared-memory summary.
 3. check: each kernel against its plain PyTorch version on the card, at the
-   shapes the flagship's serving and training paths give it and in the tie,
-   bf16, bias and ragged-row cases.
+   shapes the serving and training paths give it and in the tie, bf16, bias
+   and ragged cases; the flash-attention kernels also against the dense
+   attention and its autograd, at the decode shape q [64, 8, 5, 64] x 1654
+   keys, the square shape [4, 8, 1568, 64], ragged tiles, every bias shape,
+   an all-masked instance and bf16.
 4. serve: the full-width CARE flagship (MSRVTT, Transformer, CARE, ViT,
    VA/VAT; random weights from a seed) captions 3 batches of 64 synthetic
    videos and one ragged batch of 17 through
-   ``get_translator(opt).translate_batch``. The kernel launch counts must
-   match the beam steps run, and every returned score must equal the
-   teacher-forced score of its tokens from the full forward.
-5. train: ``Trainer(opt, loader).fit()`` trains the same flagship with
+   ``get_translator(opt).translate_batch``; then the long-key configuration
+   (``--feats SwinBERTDense``: 1568 rows of motion, 1654 cross-attention
+   keys) captions 2 batches of 64 and one of 17 with task ``CARE`` and one
+   batch of 64 with task ``Base``, the cross attention of every beam step
+   going through the flash-attention kernel. The kernel launch counts must
+   match the beam steps run (times the decoder layers for the flash
+   kernel), and every returned score must equal the teacher-forced score of
+   its tokens from the full forward, which runs the dense attention. One
+   batch of each configuration is profiled.
+5. flash gradient: three descent steps through
+   ``flash_attention(backward="kernel")`` at the square shape, which is the
+   entry point of the two backward kernels (no model path reaches them).
+6. train: ``Trainer(opt, loader).fit()`` trains the flagship with
    ``fused_xent: True`` for 2 epochs of 4 synthetic batches of 64, dropout
    on, through the dual-Adam switch. Every step's cross-entropy must go
    forward through the argmax/lse kernel and backward through the dh and
@@ -29,8 +42,10 @@ before the last line:
    last steps' mean below the first. Then fused against dense from one
    seed with dropout off, the ``auto`` policy at batch 64 and 192, ms per
    step and peak memory for both, and a profile of one fused step.
-6. time: each kernel, its plain version and the unfused torch sequence,
-   100 warm launches timed with CUDA events, beside the kernel's bound.
+7. time: each kernel, its plain version, the unfused torch sequence and,
+   for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
+   used nowhere in the port), warm launches timed with CUDA events, beside
+   the kernel's bound.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -38,6 +53,7 @@ last line is the device JSON object.
 
 import concurrent.futures
 import json
+import re
 import subprocess
 import sys
 import time
@@ -50,8 +66,10 @@ from care_tpu_torch.config import get_opt
 from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.ops import _build
+from care_tpu_torch.ops import flash_attention as fa
 from care_tpu_torch.ops import fused_head_topk as fht
 from care_tpu_torch.ops import fused_xent as fx
+from care_tpu_torch.ops.attention import dot_product_attention
 from care_tpu_torch.training import Trainer
 from care_tpu_torch.training.trainer import device_batch
 
@@ -76,6 +94,15 @@ KERNELS = {
     "fused_xent_bwd_dw": dict(
         route="cuda", source="care_tpu_torch/csrc/fused_xent_bwd_dw.cu",
         replaces="care_tpu/ops/fused_xent.py:169"),
+    "flash_attention_fwd": dict(
+        route="cuda", source="care_tpu_torch/csrc/flash_attention_fwd.cu",
+        replaces="care_tpu/ops/pallas/flash_attention.py:25"),
+    "flash_attention_bwd_dq": dict(
+        route="cuda", source="care_tpu_torch/csrc/flash_attention_bwd_dq.cu",
+        replaces="care_tpu/ops/pallas/flash_attention.py:182"),
+    "flash_attention_bwd_dkv": dict(
+        route="cuda", source="care_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
+        replaces="care_tpu/ops/pallas/flash_attention.py:219"),
 }
 # device kernels of each entry, as the profiler names them
 DEVICE_KERNELS = {
@@ -83,6 +110,9 @@ DEVICE_KERNELS = {
     "vocab_argmax_lse": ("xent_stats_tile_kernel", "xent_stats_reduce_kernel"),
     "fused_xent_bwd_dh": ("xent_dh_tile_kernel", "xent_dh_reduce_kernel"),
     "fused_xent_bwd_dw": ("xent_dw_tile_kernel", "xent_dw_reduce_kernel"),
+    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
+    "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
 }
 
 
@@ -90,12 +120,16 @@ def _launch_counts() -> dict:
     return {"fused_head_topk": fht.launches,
             "vocab_argmax_lse": fht.argmax_lse_launches,
             "fused_xent_bwd_dh": fx.dh_launches,
-            "fused_xent_bwd_dw": fx.dw_launches}
+            "fused_xent_bwd_dw": fx.dw_launches,
+            "flash_attention_fwd": fa.fwd_launches,
+            "flash_attention_bwd_dq": fa.dq_launches,
+            "flash_attention_bwd_dkv": fa.dkv_launches}
 
 
 def _zero_launch_counts() -> None:
     fht.launches = fht.argmax_lse_launches = 0
     fx.dh_launches = fx.dw_launches = 0
+    fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
 def flagship_opt() -> dict:
@@ -110,7 +144,7 @@ def flagship_opt() -> dict:
     return opt
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this test runs on a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -119,22 +153,28 @@ def phase_device() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    smi_line = f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}"
     print(f"device: {name}; count {torch.cuda.device_count()}")
-    print(f"nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    print(smi_line)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
-    return name
+    return name, smi_line
 
 
 def phase_build() -> None:
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         builds = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
     for name, info in builds.items():
-        print(f"build {name}: {info['seconds']:.1f} s")
-        for line in info["log"].splitlines():
-            if "registers" in line or "Compiling entry" in line \
-                    or "spill" in line:
-                print(f"  {line.strip()}")
+        # the -Xptxas -v summary: one "Used N registers" and one spill line
+        # for each entry function (template instance) of the source
+        registers = [int(m) for m in re.findall(r"Used (\d+) registers",
+                                                info["log"])]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                             info["log"])]
+        print(f"build {name}: {info['seconds']:.1f} s; {len(registers)} "
+              f"entry functions, {min(registers, default=0)}-"
+              f"{max(registers, default=0)} registers, at most "
+              f"{max(spills, default=0)} bytes of spill stores")
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +240,7 @@ def phase_check(opt) -> dict:
     # every column repeats 37 columns later, across tile and chunk borders
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_head_case("ties", h, W, K, ties_exact=True)
-    return {"fused_head_topk": err, **_check_xent(opt)}
+    return {"fused_head_topk": err, **_check_xent(opt), **_check_flash()}
 
 
 def _xent_inputs(rows, H, V, dtype, exact, with_bias, seed):
@@ -312,6 +352,153 @@ def _check_xent(opt) -> dict:
     return errors
 
 
+# the decode step of the long-key configuration (batch 64, 8 heads, beam 5
+# folded into the query rows, 1654 keys) and the square shape of the
+# backward kernels
+DECODE_SHAPE = (BATCH, 8, 5, 1654, 64)
+SQUARE_SHAPE = (4, 8, 1568, 1568, 64)
+
+
+def _flash_inputs(shape, dtype, bias_kind, seed):
+    """q, k, v, do on the card and a bias of the given kind: ``hybrid``
+    [1, H, 1, Lk] with a -1e9 tail, ``pad`` [B, 1, 1, Lk] with -1e9 tails of
+    different lengths, ``rpe`` [1, H, Lq, Lk], ``masked`` (as ``pad``, with
+    every key of instance 0 masked) or None. bf16 inputs are small dyadic
+    numbers, exact in bf16."""
+    b, h, lq, lk, dh = shape
+    g = torch.Generator().manual_seed(seed)
+    if dtype == torch.bfloat16:
+        q, k, v, do = (torch.randint(-4, 5, (b, h, n, dh), generator=g).float()
+                       / 8 for n in (lq, lk, lk, lq))
+    else:
+        q, k, v, do = (torch.randn((b, h, n, dh), generator=g)
+                       for n in (lq, lk, lk, lq))
+    bias = None
+    if bias_kind == "hybrid":
+        bias = torch.randn((1, h, 1, lk), generator=g) * 0.5
+        bias[..., -lk // 4:] = -1e9
+    elif bias_kind in ("pad", "masked"):
+        bias = torch.zeros((b, 1, 1, lk))
+        for n in range(b):
+            bias[n, ..., lk - 1 - (n * 7) % (lk // 2):] = -1e9
+        if bias_kind == "masked":
+            bias[0] = -1e9
+    elif bias_kind == "rpe":
+        bias = torch.randn((1, h, lq, lk), generator=g) * 0.5
+    return ([t.to("cuda", dtype) for t in (q, k, v, do)],
+            None if bias is None else bias.cuda())
+
+
+def _check_flash_case(label, shape, dtype, bias_kind, seed):
+    """K4a against its plain version and the dense attention; then the
+    gradients of ``flash_attention(backward="kernel")`` (K4b, K4c) against
+    the plain backward and against autograd of the dense attention. A row
+    whose keys are all masked has lse = -1e9 + log(Lk), which f32 rounds to
+    -1e9, so the recomputed weights of that row are 1 and not 1/Lk, in the
+    kernels as in the TPU kernels they replace: the ``masked`` case holds
+    its gradients against the plain backward only."""
+    (q, k, v, do), bias = _flash_inputs(shape, dtype, bias_kind, seed)
+    f32 = dtype == torch.float32
+    # f32: the key tiles are summed in another order and expf is not
+    # torch.exp; bf16: an ulp of exp can flip the bf16 rounding of a weight
+    # (2**-8 relative), and the outputs are themselves rounded to bf16
+    tol = dict(rtol=1e-4, atol=2e-5) if f32 else dict(rtol=2**-6, atol=2e-2)
+    gtol = dict(rtol=1e-4, atol=1e-4) if f32 else dict(rtol=2**-5, atol=5e-2)
+    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+    want, want_lse = fa._flash_fwd_plain(q, k, v, bias)
+    dense, _ = dot_product_attention(q, k, v, bias=bias, return_probs=False)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all(), label
+    err = _max_err(label, "out vs plain", out, want, **tol)
+    _max_err(label, "out vs dense", out, dense, **tol)
+    _max_err(label, "lse", lse, want_lse, 1e-5, 2e-5)
+
+    before = _launch_counts()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    if bias is not None:
+        leaves.append(bias.clone().requires_grad_(True))
+    got = torch.autograd.grad(
+        fa.flash_attention(*leaves[:3], bias=leaves[3] if bias is not None
+                           else None, backward="kernel"), leaves, do)
+    after = _launch_counts()
+    kernel_rule = bias_kind != "rpe"
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] - before[name] == int(kernel_rule), (label, name)
+    assert after["flash_attention_fwd"] - before["flash_attention_fwd"] == 1
+    dense_out, _ = dot_product_attention(
+        *leaves[:3], bias=leaves[3] if bias is not None else None,
+        return_probs=False)
+    want_dense = torch.autograd.grad(dense_out, leaves, do)
+    names = ("dq", "dk", "dv", "dbias")
+    errs = {}
+    for name, a, d in zip(names, got, want_dense):
+        assert a.shape == d.shape and a.dtype == d.dtype, (label, name)
+        errs[name] = 0.0
+        if bias_kind != "masked":
+            errs[name] = _max_err(label, name + " vs dense autograd", a, d,
+                                  **gtol)
+    if kernel_rule:
+        delta = (do.float() * want.float()).sum(-1)
+        plain = fa._flash_bwd_plain(q, k, v, bias, want_lse, do, delta)
+        for name, a, p in zip(names, got, plain):
+            if p is not None:
+                p = fa._unbroadcast(p, a.shape) if name == "dbias" else p
+                errs[name] = max(errs[name], _max_err(
+                    label, name + " vs plain", a, p, **gtol))
+    torch.cuda.synchronize()
+    print(f"check flash attention {label}: q {list(q.shape)} x {shape[3]} "
+          f"keys {str(dtype)[6:]} bias "
+          f"{None if bias is None else list(bias.shape)}: max|d out| "
+          f"{err:.2e} (rtol {tol['rtol']:.1e} + atol {tol['atol']:.0e}, "
+          f"against plain and dense), lse ok (2e-5); gradients by "
+          f"{'K4b, K4c' if kernel_rule else 'the dense rule (K4b, K4c not launched)'}: "
+          + ", ".join(f"max|d {n}| {e:.2e}" for n, e in errs.items())
+          + f" (rtol {gtol['rtol']:.1e} + atol {gtol['atol']:.0e}, against "
+          + ("plain" if bias_kind == "masked" else
+             "plain and dense autograd" if kernel_rule else "dense autograd")
+          + ")")
+    return err, errs
+
+
+def _check_flash() -> dict:
+    f32, bf16 = torch.float32, torch.bfloat16
+    err_fwd, _ = _check_flash_case("decode", DECODE_SHAPE, f32, "hybrid", 11)
+    _check_flash_case("decode, no bias", DECODE_SHAPE, f32, None, 12)
+    _, errs = _check_flash_case("square", SQUARE_SHAPE, f32, "hybrid", 13)
+    _check_flash_case("ragged", (2, 2, 37, 1568, 32), f32, "hybrid", 14)
+    _check_flash_case("ragged", (2, 2, 100, 200, 128), f32, "hybrid", 15)
+    _check_flash_case("pad mask", (3, 4, 70, 333, 64), f32, "pad", 16)
+    _check_flash_case("query-extent bias", (2, 4, 70, 333, 64), f32, "rpe",
+                      17)
+    _check_flash_case("all-masked instance", (2, 4, 5, 333, 64), f32,
+                      "masked", 18)
+    _check_flash_case("bf16", (2, 4, 70, 333, 64), bf16, "hybrid", 19)
+    _check_flash_case("bf16 decode", (RAGGED, 8, 5, 1654, 64), bf16, "hybrid",
+                      20)
+    # two calls on the same operands repeat bit for bit (no atomics)
+    (q, k, v, do), bias = _flash_inputs((2, 4, 70, 333, 64), f32, "hybrid", 21)
+    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+    delta = (do * out).sum(-1)
+    first = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
+    second = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
+    assert torch.equal(out, fa._flash_fwd_cuda(q, k, v, bias)[0])
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for bad in (q[..., :48].contiguous(), q.double()):
+        try:
+            fa.flash_attention(bad, bad, bad)
+        except (ValueError, TypeError) as e:
+            print(f"check flash attention: refused "
+                  f"{str(bad.dtype)[6:]} Dh {bad.shape[-1]}: {e}")
+        else:
+            raise AssertionError("the wrapper took what the kernel does not")
+    print("check flash attention: forward and backward repeat bit for bit")
+    return {"flash_attention_fwd": err_fwd,
+            "flash_attention_bwd_dq": errs["dq"],
+            "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"],
+                                           errs["dbias"])}
+
+
 # ---------------------------------------------------------------------------
 # serving the flagship
 # ---------------------------------------------------------------------------
@@ -320,6 +507,11 @@ def _synthetic_feats(opt, n, seed):
     rs = np.random.RandomState(seed)
     feats = []
     for char in opt["modality"]:
+        if char == "m" and opt["feats"] == "SwinBERTDense":
+            # the dense motion stream is loaded whole: 1568 patches a video
+            feats.append(np.random.default_rng(seed).standard_normal(
+                (n, 1568, opt["dim_m"]), dtype=np.float32))
+            continue
         length = opt["retrieval_topk"] if char == "r" else opt["n_frames"]
         feats.append(rs.randn(n, length, opt[f"dim_{char}"]).astype(np.float32))
     return feats
@@ -353,16 +545,42 @@ def _teacher_forced_scores(model, opt, feats, hyps):
     return scores, usable
 
 
-def phase_serve(opt) -> dict:
+def long_key_opt(task: str) -> dict:
+    """The long-key serving configuration at full width: MSRVTT
+    ``--method Transformer --task <task> --feats SwinBERTDense --modality
+    ami -dm_flags VA -pm_flags VAT`` (``scripts/exp_versatility_of_CARE.sh``):
+    28 frames of audio and image, 1568 rows of motion, so 1654 (``CARE``) or
+    1624 (``Base``) cross-attention keys and the flash kernel in every beam
+    step."""
+    opt = get_opt({"dataset": "MSRVTT", "method": "Transformer", "task": task,
+                   "feats": "SwinBERTDense", "modality": "ami",
+                   "decoder_modality_flags": "VA",
+                   "predictor_modality_flags": "VAT", "vocab_size": 11000},
+                  read_vocab=False, resolve_paths=False)
+    if task == "CARE":
+        opt["dim_r"] = 512           # the retrieval rows the predictor reads
+    assert opt["dim_m"] == 1024 and opt["use_pallas_attention"] == "auto"
+    return opt
+
+
+def _serve(label, opt, batch_sizes, flash: bool, profile_kernels) -> dict:
+    """Caption synthetic batches of the given sizes through
+    ``get_translator(opt).translate_batch`` with the launch counts set to 0
+    just before and read just after; hold the counts against the beam steps
+    and every score against teacher forcing through the full forward (the
+    dense attention). Returns the launch counts of the run."""
     t0 = time.perf_counter()
     model = build_captioner(opt, seed=SEED)
     translator = get_translator(opt)
     torch.cuda.synchronize()
-    print(f"serve: built the flagship Captioner "
+    layers = opt["num_hidden_layers_decoder"]
+    assert all(l.inter_attention.use_flash is flash
+               for l in model.decoder.layers)
+    print(f"serve {label}: built the Captioner "
           f"({sum(p.numel() for p in model.parameters())} parameters) in "
           f"{time.perf_counter() - t0:.1f} s")
-    batches = [_synthetic_feats(opt, BATCH, SEED + 10 + i) for i in range(3)]
-    batches.append(_synthetic_feats(opt, RAGGED, SEED + 20))
+    batches = [_synthetic_feats(opt, n, SEED + 10 + i)
+               for i, n in enumerate(batch_sizes)]
     translator.translate_batch(model, {"feats": batches[0]})      # warm-up
 
     _zero_launch_counts()
@@ -374,9 +592,11 @@ def phase_serve(opt) -> dict:
         results.append(translator.translate_batch(model, {"feats": feats}))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    counts = {"fused_head_topk": _launch_counts()["fused_head_topk"]}
+    counts = _launch_counts()
     steps = translator.beam_steps
     assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
+    assert counts["flash_attention_fwd"] == (steps * layers if flash else 0), \
+        (counts, steps)
 
     worst, checked, total = 0.0, 0, 0
     for feats, (hyps, scores) in zip(batches, results):
@@ -391,26 +611,92 @@ def phase_serve(opt) -> dict:
                 worst = max(worst, abs(s[0] - r))
     assert worst <= 1e-3, worst
     assert checked >= total // 2, (checked, total)
-    full = sum(seconds[:3])
-    print(f"serve: {len(batches)} batches ({3 * BATCH} + {RAGGED} videos), "
-          f"{steps} beam steps, fused_head_topk launches "
-          f"{counts['fused_head_topk']}")
-    print(f"serve: batch seconds {[round(s, 4) for s in seconds]}; "
-          f"{3 * BATCH / full:.1f} caps/s at batch {BATCH}; "
+    full = [s for s, n in zip(seconds, batch_sizes) if n == BATCH]
+    print(f"serve {label}: batches of {list(batch_sizes)} videos, "
+          f"{steps} beam steps, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    print(f"serve {label}: batch seconds {[round(s, 4) for s in seconds]}; "
+          f"{BATCH * len(full) / sum(full):.1f} caps/s at batch {BATCH}; "
           f"{1e3 * sum(seconds) / steps:.3f} ms per beam step")
-    print(f"serve: scores re-checked by teacher forcing: {checked}/{total} "
-          f"hypotheses, max |diff| {worst:.2e}")
-    print(f"serve: first caption tokens {results[0][0][0][0][:12]}")
-    _profile(f"batch {BATCH}",
-             lambda: translator.translate_batch(model, {"feats": batches[0]}),
-             seconds[0], ["fused_head_topk"])
+    print(f"serve {label}: scores re-checked by teacher forcing: "
+          f"{checked}/{total} hypotheses, max |diff| {worst:.2e}")
+    print(f"serve {label}: first caption tokens {results[0][0][0][0][:12]}")
+    if flash:
+        # what of a batch's wall time is the copy of its features
+        n_bytes = sum(f.nbytes for f in batches[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = translator._feats({"feats": batches[0]})
+        torch.cuda.synchronize()
+        copy_s = time.perf_counter() - t0
+        del on_card
+        print(f"serve {label}: host-to-device copy of one batch's features "
+              f"({n_bytes / 1e6:.1f} MB of pageable numpy): "
+              f"{1e3 * copy_s:.3f} ms ({n_bytes / copy_s / 1e9:.2f} GB/s), "
+              f"{100 * copy_s / seconds[0]:.1f}% of the batch's wall time")
+    if profile_kernels:
+        _profile(f"{label}, batch {BATCH}",
+                 lambda: translator.translate_batch(model,
+                                                    {"feats": batches[0]}),
+                 seconds[0], profile_kernels, steps=steps // len(batches))
     return counts
 
 
-def _profile(label, run, unprofiled_seconds, kernel_names):
+def phase_serve(opt) -> dict:
+    """The flagship (short keys, dense decode step), then the long-key
+    configuration with and without the concept stack. Returns the launch
+    counts: K1's from the flagship run, K4a's from the long-key ``CARE``
+    run."""
+    counts = _serve("flagship", opt, [BATCH] * 3 + [RAGGED], False,
+                    ["fused_head_topk"])
+    long_counts = _serve("long keys, CARE", long_key_opt("CARE"),
+                         [BATCH] * 2 + [RAGGED], True,
+                         ["flash_attention_fwd", "fused_head_topk"])
+    _serve("long keys, Base", long_key_opt("Base"), [BATCH], True, None)
+    return {"fused_head_topk": counts["fused_head_topk"],
+            "flash_attention_fwd": long_counts["flash_attention_fwd"]}
+
+
+def phase_flash_gradient() -> dict:
+    """``flash_attention`` as the differentiable function a caller would
+    use: a few gradient steps on q, k, v and a hybrid bias at the square
+    shape through ``backward="kernel"``, the launch counts set to 0 just
+    before. No model path reaches the backward kernels, as in the JAX
+    package; this is their entry point."""
+    (q, k, v, do), bias = _flash_inputs(SQUARE_SHAPE, torch.float32,
+                                        "hybrid", 31)
+    leaves = [t.requires_grad_(True) for t in (q, k, v, bias)]
+    steps = 3
+    _zero_launch_counts()
+    losses = []
+    for _ in range(steps):
+        out = fa.flash_attention(q, k, v, bias=bias, backward="kernel")
+        loss = ((out - do) ** 2).mean()
+        grads = torch.autograd.grad(loss, leaves)
+        with torch.no_grad():
+            for t, g in zip(leaves, grads):
+                assert torch.isfinite(g).all() and g.shape == t.shape
+                t -= 2000.0 * g
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[name] == steps, (name, counts)
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    print(f"flash gradient: {steps} descent steps on q, k, v and the bias at "
+          f"{list(q.shape)} through backward='kernel': losses "
+          f"{[round(l, 6) for l in losses]}; launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    return {k: counts[k] for k in ("flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv")}
+
+
+def _profile(label, run, unprofiled_seconds, kernel_names, steps=None):
     """``run`` once more under torch.profiler: the device time by kernel,
     and the device's busy share of the same work's unprofiled wall time
-    (the profiler slows the host, not the device)."""
+    (the profiler slows the host, not the device). ``steps``: the beam
+    steps of the run, for the device operations per step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -436,7 +722,10 @@ def _profile(label, run, unprofiled_seconds, kernel_names):
           f"{busy_us / 1e3:.3f} ms of {1e3 * unprofiled_seconds:.3f} ms wall "
           f"({100 * busy_us / 1e6 / unprofiled_seconds:.1f}% busy); "
           f"{sum(e.count for e in kernels)} device operations (kernels "
-          f"and copies); of device time: {', '.join(shares)}")
+          f"and copies"
+          + (f", {sum(e.count for e in kernels) / steps:.0f} per beam step"
+             if steps else "")
+          + f"); of device time: {', '.join(shares)}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x {e.key[:90]}")
@@ -521,10 +810,11 @@ def phase_train(opt) -> dict:
     assert trainer._fused_xent and trainer.model.training
     assert trainer.global_step == len(losses) == steps, (losses, steps)
     assert all(np.isfinite(losses)), losses
-    for name in ("vocab_argmax_lse", "fused_xent_bwd_dh",
-                 "fused_xent_bwd_dw"):
-        assert counts[name] == steps, (name, counts, steps)
-    assert counts["fused_head_topk"] == 0, counts
+    trained = ("vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    for name, n in counts.items():
+        # the serving kernels stay out of training: its attention returns
+        # probabilities, which is the dense path at any key length
+        assert n == (steps if name in trained else 0), (name, counts, steps)
     assert trainer._switched and trainer._switch_offset == TRAIN_BATCHES
     last = float(np.mean(losses[-TRAIN_BATCHES:]))
     assert last < losses[0], (last, losses)
@@ -585,10 +875,8 @@ def phase_train(opt) -> dict:
               f"{resident:.1f} MiB resident")
     batch = device_batch(loader.batches[0], "cuda")
     _profile("one fused train step", lambda: t._train_step_fn(batch),
-             ms / 1e3,
-             ["vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw"])
-    del counts["fused_head_topk"]
-    return counts
+             ms / 1e3, trained)
+    return {name: counts[name] for name in trained}
 
 
 # ---------------------------------------------------------------------------
@@ -610,21 +898,108 @@ def _time_ms(fn, n=100, warm=10):
 
 
 def _entry(name, errors, counts, ms, plain_ms, unfused_ms, flops, n_bytes,
-           shape, unfused_what):
+           shape, unfused_what, library_ms=None, library_what=None):
+    """One kernel's line. ``library_ms``: the one PyTorch call that computes
+    the same function, where there is one; the vocab kernels have none, and
+    the unfused sequence of calls is timed beside them instead."""
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
     entry = dict(
         name=name, **KERNELS[name], launches=counts[name],
         max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
         bound_ms=1e3 * max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes",
-        # no single PyTorch call computes any of these functions; the
-        # unfused sequence of calls is timed beside them instead
-        library_ms=None, unfused_torch_ms=unfused_ms)
+        library_ms=library_ms, unfused_torch_ms=unfused_ms, shape=shape)
     print(f"time {name} at {shape} f32: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, {unfused_what} {unfused_ms:.4f} ms, bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} flop, "
-          f"{n_bytes} bytes)")
+          f"{plain_ms:.4f} ms, {unfused_what} {unfused_ms:.4f} ms, "
+          + (f"{library_what} {library_ms:.4f} ms, " if library_what else "")
+          + f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} "
+          f"flop, {n_bytes} bytes)")
     return entry
+
+
+def _time_flash(errors, counts) -> list:
+    """K4a at the decode shape (its entry) and at the square shape, K4b and
+    K4c at the square shape; beside each its plain version, the port's dense
+    attention (matmul, softmax, matmul) and
+    ``F.scaled_dot_product_attention``, which the port never calls."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entries, fwd = [], {}
+    for label, shape in (("decode", DECODE_SHAPE), ("square", SQUARE_SHAPE)):
+        b, h, lq, lk, dh = shape
+        (q, k, v, do), bias = _flash_inputs(shape, torch.float32, "hybrid", 41)
+        mask = bias.expand(b, h, lq, lk)
+        out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+        delta = (do * out).sum(-1)
+        flops = 4 * b * h * lq * lk * dh
+        qo, kv, rows = 4 * q.numel(), 4 * k.numel(), 4 * b * h * lq
+        what = f"q {list(q.shape)} x {lk} keys, bias {list(bias.shape)}"
+        fwd[label] = _entry(
+            "flash_attention_fwd", errors, counts,
+            _time_ms(lambda: fa._flash_fwd_cuda(q, k, v, bias)),
+            _time_ms(lambda: fa._flash_fwd_plain(q, k, v, bias), 10, 2),
+            _time_ms(lambda: dot_product_attention(q, k, v, bias=bias,
+                                                   return_probs=False)),
+            flops, 2 * qo + 2 * kv + 4 * bias.numel() + rows, what,
+            "the port's dense attention",
+            _time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+            "F.scaled_dot_product_attention")
+    entry = fwd["decode"]
+    entry.update({"square_" + key: fwd["square"][key] for key in
+                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                   "unfused_torch_ms")})
+    entries.append(entry)
+
+    # the square shape's operands are still bound: the backward kernels
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def dense_backward(fn):
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    def dense(q, k, v):
+        return dot_product_attention(q, k, v, bias=bias,
+                                     return_probs=False)[0]
+
+    def library(q, k, v):
+        return sdpa(q, k, v, attn_mask=mask)
+
+    dense_ms = _time_ms(lambda: dense_backward(dense)) \
+        - fwd["square"]["unfused_torch_ms"]
+    library_ms = _time_ms(lambda: dense_backward(library)) \
+        - fwd["square"]["library_ms"]
+    plain_ms = _time_ms(lambda: fa._flash_bwd_plain(q, k, v, bias, lse, do,
+                                                    delta), 5, 1)
+    both = _time_ms(lambda: fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta))
+    # the wrapper launches both kernels; each alone, through the libraries
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), 0,
+            bias.stride(1), bias.stride(3), lse.data_ptr(), do.data_ptr(),
+            delta.data_ptr(), b, h, lq, lk, dh)
+    stream = torch.cuda.current_stream().cuda_stream
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    dbias = torch.empty((b, h, 1, lk), device="cuda")
+    dq_ms = _time_ms(lambda: fa._dq_library().care_flash_bwd_dq_f32(
+        *head, dq.data_ptr(), stream))
+    dkv_ms = _time_ms(lambda: fa._dkv_library().care_flash_bwd_dkv_f32(
+        *head, dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), stream))
+    torch.cuda.synchronize()
+    want = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
+    assert all(torch.equal(a, w) for a, w in zip((dq, dk, dv, dbias), want))
+    print(f"time flash backward: dq and dk/dv/dbias kernels through the "
+          f"wrapper {both:.4f} ms; the plain backward computes all four "
+          f"gradients in one pass, the dense and library backwards dq, dk "
+          f"and dv together")
+    common = ("autograd backward of the port's dense attention (dq, dk, dv "
+              "together)", library_ms,
+              "autograd backward of F.scaled_dot_product_attention")
+    entries.append(_entry(
+        "flash_attention_bwd_dq", errors, counts, dq_ms, plain_ms, dense_ms,
+        6 * b * h * lq * lk * dh,
+        3 * qo + 2 * kv + 4 * bias.numel() + 2 * rows, what, *common))
+    entries.append(_entry(
+        "flash_attention_bwd_dkv", errors, counts, dkv_ms, plain_ms, dense_ms,
+        8 * b * h * lq * lk * dh,
+        2 * qo + 4 * kv + 4 * bias.numel() + 2 * rows + 4 * b * h * lk, what,
+        *common))
+    return entries
 
 
 def phase_time(opt, errors, counts) -> list:
@@ -689,17 +1064,20 @@ def phase_time(opt, errors, counts) -> list:
         backward_ms, 4 * rows * H * V,
         4 * (rows * H + 2 * V * H + V) + row_bytes, shape,
         "autograd backward of the unfused sequence (dh and dW together)"))
-    return entries
+    return entries + _time_flash(errors, counts)
 
 
 def main() -> None:
-    name = phase_device()
+    name, smi_line = phase_device()
     opt = flagship_opt()
     phase_build()
     errors = phase_check(opt)
     counts = phase_serve(opt)
+    counts.update(phase_flash_gradient())
     counts.update(phase_train(opt))
     kernels = phase_time(opt, errors, counts)
+    # the card and its power limit once more, beside the numbers
+    print(smi_line)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

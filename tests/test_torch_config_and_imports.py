@@ -10,18 +10,23 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 import yaml
 
 from care_tpu.config import get_opt as jax_get_opt
+from care_tpu.decoding import get_translator as jax_get_translator
 from care_tpu_torch.config import get_opt as port_get_opt
 from care_tpu_torch.config.presets import PRESETS
 from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.models import build_captioner
+from care_tpu_torch.ops import flash_attention as fa
+from care_tpu_torch.training.trainer import device_batch
 
 from helpers import cpu_subprocess_env, tiny_opt
-from test_torch_support import flagship_small_opt
+from test_torch_support import (flagship_pair, flagship_small_opt,
+                                synthetic_batch)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = {"dataset": "MSRVTT", "method": "Transformer", "task": "CARE",
@@ -82,9 +87,9 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'care_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 22, mods\n"
-        "for m in ('ops.fused_xent', 'training.losses', 'training.optim',\n"
-        "          'training.trainer'):\n"
+        "assert len(mods) >= 23, mods\n"
+        "for m in ('ops.fused_xent', 'ops.flash_attention',\n"
+        "          'training.losses', 'training.optim', 'training.trainer'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -109,9 +114,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 UNSUPPORTED = [
     ("compositional_intra", True), ("compositional_inter", True),
-    ("compositional_ffn", True), ("RPE", True),
-    ("transformer_pre_ln", True), ("pointer", "Pointer"),
-    ("decoder", "SingleLayerRNNDecoder"), ("use_pallas_attention", True),
+    ("compositional_ffn", True), ("pointer", "Pointer"),
+    ("decoder", "SingleLayerRNNDecoder"),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "bfloat16"),
     ("decoding_type", "NARFormer"), ("encoder", "EncoderWithHighWayBN"),
     ("fusion", "channel_concat"), ("use_attr_type", "emb_att"),
@@ -124,6 +128,33 @@ def test_unsupported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key):
         build_captioner(opt, device="cpu")
         get_translator(opt, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("use_pallas_attention", True), ("RPE", True),
+    ("transformer_pre_ln", True)])
+def test_options_the_long_key_slice_implements_match_jax(key, value):
+    """Options that used to raise: the model builds with each of them set
+    and agrees with the JAX package, full forward and beam search."""
+    opt = dict(flagship_small_opt(vocab_size=40), **{key: value})
+    jmodel, variables, port = flagship_pair(
+        opt, seed=5, jax_opt=dict(opt, use_pallas_attention=False))
+    batch = synthetic_batch(opt, 2, seed=6)
+    want = jmodel.apply(variables, batch, deterministic=True)["logits"]
+    with torch.no_grad():
+        got = port(device_batch(batch, "cpu"))["logits"]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-4)
+    want_h, want_s = jax_get_translator(
+        dict(opt, use_pallas_attention=False)).translate_batch(
+            [(jmodel, variables)], {"feats": batch["feats"]})
+    before = fa.plain_forward_calls
+    got_h, got_s = get_translator(opt, device="cpu").translate_batch(
+        port, {"feats": batch["feats"]})
+    assert got_h == want_h
+    np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-4)
+    # only the forced switch reaches the flash function at 16 keys
+    assert (fa.plain_forward_calls > before) == (key == "use_pallas_attention")
 
 
 def test_ensembles_and_fused_batches_raise():

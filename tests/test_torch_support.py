@@ -34,19 +34,45 @@ def randomized(params, seed: int, scale: float = 0.1):
                    ).astype(np.float32), params)
 
 
+def stream_length(opt: dict, char: str) -> int:
+    """Rows of one modality's feature stream: the retrieval rows, the 1568
+    dense patches of ``feats: SwinBERTDense``'s motion stream (loaded whole,
+    ``care_tpu/data/datasets.py``), else the sampled frames."""
+    if char == "r":
+        return opt["retrieval_topk"]
+    if char == "m" and opt.get("feats") == "SwinBERTDense":
+        return 1568
+    return opt["n_frames"]
+
+
 def synthetic_feats(opt: dict, batch_size: int, seed: int):
     """Per-modality feature streams as numpy arrays."""
     rs = np.random.RandomState(seed)
-    return [rs.randn(batch_size,
-                     opt["retrieval_topk"] if c == "r" else opt["n_frames"],
+    return [rs.randn(batch_size, stream_length(opt, c),
                      opt[f"dim_{c}"]).astype(np.float32)
             for c in opt["modality"]]
 
 
-def flagship_pair(opt: dict, seed: int = 0):
-    """(jax model, jax variables, port model) sharing randomized weights."""
-    jmodel = jax_build_captioner(opt)
-    batch = graft._synthetic_batch(opt, 2, seed=seed)
+def synthetic_batch(opt: dict, batch_size: int, seed: int) -> dict:
+    """A training batch as numpy arrays: ``synthetic_feats`` plus token ids,
+    labels and multi-hot concept labels."""
+    rs = np.random.RandomState(seed + 1000)
+    shape = (batch_size, opt["max_len"] - 1)
+    return {"feats": synthetic_feats(opt, batch_size, seed),
+            "input_ids": rs.randint(6, opt["vocab_size"], shape).astype(
+                np.int32),
+            "labels": rs.randint(6, opt["vocab_size"], shape).astype(np.int32),
+            "labels_attr": rs.randint(
+                0, 2, (batch_size, opt["attribute_prediction_k"])).astype(
+                    np.float32)}
+
+
+def flagship_pair(opt: dict, seed: int = 0, jax_opt: dict = None):
+    """(jax model, jax variables, port model) sharing randomized weights.
+    ``jax_opt`` builds the JAX side from other options (say, with its flash
+    dispatch off) where the parameters are the same."""
+    jmodel = jax_build_captioner(jax_opt or opt)
+    batch = synthetic_batch(opt, 2, seed)
     key = jax.random.PRNGKey(seed)
     variables = jmodel.init({"params": key, "dropout": key}, batch,
                             deterministic=True)
