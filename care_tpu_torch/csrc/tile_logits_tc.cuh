@@ -1,0 +1,307 @@
+// Tensor-core building blocks of the vocab kernels that were redesigned for
+// Hopper (fused_head_topk.cu, fused_xent_bwd_dw.cu): asynchronous staging of
+// K-major tiles into shared memory, and warp-level products of those tiles
+// on the tensor cores. tile_logits.cuh (the f32 SIMT tile) stays for the
+// kernels not yet moved onto this one.
+//
+// Numerics. f32 operands stay f32 at every interface and go through the
+// tensor cores as three TF32 products accumulated in f32 ("3xTF32"): each
+// operand x is split into hi = tf32_rn(x) and lo = tf32_rn(x - hi)
+// (rounding to nearest, ties away, as cvt.rna.tf32.f32), and a product a*b is taken as lo_a*hi_b + hi_a*lo_b +
+// hi_a*hi_b, the small terms first. The dropped lo*lo term and the roundings
+// leave about 2^-21 relative per product, the accuracy of an f32 product on
+// the CUDA cores (one TF32 product alone keeps 2^-11 and misses the kernels'
+// tolerances; tests/test_torch_tf32_split.py emulates both). bf16 operands
+// take one bf16 product with f32 accumulation.
+//
+// Accumulation. Inside one mma the tensor cores add the products to the
+// accumulator with truncation, to the precision of the larger addend, so
+// an accumulator that is large against what it gathers (a dW entry that
+// adds and cancels label terms over 1856 rows) drifts by up to an ulp of
+// its largest value per instruction: 7e-7 in dW at the training shape
+// (chip_smoke.py's check), more than the kernels' tolerance. The kernels therefore run each
+// short stretch of mma (a depth slice of the logits, a depth step of dW)
+// from a zero accumulator and add it to the running sums with an f32 add,
+// which rounds to nearest.
+//
+// Route. mma.sync (m16n8k8 TF32, m16n8k16 bf16), not wgmma: TF32 wgmma reads
+// B from shared memory as it lies there, so the hi/lo split of B would need
+// two split copies of every tile in shared memory (or a split pass over it),
+// while mma.sync takes both operands from registers, where the split is
+// three instructions per value. Tiles come in through cp.async (16 bytes a
+// thread, zero-filled past the edges) into multi-stage rings, so loads
+// overlap the products.
+//
+// Equal columns give bit-equal logits: a column's logit is the same
+// sequence of mma instructions over the same k-steps in the same order,
+// whatever tile, warp or position within the n8 fragment it lands in.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k8 .tf32 and mma.m16n8k16 .bf16, row.col):
+// with g = lane / 4 and q = lane % 4,
+//   A (16 x k, row-major):  tf32 a0 (g, q) a1 (g+8, q) a2 (g, q+4) a3 (g+8, q+4)
+//                           bf16 pairs at columns 2q, 2q+1 and 2q+8, 2q+9
+//   B (k x 8, "col"):       tf32 b0 (q, g) b1 (q+4, g)
+//                           bf16 pairs at rows 2q, 2q+1 and 2q+8, 2q+9
+//   C (16 x 8):             c0 (g, 2q) c1 (g, 2q+1) c2 (g+8, 2q) c3 (g+8, 2q+1)
+
+#pragma once
+
+#include "tile_logits.cuh"
+
+namespace care {
+namespace tc {
+
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
+                                           int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most n groups are pending; n is clipped to 7, which only
+// waits longer
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n < 0 ? 0 : n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::); break;
+  }
+}
+
+// Stage src[r0 + r][k0 + e] (row stride ld elements) for r < n_rows,
+// e < width into dst[r * dst_ld + e], both in elements of T. Rows >= r_end
+// and columns >= k_end read as zero. width * sizeof(T) is a multiple of 16
+// and dst rows start 16-byte aligned. Pieces of 16 bytes go through
+// cp.async (zero-filled past k_end); a piece wholly outside the operand, or
+// whose source is not 16-byte aligned (an H that is not a multiple of 16
+// bytes), is stored by the thread itself, which the caller's __syncthreads
+// makes visible like the asynchronous ones.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int dst_ld,
+                                           const T* __restrict__ src, int ld,
+                                           int r0, int r_end, int n_rows,
+                                           int k0, int k_end, int width,
+                                           int tid, int n_threads) {
+  constexpr int PER = 16 / sizeof(T);
+  const int pieces = width / PER;
+  for (int idx = tid; idx < n_rows * pieces; idx += n_threads) {
+    const int r = idx / pieces, p = idx % pieces;
+    const int gr = r0 + r, gk = k0 + p * PER;
+    T* d = dst + (size_t)r * dst_ld + p * PER;
+    const int valid = gr < r_end ? min(PER, max(0, k_end - gk)) : 0;
+    const T* s = src + (size_t)(valid > 0 ? gr : 0) * ld + (valid > 0 ? gk : 0);
+    if (valid > 0 && (reinterpret_cast<size_t>(s) & 15) == 0) {
+      cp_async16(d, s, valid * (int)sizeof(T));
+    } else {
+#pragma unroll
+      for (int e = 0; e < PER; ++e) d[e] = e < valid ? s[e] : T(0.f);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core products
+// ---------------------------------------------------------------------------
+
+// x rounded to TF32, to nearest with ties away from zero, on the bits:
+// what cvt.rna.tf32.f32 gives for finite x, in two full-rate integer
+// instructions (the conversion instruction runs at a fraction of the rate)
+__device__ __forceinline__ unsigned tf32_rn(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo, both TF32
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rn(x);
+  lo = tf32_rn(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (16 x k) ready for the tensor cores: hi and lo for f32
+// operands (3xTF32), the bf16 pairs for bf16 ones.
+template <typename T> struct FragA;
+template <> struct FragA<float> { unsigned hi[4], lo[4]; };
+template <> struct FragA<__nv_bfloat16> { unsigned v[4]; };
+template <typename T> struct FragB;
+template <> struct FragB<float> { unsigned hi[2], lo[2]; };
+template <> struct FragB<__nv_bfloat16> { unsigned v[2]; };
+
+// depth of one mma step in elements of T
+template <typename T> struct Kstep;
+template <> struct Kstep<float> { static constexpr int value = 8; };
+template <> struct Kstep<__nv_bfloat16> { static constexpr int value = 16; };
+
+__device__ __forceinline__ unsigned pack_bf16(__nv_bfloat16 lo_k,
+                                              __nv_bfloat16 hi_k) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(lo_k)) |
+         (static_cast<unsigned>(__bfloat16_as_ushort(hi_k)) << 16);
+}
+
+// A = s^T for a row-major f32 tile s[k][m] (the fragment's k runs down the
+// rows of s) at (m0, k0); values are rounded to T (they already are)
+template <typename T>
+__device__ __forceinline__ void load_a_transposed(FragA<T>& f, const float* s,
+                                                  int ld, int m0, int k0,
+                                                  int lane);
+template <>
+__device__ __forceinline__ void load_a_transposed(FragA<float>& f,
+                                                  const float* s, int ld,
+                                                  int m0, int k0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (size_t)(k0 + q) * ld + m0 + g;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[8], f.hi[1], f.lo[1]);
+  split_tf32(p[4 * ld], f.hi[2], f.lo[2]);
+  split_tf32(p[4 * ld + 8], f.hi[3], f.lo[3]);
+}
+template <>
+__device__ __forceinline__ void load_a_transposed(FragA<__nv_bfloat16>& f,
+                                                  const float* s, int ld,
+                                                  int m0, int k0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (size_t)(k0 + 2 * q) * ld + m0 + g;
+  auto b = [](float x) { return __float2bfloat16_rn(x); };
+  f.v[0] = pack_bf16(b(p[0]), b(p[ld]));
+  f.v[1] = pack_bf16(b(p[8]), b(p[ld + 8]));
+  f.v[2] = pack_bf16(b(p[8 * ld]), b(p[9 * ld]));
+  f.v[3] = pack_bf16(b(p[8 * ld + 8]), b(p[9 * ld + 8]));
+}
+
+// B from a tile stored k-major, s[k][n] with n contiguous (rows of h read
+// as the reduced axis), at (k0, n0)
+__device__ __forceinline__ void load_b_kmajor(FragB<float>& f, const float* s,
+                                              int ld, int k0, int n0,
+                                              int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const float* p = s + (size_t)(k0 + q) * ld + n0 + g;
+  split_tf32(p[0], f.hi[0], f.lo[0]);
+  split_tf32(p[4 * ld], f.hi[1], f.lo[1]);
+}
+__device__ __forceinline__ void load_b_kmajor(FragB<__nv_bfloat16>& f,
+                                              const __nv_bfloat16* s, int ld,
+                                              int k0, int n0, int lane) {
+  const int g = lane >> 2, q = lane & 3;
+  const __nv_bfloat16* p = s + (size_t)(k0 + 2 * q) * ld + n0 + g;
+  f.v[0] = pack_bf16(p[0], p[ld]);
+  f.v[1] = pack_bf16(p[8 * ld], p[9 * ld]);
+}
+
+// ldmatrix: four (x4) or two (x2) 8 x 8 matrices of 16-bit pairs, lane l
+// giving the address of row l % 8 of matrix l / 8; thread t receives word
+// t % 4 of row t / 4 of each. A 32-bit f32 element is one such word.
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void to_frag(FragA<float>& f, const unsigned (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), f.hi[i], f.lo[i]);
+}
+__device__ __forceinline__ void to_frag(FragA<__nv_bfloat16>& f,
+                                        const unsigned (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f.v[i] = r[i];
+}
+__device__ __forceinline__ void to_frag(FragB<float>& f, unsigned r0,
+                                        unsigned r1) {
+  split_tf32(__uint_as_float(r0), f.hi[0], f.lo[0]);
+  split_tf32(__uint_as_float(r1), f.hi[1], f.lo[1]);
+}
+__device__ __forceinline__ void to_frag(FragB<__nv_bfloat16>& f, unsigned r0,
+                                        unsigned r1) {
+  f.v[0] = r0;
+  f.v[1] = r1;
+}
+
+// The A fragment at (m0, k0) of a row-major tile s[m][k] through one
+// ldmatrix.x4; rows start 16-byte aligned and k0 is a multiple of the step
+template <typename T>
+__device__ __forceinline__ void ldsm_a(FragA<T>& f, const T* s, int ld,
+                                       int m0, int k0, int lane) {
+  const int mat = lane >> 3, row = lane & 7;
+  unsigned r[4];
+  ldsm_x4(r, s + (size_t)(m0 + row + (mat & 1) * 8) * ld + k0 +
+                 (mat >> 1) * (16 / (int)sizeof(T)));
+  to_frag(f, r);
+}
+
+// The B fragments of the n8 tiles at n0 and n0 + 8 of an n-major tile
+// s[n][k] through one ldmatrix.x4
+template <typename T>
+__device__ __forceinline__ void ldsm_b2(FragB<T>& f0, FragB<T>& f1,
+                                        const T* s, int ld, int n0, int k0,
+                                        int lane) {
+  const int mat = lane >> 3, row = lane & 7;
+  unsigned r[4];
+  ldsm_x4(r, s + (size_t)(n0 + row + (mat >> 1) * 8) * ld + k0 +
+                 (mat & 1) * (16 / (int)sizeof(T)));
+  to_frag(f0, r[0], r[1]);
+  to_frag(f1, r[2], r[3]);
+}
+
+// one n8 tile's B fragment through ldmatrix.x2 (lanes 0-15 give addresses)
+template <typename T>
+__device__ __forceinline__ void ldsm_b1(FragB<T>& f, const T* s, int ld,
+                                        int n0, int k0, int lane) {
+  const int mat = (lane >> 3) & 1, row = lane & 7;
+  unsigned r[2];
+  ldsm_x2(r, s + (size_t)(n0 + row) * ld + k0 + mat * (16 / (int)sizeof(T)));
+  to_frag(f, r[0], r[1]);
+}
+
+// c += a * b on the tensor cores: 3xTF32 for f32, one bf16 product for bf16
+__device__ __forceinline__ void mma(float (&c)[4], const FragA<float>& a,
+                                    const FragB<float>& b) {
+  mma_tf32(c, a.lo, b.hi[0], b.hi[1]);
+  mma_tf32(c, a.hi, b.lo[0], b.lo[1]);
+  mma_tf32(c, a.hi, b.hi[0], b.hi[1]);
+}
+__device__ __forceinline__ void mma(float (&c)[4],
+                                    const FragA<__nv_bfloat16>& a,
+                                    const FragB<__nv_bfloat16>& b) {
+  mma_bf16(c, a.v, b.v[0], b.v[1]);
+}
+
+}  // namespace tc
+}  // namespace care

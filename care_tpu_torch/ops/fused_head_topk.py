@@ -114,8 +114,10 @@ def _library():
     for fn in (lib.care_fused_head_topk_f32, lib.care_fused_head_topk_bf16):
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    lib.care_fused_head_topk_tile_cols.argtypes = []
-    lib.care_fused_head_topk_tile_cols.restype = ctypes.c_int
+    for fn in (lib.care_fused_head_topk_tile_cols,
+               lib.care_fused_head_topk_max_k):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -126,9 +128,11 @@ def _stats_cuda(h, W, b, beam_k: int):
     _check_head_operands(h, W, b)
     rows, H = h.shape
     V = W.shape[0]
-    if not 1 <= beam_k <= V:
-        raise ValueError(f"beam_k {beam_k} must lie in [1, V={V}]")
     lib = _library()
+    max_k = min(V, lib.care_fused_head_topk_max_k())
+    if not 1 <= beam_k <= max_k:
+        raise ValueError(f"beam_k {beam_k} must lie in [1, {max_k}]: the "
+                         "kernel keeps each row's top-K in registers")
     n_tiles = -(-V // lib.care_fused_head_topk_tile_cols())
     f32 = dict(dtype=torch.float32, device=h.device)
     i32 = dict(dtype=torch.int32, device=h.device)

@@ -93,10 +93,8 @@ def _dh_library():
 def _dw_library():
     lib = _build.load("fused_xent_bwd_dw")
     for fn in (lib.care_xent_bwd_dw_f32, lib.care_xent_bwd_dw_bf16):
-        fn.argtypes = _BWD_ROWS + [ctypes.c_void_p] * 5
+        fn.argtypes = _BWD_ROWS + [ctypes.c_void_p] * 3
         fn.restype = ctypes.c_int
-    lib.care_xent_bwd_dw_splits.argtypes = [ctypes.c_int] * 2
-    lib.care_xent_bwd_dw_splits.restype = ctypes.c_int
     return lib
 
 
@@ -140,14 +138,11 @@ def _bwd_cuda(h, W, b, labels, lse, gl, gb, gs, want_dh: bool = True,
         del part
     if want_dw:
         lib = _dw_library()
-        splits = lib.care_xent_bwd_dw_splits(rows, V)
-        part_w = torch.empty((splits, V, H), **f32)
-        part_b = torch.empty((splits, V), **f32)
+        # dW and db accumulate on chip: no scratch beyond the outputs
         dW = torch.empty_like(W)
         db = torch.empty((V,), **f32)
         rc = getattr(lib, "care_xent_bwd_dw_" + suffix)(
-            *head, part_w.data_ptr(), part_b.data_ptr(), dW.data_ptr(),
-            db.data_ptr(), stream)
+            *head, dW.data_ptr(), db.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError("fused xent dW kernel launch failed: CUDA "
                                f"error {rc}")

@@ -41,11 +41,13 @@ before the last line:
    dW kernels (launch counts == steps), every loss must be finite and the
    last steps' mean below the first. Then fused against dense from one
    seed with dropout off, the ``auto`` policy at batch 64 and 192, ms per
-   step and peak memory for both, and a profile of one fused step.
+   step and peak memory for both, a profile of one fused step, and the
+   dW kernel's scratch.
 7. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
-   the kernel's bound.
+   the kernel's bound on the tensor cores (3xTF32 for f32 work) and its f32
+   CUDA-core bound; the fused head and the dW kernel also in bf16.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -76,10 +78,15 @@ from care_tpu_torch.training.trainer import device_batch
 SEED = 0
 BATCH, RAGGED = 64, 17
 TRAIN_BATCHES, TRAIN_EPOCHS = 4, 2
-# NVIDIA H100 SXM data-sheet peaks at 700 W: HBM3 bandwidth, and f32 on the
-# CUDA cores (no tensor cores), the rate the f32 kernels run at
+# NVIDIA H100 SXM data-sheet peaks at 700 W: HBM3 bandwidth; f32 on the
+# CUDA cores (no tensor cores); dense TF32 and bf16 on the tensor cores. An
+# f32 product as accurate as f32 takes three TF32 products on the tensor
+# cores (3xTF32, csrc/tile_logits_tc.cuh), so its bound is 3 x flops at the
+# TF32 rate; the CUDA-core bound is kept beside it for the earlier readings
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 KERNELS = {
     "fused_head_topk": dict(
@@ -106,10 +113,10 @@ KERNELS = {
 }
 # device kernels of each entry, as the profiler names them
 DEVICE_KERNELS = {
-    "fused_head_topk": ("tile_stats_kernel", "merge_kernel"),
+    "fused_head_topk": ("head_stats_tc_kernel", "merge_kernel"),
     "vocab_argmax_lse": ("xent_stats_tile_kernel", "xent_stats_reduce_kernel"),
     "fused_xent_bwd_dh": ("xent_dh_tile_kernel", "xent_dh_reduce_kernel"),
-    "fused_xent_bwd_dw": ("xent_dw_tile_kernel", "xent_dw_reduce_kernel"),
+    "fused_xent_bwd_dw": ("xent_dw_tc_kernel",),
     "flash_attention_fwd": ("flash_fwd_kernel",),
     "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
@@ -132,13 +139,15 @@ def _zero_launch_counts() -> None:
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
 
 
-def flagship_opt() -> dict:
+def flagship_opt(arch: str = "base") -> dict:
     """The flagship serving configuration at full width
-    (``__graft_entry__.py:_flagship_opt``)."""
+    (``__graft_entry__.py:_flagship_opt``); ``arch`` picks another width
+    preset (``median`` H 768, ``large`` H 1024)."""
     opt = get_opt({"dataset": "MSRVTT", "method": "Transformer",
                    "task": "CARE", "feats": "ViT",
                    "decoder_modality_flags": "VA",
-                   "predictor_modality_flags": "VAT", "vocab_size": 11000},
+                   "predictor_modality_flags": "VAT", "vocab_size": 11000,
+                   "arch": arch},
                   read_vocab=False, resolve_paths=False)
     opt["dim_a"], opt["dim_m"], opt["dim_i"], opt["dim_r"] = 128, 2048, 512, 512
     return opt
@@ -195,9 +204,9 @@ def _head_inputs(rows, H, V, dtype, exact, seed):
     return h.to("cuda", dtype), W.to("cuda", dtype)
 
 
-def _check_head_case(label, h, W, K, ties_exact):
-    got = fht._stats_cuda(h, W, None, K)
-    want = fht._stats_plain(h, W, None, K + 1, 1024)
+def _check_head_case(label, h, W, K, ties_exact, b=None):
+    got = fht._stats_cuda(h, W, b, K)
+    want = fht._stats_plain(h, W, b, K + 1, 1024)
     torch.cuda.synchronize()
     cv, ids, m, s = (t.cpu() for t in got)
     pv, pi, pm, ps = (t.cpu() for t in want)
@@ -220,7 +229,8 @@ def _check_head_case(label, h, W, K, ties_exact):
         sep = (gap_prev > 1e-4) & (gap_next > 1e-4)
         assert torch.equal(ids[sep], pi[:, :K][sep]), label
     print(f"check fused_head_topk {label}: rows {h.shape[0]} H {h.shape[1]} "
-          f"V {W.shape[0]} K {K} {str(h.dtype)[6:]}: max|dm| {err_m:.2e} "
+          f"V {W.shape[0]} K {K} {str(h.dtype)[6:]} bias {b is not None}: "
+          f"max|dm| {err_m:.2e} "
           f"max|dlog s| {err_logs:.2e} max|dcv| {err_cv:.2e} ids ok "
           f"(tolerance: m, log s 1e-5 relative; cv 1e-4; ids "
           f"{'all' if ties_exact else 'where separated by > 1e-4'})")
@@ -240,6 +250,11 @@ def phase_check(opt) -> dict:
     # every column repeats 37 columns later, across tile and chunk borders
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_head_case("ties", h, W, K, ties_exact=True)
+    # beams above 8 take the kernel's 32-long lists: ragged rows, ties
+    h, W, b, _, _ = _xent_inputs(RAGGED * 16, H, V, torch.float32, True, True,
+                                 11)
+    W = W[torch.arange(V, device="cuda") % 37].contiguous()
+    _check_head_case("K 16 ties", h, W, 16, ties_exact=True, b=b)
     return {"fused_head_topk": err, **_check_xent(opt), **_check_flash()}
 
 
@@ -333,10 +348,21 @@ def _check_xent(opt) -> dict:
                                      False, True, 6), False)
     _check_xent_case("bf16", *_xent_inputs(rows, H, V, bf16, True, True, 7),
                      True)
+    # two calls on the same operands repeat bit for bit (no atomics)
+    h, W, b, labels, cot = _xent_inputs(rows, H, V, f32, False, True, 5)
+    lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
+    first = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
+    second = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
+    assert all(torch.equal(a, c) for a, c in zip(first[1:], second[1:]))
+    print("check fused xent: the dW/db kernel repeats bit for bit")
     h, W, b, labels, cot = _xent_inputs(rows, H, V, f32, True, False, 8)
     # every column repeats 37 columns later, across tile and chunk borders
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_xent_case("ties", h, W, b, labels, cot, True)
+    # heads too wide for K3b's resident tiles (the median preset's H 768 in
+    # f32) take its streaming variant
+    _check_xent_case("median H 768", *_xent_inputs(
+        RAGGED * (opt["max_len"] - 1), 768, V, f32, False, True, 10), False)
     # the serving entry: no token ids, with a bias, leading dims kept
     h, W, b, labels, _ = _xent_inputs(rows, H, V, f32, False, True, 9)
     got = fht.vocab_argmax_lse(h.reshape(BATCH, -1, H), W, b)
@@ -876,7 +902,27 @@ def phase_train(opt) -> dict:
     batch = device_batch(loader.batches[0], "cuda")
     _profile("one fused train step", lambda: t._train_step_fn(batch),
              ms / 1e3, trained)
+    _dw_scratch(opt)
     return {name: counts[name] for name in trained}
+
+
+def _dw_scratch(opt) -> None:
+    """What K3b's wrapper allocates beyond its outputs dW and db at the
+    training shape: the peak of allocated device memory during one call."""
+    rows, H, V = BATCH * (opt["max_len"] - 1), opt["dim_hidden"], \
+        opt["vocab_size"]
+    h, W, _, labels, cot = _xent_inputs(rows, H, V, torch.float32, False,
+                                        False, 5)
+    lse = fht._argmax_lse_plain(h, W, None, labels, 1024, False)[2]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, dW, db = fx._bwd_cuda(h, W, None, labels, lse, *cot, want_dh=False)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - before - dW.nbytes - db.nbytes
+    print(f"train: K3b scratch at [{rows}, {H}] x [{V}, {H}]: {extra} bytes "
+          f"allocated beyond dW and db (the int32 copy of the labels; no "
+          f"[splits, V, H] partials)")
 
 
 # ---------------------------------------------------------------------------
@@ -897,24 +943,47 @@ def _time_ms(fn, n=100, warm=10):
     return start.elapsed_time(end) / n
 
 
+def _bound(flops, n_bytes, dtype=torch.float32):
+    """(bound ms, what bounds it) on the engine that work of this dtype can
+    use at its accuracy: 3xTF32 for f32, bf16 for bf16 products."""
+    peak = (PEAK_TF32_FLOPS / 3 if dtype == torch.float32
+            else PEAK_BF16_FLOPS)
+    t_ops, t_bytes = flops / peak, n_bytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
 def _entry(name, errors, counts, ms, plain_ms, unfused_ms, flops, n_bytes,
            shape, unfused_what, library_ms=None, library_what=None):
     """One kernel's line. ``library_ms``: the one PyTorch call that computes
     the same function, where there is one; the vocab kernels have none, and
-    the unfused sequence of calls is timed beside them instead."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S
+    the unfused sequence of calls is timed beside them instead. ``bound_ms``
+    is the 3xTF32 tensor-core bound; ``cuda_core_bound_ms`` the f32
+    CUDA-core bound of the earlier readings."""
+    bound_ms, bound_by = _bound(flops, n_bytes)
+    core_ms = 1e3 * max(flops / PEAK_F32_FLOPS, n_bytes / PEAK_BYTES_PER_S)
     entry = dict(
         name=name, **KERNELS[name], launches=counts[name],
         max_abs_err=errors[name], ms=ms, plain_ms=plain_ms,
-        bound_ms=1e3 * max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_ms=bound_ms, bound_by=bound_by, cuda_core_bound_ms=core_ms,
         library_ms=library_ms, unfused_torch_ms=unfused_ms, shape=shape)
     print(f"time {name} at {shape} f32: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, {unfused_what} {unfused_ms:.4f} ms, "
           + (f"{library_what} {library_ms:.4f} ms, " if library_what else "")
-          + f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}: {flops} "
-          f"flop, {n_bytes} bytes)")
+          + f"bound {bound_ms:.4f} ms ({bound_by}, 3xTF32: {flops} flop, "
+          f"{n_bytes} bytes); CUDA-core f32 bound {core_ms:.4f} ms")
     return entry
+
+
+def _entry_bf16(entry, ms, plain_ms, unfused_ms, flops, n_bytes):
+    """The same kernel's bf16 reading, added to its f32 line."""
+    bound_ms, bound_by = _bound(flops, n_bytes, torch.bfloat16)
+    entry.update(bf16_ms=ms, bf16_plain_ms=plain_ms,
+                 bf16_unfused_torch_ms=unfused_ms, bf16_bound_ms=bound_ms,
+                 bf16_bound_by=bound_by)
+    print(f"time {entry['name']} at {entry['shape']} bf16: kernel {ms:.4f} "
+          f"ms, plain {plain_ms:.4f} ms, unfused {unfused_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({bound_by}: {flops} flop, {n_bytes} bytes)")
 
 
 def _time_flash(errors, counts) -> list:
@@ -1002,18 +1071,28 @@ def _time_flash(errors, counts) -> list:
     return entries
 
 
+def _time_head(h, W, K):
+    """K1, its plain version and the unfused sequence on one set of
+    operands."""
+    return (_time_ms(lambda: fht._stats_cuda(h, W, None, K)),
+            _time_ms(lambda: fht._stats_plain(h, W, None, K, 1024)),
+            _time_ms(lambda: torch.topk(torch.log_softmax(
+                (h @ W.t()).float(), dim=-1), K)))
+
+
 def phase_time(opt, errors, counts) -> list:
     K, H, V = opt["beam_size"], opt["dim_hidden"], opt["vocab_size"]
     rows = BATCH * K
+    flops = 2 * rows * H * V
+    out_bytes = 4 * rows * (2 + 2 * K)
     h, W = _head_inputs(rows, H, V, torch.float32, False, 1)
     entries = [_entry(
-        "fused_head_topk", errors, counts,
-        _time_ms(lambda: fht._stats_cuda(h, W, None, K)),
-        _time_ms(lambda: fht._stats_plain(h, W, None, K, 1024)),
-        _time_ms(lambda: torch.topk(torch.log_softmax(h @ W.t(), dim=-1), K)),
-        2 * rows * H * V, 4 * (rows * H + V * H) + 4 * rows * (2 + 2 * K),
-        f"[{rows}, {H}] x [{V}, {H}]",
+        "fused_head_topk", errors, counts, *_time_head(h, W, K), flops,
+        4 * (rows * H + V * H) + out_bytes, f"[{rows}, {H}] x [{V}, {H}]",
         "unfused torch sequence (h @ W.T, log_softmax, topk)")]
+    h, W = _head_inputs(rows, H, V, torch.bfloat16, False, 1)
+    _entry_bf16(entries[0], *_time_head(h, W, K), flops,
+                2 * (rows * H + V * H) + out_bytes)
 
     # the training shape: batch 64 x 29 positions, no bias
     rows = BATCH * (opt["max_len"] - 1)
@@ -1055,15 +1134,26 @@ def phase_time(opt, errors, counts) -> list:
         backward_ms, 4 * rows * H * V,
         4 * (2 * rows * H + V * H) + row_bytes, shape,
         "autograd backward of the unfused sequence (dh and dW together)"))
+
+    def time_dw(h, W, labels, lse, cot):
+        return (_time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
+                                              want_dh=False)),
+                _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot,
+                                               1024, want_dh=False)))
+
     entries.append(_entry(
-        "fused_xent_bwd_dw", errors, counts,
-        _time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
-                                      want_dh=False)),
-        _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot, 1024,
-                                       want_dh=False)),
+        "fused_xent_bwd_dw", errors, counts, *time_dw(h, W, labels, lse, cot),
         backward_ms, 4 * rows * H * V,
         4 * (rows * H + 2 * V * H + V) + row_bytes, shape,
         "autograd backward of the unfused sequence (dh and dW together)"))
+    # bf16: the same operands rounded, the unfused backward in bf16
+    h, W = h.bfloat16(), W.bfloat16()
+    hg, Wg = h.clone().requires_grad_(True), W.clone().requires_grad_(True)
+    backward_ms = _time_ms(dense_forward_backward) - _time_ms(
+        lambda: dense_forward(h, W))
+    _entry_bf16(entries[-1], *time_dw(h, W, labels, lse, cot), backward_ms,
+                4 * rows * H * V,
+                2 * (rows * H + 2 * V * H) + 4 * V + row_bytes)
     return entries + _time_flash(errors, counts)
 
 

@@ -151,24 +151,35 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _chip_smoke():
+    """``chip_smoke.py``, whose operand makers and checks the ``gpu`` tests
+    share; imported only once a card is there."""
+    import chip_smoke
+    return chip_smoke
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernel_matches_plain(cuda_device, dtype):
-    """The CUDA kernel against the plain version at the flagship's shape
-    (64 videos x beam 5 rows, H 512, V 11000), with engineered ties."""
-    g = torch.Generator().manual_seed(0)
-    rows, H, V, K = 320, 512, 11000, 5
-    h = (torch.randint(-4, 5, (rows, H), generator=g) / 8).to(cuda_device,
-                                                               dtype)
-    W = (torch.randint(-8, 9, (37, H), generator=g) / 64)[
-        torch.arange(V) % 37].to(cuda_device, dtype)
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("rows,V,K,ties", [
+    (320, 11000, 5, True),      # the flagship's shape, columns repeating
+    (320, 10997, 5, False),     # the serve shape; V a multiple of no tile
+    (85, 10997, 5, False),      # a ragged batch (17 videos x beam 5)
+    (85, 10997, 16, True),      # beams above 8: the kernel's 32-long lists
+])
+def test_kernel_matches_plain(cuda_device, rows, V, K, ties, with_bias,
+                              dtype):
+    """The CUDA kernel against the plain version, H 512, through
+    ``chip_smoke.py``'s check: m and log s within 1e-5 relative + 1e-6, cv
+    within 1e-4, and ids equal wherever values are exact (dyadic operands:
+    bf16, and the ``ties`` cases, where every column repeats 37 later) or
+    else separated from their neighbours by more than 1e-4."""
+    cs = _chip_smoke()
+    exact = ties or dtype == torch.bfloat16
+    h, W, b, _, _ = cs._xent_inputs(rows, 512, V, dtype, exact, with_bias,
+                                    rows + K)
+    if ties:
+        W = W[torch.arange(V, device=W.device) % 37].contiguous()
     before = port_fht.launches
-    got = port_fht._stats_cuda(h, W, None, K)
-    want = port_fht._stats_plain(h, W, None, K, 1024)
-    torch.cuda.synchronize()
+    cs._check_head_case(f"rows {rows} V {V} K {K}", h, W, K, exact, b)
     assert port_fht.launches == before + 1
-    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-4)
-    assert torch.equal(got[1].long(), want[1])
-    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(got[3].log(), want[3].log(), rtol=1e-5,
-                               atol=1e-6)

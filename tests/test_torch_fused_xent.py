@@ -263,3 +263,68 @@ def test_cuda_kernels_match_plain_versions():
     after = (fht.argmax_lse_launches, fx.dh_launches, fx.dw_launches)
     assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 1)
     assert h.grad.shape == h.shape and W.grad.shape == W.shape
+
+
+def _chip_smoke():
+    """``chip_smoke.py``, whose operand makers and checks the ``gpu`` tests
+    share; imported only once a card is there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_bias", [False, True])
+@pytest.mark.parametrize("rows,H", [(320, 512), (85, 512), (85, 576),
+                                    (85, 768), (85, 1024)])
+def test_kernels_match_plain_at_width(rows, H, with_bias, dtype):
+    """K2, K3a and K3b against the plain versions through ``chip_smoke.py``'s
+    check (K3b: dW within rtol 1e-4 + atol 2e-7 in f32, 2**-6 + 1e-4 in
+    bf16), at a V (10997) that is a multiple of no tile. H 512 is the
+    flagship's; 576 the widest f32 head whose tiles K3b keeps resident;
+    768 and 1024 (the ``median`` and ``large`` presets) take its streaming
+    variant in f32 and a second slice of dW's columns in both types. Two
+    calls of K3b repeat bit for bit."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    exact = dtype == torch.bfloat16
+    h, W, b, labels, cot = cs._xent_inputs(rows, H, 10997, dtype, exact,
+                                           with_bias, rows + H)
+    before = fx.dw_launches
+    cs._check_xent_case(f"rows {rows} H {H}", h, W, b, labels, cot, exact)
+    lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
+    first = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
+    second = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
+    torch.cuda.synchronize()
+    assert fx.dw_launches == before + 3
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
+                                                            second[2])
+
+
+@pytest.mark.gpu
+def test_fused_train_steps_at_median_width():
+    """``Trainer.fit`` on the card with ``fused_xent`` on, at the ``median``
+    preset's H 768 in f32 (K3b's streaming variant): K3b launches once a
+    step, and the losses follow the dense step's from the same seed, step 0
+    within 1e-5 relative, the next within 1e-3 (``chip_smoke.py``'s bounds
+    at the flagship's width)."""
+    cs = _chip_smoke()
+    from care_tpu_torch.training import Trainer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = dict(cs.flagship_opt("median"), epochs=1, hidden_dropout_prob=0.0,
+               encoder_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    assert opt["dim_hidden"] == 768
+    loader = cs.SyntheticLoader(opt, 3, 8, 0)
+    losses = {}
+    for fused in (True, False):
+        before = fx.dw_launches
+        trainer = Trainer(dict(opt, fused_xent=fused), loader)
+        trainer.fit()
+        assert trainer._fused_xent is fused
+        assert fx.dw_launches - before == (3 if fused else 0)
+        losses[fused] = cs._step_losses(trainer)
+    assert np.all(np.isfinite(losses[True]))
+    np.testing.assert_allclose(losses[True][0], losses[False][0], rtol=1e-5)
+    np.testing.assert_allclose(losses[True], losses[False], rtol=0, atol=1e-3)
