@@ -32,12 +32,13 @@
 //     tile as soon as its own dW product (which reads only those chunks)
 //     is done;
 //   - the logits tile [32, 64]: each warp owns 16 rows x 16 columns, fed
-//     through ldmatrix, with four accumulator sets (depth steps mod 4) so
-//     that eight independent mma chains are in flight, started from zero
-//     for each 64-wide depth chunk and then added to the logits
-//     (tile_logits_tc.cuh, "Accumulation"); a column's logit is the same
-//     sequence of instructions wherever it lies, so equal columns give
-//     bit-equal logits;
+//     through ldmatrix, by chunk_logits (tile_logits_tc.cuh): four
+//     accumulator sets (depth steps mod 4), so that eight independent mma
+//     chains are in flight, started from zero for each 64-wide depth chunk
+//     and then added to the logits, chunk after chunk. K2 and K3a form
+//     their logits through the same function in the same chunk order, so
+//     a column's logit is bit-identical here, in K3a and in the lse of the
+//     forward (K2), and equal columns give bit-equal logits;
 //   - dlogits (tile_logits.cuh's rule) are formed from the accumulators in
 //     registers and written once to shared memory, rounded to T; their
 //     column sums for db go through shuffles in a fixed order;
@@ -80,7 +81,7 @@ constexpr int DBN = 64;             // vocab columns per block
 constexpr int DBM = 32;             // rows per row tile
 constexpr int DTHREADS = 256;       // 8 warps
 constexpr int DHP = 512;            // dW columns per block: 8 warps x 64
-constexpr int KCH = 64;             // depth chunk of the staged tiles
+constexpr int KCH = LOGIT_CHUNK;    // depth chunk of the staged tiles
 constexpr int DS_LD = DBN + 8;      // dlogits [32, 64] row stride (floats)
 constexpr size_t MAX_SMEM = 232448; // an H100 block's dynamic shared memory
 constexpr int DSPLIT = 2;           // blocks of a cluster sharing a vocab tile
@@ -213,9 +214,7 @@ xent_dw_tc_kernel(const T* __restrict__ h, const T* __restrict__ W,
       v_lab[u] = in ? labels[gr] : -1;
     }
 
-    // logits [32, 64]: x[n fragment][4]; each depth chunk's products from
-    // zero in four sets (depth steps mod 4, eight independent mma chains),
-    // then added to x
+    // logits [32, 64]: x[n fragment][4], chunk by chunk (chunk_logits)
     float x[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -238,28 +237,7 @@ xent_dw_tc_kernel(const T* __restrict__ h, const T* __restrict__ W,
         Hc = Hs + c * KCH;
         lc = ld;
       }
-      float part[4][2][4];
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) part[p][j][e] = 0.f;
-#pragma unroll
-      for (int s = 0; s < KCH / KS; ++s) {
-        FragA<T> a;
-        FragB<T> f0, f1;
-        ldsm_a(a, Hc, lc, 16 * mi, s * KS, lane);
-        ldsm_b2(f0, f1, Wc, lc, 16 * ni, s * KS, lane);
-        mma(part[s % 4][0], a, f0);
-        mma(part[s % 4][1], a, f1);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          x[j][e] += (part[0][j][e] + part[1][j][e]) +
-                     (part[2][j][e] + part[3][j][e]);
+      chunk_logits<T, 2>(x, Hc, lc, 16 * mi, Wc, lc, 16 * ni, lane);
     }
 
     // dlogits, rounded to T, into shared memory; 0 outside rows x V. The

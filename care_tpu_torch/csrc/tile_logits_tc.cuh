@@ -1,8 +1,10 @@
-// Tensor-core building blocks of the vocab kernels that were redesigned for
-// Hopper (fused_head_topk.cu, fused_xent_bwd_dw.cu): asynchronous staging of
-// K-major tiles into shared memory, and warp-level products of those tiles
-// on the tensor cores. tile_logits.cuh (the f32 SIMT tile) stays for the
-// kernels not yet moved onto this one.
+// Tensor-core building blocks of the four vocab kernels (fused_head_topk.cu,
+// vocab_argmax_lse.cu, fused_xent_bwd_dh.cu, fused_xent_bwd_dw.cu):
+// asynchronous staging of K-major tiles into shared memory, warp-level
+// products of those tiles on the tensor cores, and chunk_logits, the one
+// depth-chunk order in which K2, K3a and K3b form a logit. tile_logits.cuh
+// keeps the helpers shared with the attention kernels (types, rounding,
+// the (value, id) ranking, the online-softmax merge).
 //
 // Numerics. f32 operands stay f32 at every interface and go through the
 // tensor cores as three TF32 products accumulated in f32 ("3xTF32"): each
@@ -89,6 +91,10 @@ __device__ __forceinline__ void cp_async_wait(int n) {
 // whose source is not 16-byte aligned (an H that is not a multiple of 16
 // bytes), is stored by the thread itself, which the caller's __syncthreads
 // makes visible like the asynchronous ones.
+//
+// A tile that lies wholly inside the operand, with 16-byte aligned rows,
+// takes a lean path (the same copies): each thread keeps one column piece
+// and steps down the rows by pointer increments, with no bounds checks.
 template <typename T>
 __device__ __forceinline__ void stage_rows(T* dst, int dst_ld,
                                            const T* __restrict__ src, int ld,
@@ -97,6 +103,20 @@ __device__ __forceinline__ void stage_rows(T* dst, int dst_ld,
                                            int tid, int n_threads) {
   constexpr int PER = 16 / sizeof(T);
   const int pieces = width / PER;
+  const T* base = src + (size_t)r0 * ld + k0;
+  if (r0 + n_rows <= r_end && k0 + width <= k_end &&
+      (ld * sizeof(T)) % 16 == 0 &&
+      (reinterpret_cast<size_t>(base) & 15) == 0 && n_threads % pieces == 0) {
+    const int p = tid % pieces, step = n_threads / pieces;
+    const T* s = base + (size_t)(tid / pieces) * ld + p * PER;
+    T* d = dst + (tid / pieces) * dst_ld + p * PER;
+    for (int r = tid / pieces; r < n_rows; r += step) {
+      cp_async16(d, s, 16);
+      s += (size_t)step * ld;
+      d += step * dst_ld;
+    }
+    return;
+  }
   for (int idx = tid; idx < n_rows * pieces; idx += n_threads) {
     const int r = idx / pieces, p = idx % pieces;
     const int gr = r0 + r, gk = k0 + p * PER;
@@ -301,6 +321,56 @@ __device__ __forceinline__ void mma(float (&c)[4],
                                     const FragA<__nv_bfloat16>& a,
                                     const FragB<__nv_bfloat16>& b) {
   mma_bf16(c, a.v, b.v[0], b.v[1]);
+}
+
+// ---------------------------------------------------------------------------
+// the logits of one depth chunk
+// ---------------------------------------------------------------------------
+
+// Depth of the chunks in which K2, K3a and K3b form the logits.
+constexpr int LOGIT_CHUNK = 64;
+
+// x[j] += the product over one LOGIT_CHUNK-deep chunk of the A tile
+// (row-major, rows m0.. of As, k contiguous) and the n-major B tile (columns
+// n0 + 8j.. of Bs, k contiguous), both starting at the chunk's first k. The
+// chunk's mma steps run from zero in four accumulator sets (step s into set
+// s % 4, so that 4 * NF independent mma chains are in flight) and are added
+// to x as (p0 + p1) + (p2 + p3) with f32 adds ("Accumulation" above). K2
+// (vocab_argmax_lse.cu), K3a (fused_xent_bwd_dh.cu) and K3b
+// (fused_xent_bwd_dw.cu) form every logit through this function, chunk
+// after chunk in increasing depth from x = 0, so a column's logit is
+// bit-identical in the forward's lse and in both backward recomputations.
+template <typename T, int NF>
+__device__ __forceinline__ void chunk_logits(float (&x)[NF][4], const T* As,
+                                             int lda, int m0, const T* Bs,
+                                             int ldb, int n0, int lane) {
+  static_assert(NF % 2 == 0, "B fragments come in pairs");
+  constexpr int KS = Kstep<T>::value;
+  float part[4][NF][4];
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[p][j][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < LOGIT_CHUNK / KS; ++s) {
+    FragA<T> a;
+    ldsm_a(a, As, lda, m0, s * KS, lane);
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      FragB<T> f0, f1;
+      ldsm_b2(f0, f1, Bs, ldb, n0 + 8 * j, s * KS, lane);
+      mma(part[s % 4][j], a, f0);
+      mma(part[s % 4][j + 1], a, f1);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      x[j][e] += (part[0][j][e] + part[1][j][e]) +
+                 (part[2][j][e] + part[3][j][e]);
 }
 
 }  // namespace tc

@@ -270,8 +270,8 @@ def _argmax_lse_library():
     for fn in (lib.care_vocab_argmax_lse_f32, lib.care_vocab_argmax_lse_bf16):
         fn.argtypes = _ARGMAX_LSE_ARGTYPES
         fn.restype = ctypes.c_int
-    lib.care_vocab_argmax_lse_tile_cols.argtypes = []
-    lib.care_vocab_argmax_lse_tile_cols.restype = ctypes.c_int
+    lib.care_vocab_argmax_lse_parts.argtypes = [ctypes.c_int] * 2
+    lib.care_vocab_argmax_lse_parts.restype = ctypes.c_int
     return lib
 
 
@@ -288,13 +288,15 @@ def _argmax_lse_cuda(h, W, b, tokens, want_sum: bool):
                              f"[{rows}] on {h.device}")
         tokens = tokens.to(torch.int32).contiguous()
     lib = _argmax_lse_library()
-    n_tiles = -(-V // lib.care_vocab_argmax_lse_tile_cols())
+    # one partial per row and vocab split; the kernel picks the splits for
+    # the card it runs on
+    n_parts = lib.care_vocab_argmax_lse_parts(rows, V)
     f32 = dict(dtype=torch.float32, device=h.device)
     i32 = dict(dtype=torch.int32, device=h.device)
-    part_m = torch.empty((rows, n_tiles), **f32)
-    part_s = torch.empty((rows, n_tiles), **f32)
-    part_i = torch.empty((rows, n_tiles), **i32)
-    part_t = torch.empty((rows, n_tiles), **f32) if want_sum else None
+    part_m = torch.empty((rows, n_parts), **f32)
+    part_s = torch.empty((rows, n_parts), **f32)
+    part_i = torch.empty((rows, n_parts), **i32)
+    part_t = torch.empty((rows, n_parts), **f32) if want_sum else None
     amax = torch.empty((rows,), **i32)
     mx = torch.empty((rows,), **f32)
     lse = torch.empty((rows,), **f32)

@@ -82,10 +82,8 @@ _BWD_ROWS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
 def _dh_library():
     lib = _build.load("fused_xent_bwd_dh")
     for fn in (lib.care_xent_bwd_dh_f32, lib.care_xent_bwd_dh_bf16):
-        fn.argtypes = _BWD_ROWS + [ctypes.c_void_p] * 3
+        fn.argtypes = _BWD_ROWS + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
-    lib.care_xent_bwd_dh_splits.argtypes = [ctypes.c_int] * 2
-    lib.care_xent_bwd_dh_splits.restype = ctypes.c_int
     return lib
 
 
@@ -125,17 +123,14 @@ def _bwd_cuda(h, W, b, labels, lse, gl, gb, gs, want_dh: bool = True,
     suffix = "f32" if h.dtype == torch.float32 else "bf16"
     dh = dW = db = None
     if want_dh:
-        lib = _dh_library()
-        part = torch.empty((lib.care_xent_bwd_dh_splits(rows, V), rows, H),
-                           **f32)
+        # dh accumulates on chip: no scratch beyond the output
         dh = torch.empty_like(h)
-        rc = getattr(lib, "care_xent_bwd_dh_" + suffix)(
-            *head, part.data_ptr(), dh.data_ptr(), stream)
+        rc = getattr(_dh_library(), "care_xent_bwd_dh_" + suffix)(
+            *head, dh.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError("fused xent dh kernel launch failed: CUDA "
                                f"error {rc}")
         dh_launches += 1
-        del part
     if want_dw:
         lib = _dw_library()
         # dW and db accumulate on chip: no scratch beyond the outputs

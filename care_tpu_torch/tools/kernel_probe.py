@@ -7,9 +7,10 @@ Two probes:
   independent accumulator chains. It is the ceiling of the route that
   ``csrc/tile_logits_tc.cuh`` took, beside the data-sheet peaks of dense
   ``wgmma`` (495 TFLOP/s TF32, 989 bf16).
-* ``ablate``: K1 (``csrc/fused_head_topk.cu``) and K3b
-  (``csrc/fused_xent_bwd_dw.cu``) built again with one part taken out, each
-  timed at the shapes ``chip_smoke.py`` times them. A variant's time says
+* ``ablate``: K1 (``csrc/fused_head_topk.cu``), K2
+  (``csrc/vocab_argmax_lse.cu``), K3a (``csrc/fused_xent_bwd_dh.cu``) and
+  K3b (``csrc/fused_xent_bwd_dw.cu``) built again with one part taken out,
+  each timed at the shapes ``chip_smoke.py`` times them. A variant's time says
   what the part costs where the others still run; the results of a
   variant are wrong by design and are not looked at.
 
@@ -20,9 +21,16 @@ machine with a card::
 
     python3 -m care_tpu_torch.tools.kernel_probe
 
-It prints the card and its power limit, then one line a reading.
+It prints the card and its power limit, then one line a reading. With
+``--against DIR`` it instead builds the four vocab kernels from ``DIR``, a
+copy of ``csrc/`` with the same C interfaces (a parent commit's, say), and
+from this tree, checks that
+the two give bit-equal outputs, and times them in turns (base, new, new,
+base) at the same shapes: a change to a kernel measured against its parent
+in one call on one card.
 """
 
+import argparse
 import concurrent.futures
 import ctypes
 import os
@@ -72,6 +80,36 @@ VARIANTS = {
                          "    if (row0 + r < rows && rows < 0) {")],
         "no_merge": [("fused_head_topk.cu", "  merge_kernel<<<",
                       "  if (rows < 0) merge_kernel<<<")],
+    },
+    "vocab_argmax_lse": {
+        "base": [],
+        "no_mma": _NO_MMA,
+        "one_tf32": _ONE_TF32,
+        # no staging of W's chunks: the products read what the ring holds
+        "no_load": [
+            ("vocab_argmax_lse.cu",
+             "  for (int s = 0; s < NST - 1; ++s) load(s);\n", ""),
+            ("vocab_argmax_lse.cu", "    load(it + NST - 1);\n", "")],
+        # no folding of a tile's logits into the row statistics
+        "no_epilogue": [("vocab_argmax_lse.cu",
+                         "    if (c != nch - 1) continue;",
+                         "    if (c != nch - 1 || rows > 0) continue;")],
+        "no_merge": [("vocab_argmax_lse.cu", "  xent_stats_reduce_kernel<<<",
+                      "  if (rows < 0) xent_stats_reduce_kernel<<<")],
+    },
+    "fused_xent_bwd_dh": {
+        "base": [],
+        "no_mma": _NO_MMA,
+        "one_tf32": _ONE_TF32,
+        # no dh product (the logits and dlogits stay)
+        "no_dh_product": [("fused_xent_bwd_dh.cu", "    if (wh0 < H) {",
+                           "    if (wh0 < H && rows < 0) {")],
+        "no_exp": [("fused_xent_bwd_dh.cu", "expf(logit - v_lse[u])",
+                    "(logit - v_lse[u])")],
+        # the resident variant's next W vocab tiles not loaded
+        "no_w_refill": [("fused_xent_bwd_dh.cu",
+                         "if (!STREAM && t + VSPLIT < vtiles)",
+                         "if (false)")],
     },
     "fused_xent_bwd_dw": {
         "base": [],
@@ -144,13 +182,12 @@ def _compile(src: str, lib: str) -> str:
     return lib
 
 
-def _variant_source(name: str, variant: str) -> str:
-    """A copy of csrc/ with the variant's patches, and its kernel's path."""
-    out = os.path.join(PROBE_DIR, f"{name}.{variant}")
-    shutil.rmtree(out, ignore_errors=True)
-    shutil.copytree(_build.CSRC_DIR, out)
+def _variant_source(name: str, variant: str) -> tuple:
+    """A copy of csrc/ with the variant's patches: its kernel's source and
+    library paths."""
+    src, lib = _copy_sources(_build.CSRC_DIR, variant, name)
     for fname, old, new in VARIANTS[name][variant]:
-        path = os.path.join(out, fname)
+        path = os.path.join(os.path.dirname(src), fname)
         with open(path) as f:
             text = f.read()
         if text.count(old) != 1:
@@ -158,7 +195,7 @@ def _variant_source(name: str, variant: str) -> str:
                                f"{text.count(old)} times in {fname}")
         with open(path, "w") as f:
             f.write(text.replace(old, new))
-    return os.path.join(out, name + ".cu")
+    return src, lib
 
 
 def _time_ms(fn, n=50, warm=5):
@@ -197,6 +234,12 @@ def probe_mma(lib) -> None:
                   f"{ms:.4f} ms, {flops / ms / 1e9:.1f} TFLOP/s")
 
 
+def _launcher(run, outputs):
+    """``run`` (one launch), with the tensors it writes as ``run.outputs``."""
+    run.outputs = outputs
+    return run
+
+
 def _head_call(lib, dtype, rows=320, H=512, V=11000, K=5):
     g = torch.Generator().manual_seed(1)
     h = torch.randn((rows, H), generator=g).to("cuda", dtype)
@@ -212,8 +255,46 @@ def _head_call(lib, dtype, rows=320, H=512, V=11000, K=5):
     fn = (lib.care_fused_head_topk_f32 if dtype == torch.float32
           else lib.care_fused_head_topk_bf16)
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: _call(fn, h.data_ptr(), W.data_ptr(), None, rows, H, V, K,
-                         *(t.data_ptr() for t in bufs), stream)
+    return _launcher(lambda: _call(
+        fn, h.data_ptr(), W.data_ptr(), None, rows, H, V, K,
+        *(t.data_ptr() for t in bufs), stream), bufs[4:])
+
+
+def _k2_call(lib, dtype, H, rows=1856, V=11000):
+    g = torch.Generator().manual_seed(5)
+    h = torch.randn((rows, H), generator=g).to("cuda", dtype)
+    W = (torch.randn((V, H), generator=g) * 0.05).to("cuda", dtype)
+    labels = torch.randint(0, V, (rows,), generator=g).int().cuda()
+    n_parts = lib.care_vocab_argmax_lse_parts(rows, V)
+    f32, i32 = dict(device="cuda"), dict(device="cuda", dtype=torch.int32)
+    parts = [torch.empty((rows, n_parts), **f32),
+             torch.empty((rows, n_parts), **f32),
+             torch.empty((rows, n_parts), **i32),
+             torch.empty((rows, n_parts), **f32)]
+    outs = [torch.empty((rows,), **i32)] + [torch.zeros((rows,), **f32)
+                                            for _ in range(4)]
+    fn = (lib.care_vocab_argmax_lse_f32 if dtype == torch.float32
+          else lib.care_vocab_argmax_lse_bf16)
+    stream = torch.cuda.current_stream().cuda_stream
+    return _launcher(lambda: _call(
+        fn, h.data_ptr(), W.data_ptr(), None, labels.data_ptr(), rows, H, V, 1,
+        *(t.data_ptr() for t in parts + outs), stream), outs)
+
+
+def _dh_call(lib, dtype, H, rows=1856, V=11000):
+    g = torch.Generator().manual_seed(5)
+    h = torch.randn((rows, H), generator=g).to("cuda", dtype)
+    W = (torch.randn((V, H), generator=g) * 0.05).to("cuda", dtype)
+    vectors = [torch.rand((rows,), generator=g).cuda() for _ in range(4)]
+    labels = torch.randint(0, V, (rows,), generator=g).int().cuda()
+    dh = torch.empty_like(h)
+    fn = (lib.care_xent_bwd_dh_f32 if dtype == torch.float32
+          else lib.care_xent_bwd_dh_bf16)
+    stream = torch.cuda.current_stream().cuda_stream
+    return _launcher(lambda: _call(
+        fn, h.data_ptr(), W.data_ptr(), None,
+        *(v.data_ptr() for v in vectors), labels.data_ptr(), rows, H, V,
+        dh.data_ptr(), stream), [dh])
 
 
 def _dw_call(lib, dtype, H, rows=1856, V=11000):
@@ -226,32 +307,104 @@ def _dw_call(lib, dtype, H, rows=1856, V=11000):
     fn = (lib.care_xent_bwd_dw_f32 if dtype == torch.float32
           else lib.care_xent_bwd_dw_bf16)
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: _call(fn, h.data_ptr(), W.data_ptr(), None,
-                         *(v.data_ptr() for v in vectors), labels.data_ptr(),
-                         rows, H, V, dW.data_ptr(), db.data_ptr(), stream)
+    return _launcher(lambda: _call(
+        fn, h.data_ptr(), W.data_ptr(), None,
+        *(v.data_ptr() for v in vectors), labels.data_ptr(), rows, H, V,
+        dW.data_ptr(), db.data_ptr(), stream), [dW, db])
+
+
+# each kernel's cases: (label, dtype, H)
+SHAPES = {
+    "fused_head_topk": [("K1 [320, 512] x [11000, 512]", dtype, 512)
+                        for dtype in (torch.float32, torch.bfloat16)],
+    **{name: [(f"{kid} [1856, {H}] x [11000, {H}]", dtype, H)
+              for H, dtype in ((512, torch.float32), (512, torch.bfloat16),
+                               (768, torch.float32))]
+       for name, kid in (("vocab_argmax_lse", "K2"),
+                         ("fused_xent_bwd_dh", "K3a"),
+                         ("fused_xent_bwd_dw", "K3b"))},
+}
+CALLS = {"fused_head_topk": lambda lib, dtype, H: _head_call(lib, dtype),
+         "vocab_argmax_lse": _k2_call, "fused_xent_bwd_dh": _dh_call,
+         "fused_xent_bwd_dw": _dw_call}
 
 
 def probe_ablation(libs) -> None:
-    shapes = {
-        "fused_head_topk": [
-            ("K1 [320, 512] x [11000, 512]", dtype,
-             lambda lib, d=dtype: _head_call(lib, d))
-            for dtype in (torch.float32, torch.bfloat16)],
-        "fused_xent_bwd_dw": [
-            (f"K3b [1856, {H}] x [11000, {H}]", dtype,
-             lambda lib, d=dtype, H=H: _dw_call(lib, d, H))
-            for H, dtype in ((512, torch.float32), (512, torch.bfloat16),
-                             (768, torch.float32))],
-    }
-    for name, cases in shapes.items():
-        for label, dtype, make in cases:
+    for name, cases in SHAPES.items():
+        for label, dtype, H in cases:
             for variant in VARIANTS[name]:
-                ms = _time_ms(make(libs[name, variant]))
+                ms = _time_ms(CALLS[name](libs[name, variant], dtype, H))
                 print(f"ablate {label} {str(dtype)[6:]} {variant}: "
                       f"{ms:.4f} ms")
 
 
-def main() -> None:
+def probe_against(libs) -> None:
+    """Each vocab kernel built from another copy of the sources ("base")
+    and from this tree ("new"): outputs compared bit for bit, then times in
+    turns base, new, new, base, in one process on one card."""
+    for name, cases in SHAPES.items():
+        for label, dtype, H in cases:
+            runs = {tag: CALLS[name](libs[name, tag], dtype, H)
+                    for tag in ("base", "new")}
+            for run in runs.values():
+                run()
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in
+                       zip(runs["base"].outputs, runs["new"].outputs))
+            times = {"base": [], "new": []}
+            for tag in ("base", "new", "new", "base"):
+                times[tag].append(_time_ms(runs[tag], n=100, warm=10))
+            print(f"against {label} {str(dtype)[6:]}: outputs bit-equal "
+                  f"{same}; base " + ", ".join(f"{t:.4f}" for t in
+                                               times["base"])
+                  + " ms; new " + ", ".join(f"{t:.4f}" for t in times["new"])
+                  + " ms")
+
+
+def _bind(name, lib):
+    """The argument types of kernel ``name``'s entry points in ``lib``."""
+    if name == "fused_head_topk":
+        for fn in (lib.care_fused_head_topk_f32,
+                   lib.care_fused_head_topk_bf16):
+            fn.argtypes, fn.restype = fht._ARGTYPES, ctypes.c_int
+        lib.care_fused_head_topk_tile_cols.restype = ctypes.c_int
+    elif name == "vocab_argmax_lse":
+        for fn in (lib.care_vocab_argmax_lse_f32,
+                   lib.care_vocab_argmax_lse_bf16):
+            fn.argtypes = fht._ARGMAX_LSE_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib.care_vocab_argmax_lse_parts.argtypes = [ctypes.c_int] * 2
+        lib.care_vocab_argmax_lse_parts.restype = ctypes.c_int
+    elif name == "fused_xent_bwd_dh":
+        for fn in (lib.care_xent_bwd_dh_f32, lib.care_xent_bwd_dh_bf16):
+            fn.argtypes = fx._BWD_ROWS + [ctypes.c_void_p] * 2
+            fn.restype = ctypes.c_int
+    elif name == "fused_xent_bwd_dw":
+        for fn in (lib.care_xent_bwd_dw_f32, lib.care_xent_bwd_dw_bf16):
+            fn.argtypes = fx._BWD_ROWS + [ctypes.c_void_p] * 3
+            fn.restype = ctypes.c_int
+    else:
+        lib.care_mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        lib.care_mma_rate.restype = ctypes.c_int
+    return lib
+
+
+def _copy_sources(src_dir, tag, name):
+    """A copy of ``src_dir`` under build/probe/<name>.<tag>, and the paths of
+    its kernel source and library."""
+    out = os.path.join(PROBE_DIR, f"{name}.{tag}")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(src_dir, out)
+    return os.path.join(out, name + ".cu"), os.path.join(out, f"lib{name}.so")
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--against", metavar="CSRC",
+                        help="instead of the mma and ablate probes, compare "
+                             "the vocab kernels with those built from this "
+                             "copy of csrc/")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -259,36 +412,28 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     os.makedirs(PROBE_DIR, exist_ok=True)
-    mma_src = os.path.join(PROBE_DIR, "mma_rate.cu")
-    with open(mma_src, "w") as f:
-        f.write(_MMA_SOURCE)
-    jobs = {("mma", "base"): (mma_src, os.path.join(PROBE_DIR,
-                                                     "libmma_rate.so"))}
-    for name, variants in VARIANTS.items():
-        for variant in variants:
-            src = _variant_source(name, variant)
-            jobs[name, variant] = (src, os.path.join(
-                os.path.dirname(src), f"lib{name}.so"))
+    jobs = {}
+    if args.against:
+        for name in SHAPES:
+            jobs[name, "base"] = _copy_sources(args.against, "base", name)
+            jobs[name, "new"] = _copy_sources(_build.CSRC_DIR, "new", name)
+    else:
+        mma_src = os.path.join(PROBE_DIR, "mma_rate.cu")
+        with open(mma_src, "w") as f:
+            f.write(_MMA_SOURCE)
+        jobs["mma", "base"] = (mma_src,
+                               os.path.join(PROBE_DIR, "libmma_rate.so"))
+        for name, variants in VARIANTS.items():
+            for variant in variants:
+                jobs[name, variant] = _variant_source(name, variant)
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _compile(*j),
                                         jobs.values())))
-    libs = {}
-    for key, path in built.items():
-        lib = ctypes.CDLL(path)
-        if key[0] == "fused_head_topk":
-            for fn in (lib.care_fused_head_topk_f32,
-                       lib.care_fused_head_topk_bf16):
-                fn.argtypes, fn.restype = fht._ARGTYPES, ctypes.c_int
-            lib.care_fused_head_topk_tile_cols.restype = ctypes.c_int
-        elif key[0] == "fused_xent_bwd_dw":
-            for fn in (lib.care_xent_bwd_dw_f32, lib.care_xent_bwd_dw_bf16):
-                fn.argtypes = fx._BWD_ROWS + [ctypes.c_void_p] * 3
-                fn.restype = ctypes.c_int
-        else:
-            lib.care_mma_rate.argtypes = ([ctypes.c_int] * 4
-                                          + [ctypes.c_void_p] * 2)
-            lib.care_mma_rate.restype = ctypes.c_int
-        libs[key] = lib
+    libs = {key: _bind(key[0], ctypes.CDLL(path))
+            for key, path in built.items()}
+    if args.against:
+        probe_against(libs)
+        return
     probe_mma(libs["mma", "base"])
     probe_ablation(libs)
 

@@ -42,12 +42,14 @@ before the last line:
    last steps' mean below the first. Then fused against dense from one
    seed with dropout off, the ``auto`` policy at batch 64 and 192, ms per
    step and peak memory for both, a profile of one fused step, and the
-   dW kernel's scratch.
+   scratch of the dh and dW kernels.
 7. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
    the kernel's bound on the tensor cores (3xTF32 for f32 work) and its f32
-   CUDA-core bound; the fused head and the dW kernel also in bf16.
+   CUDA-core bound; the four vocab kernels also in bf16. The yardstick of
+   the dh kernel is the autograd backward of the unfused sequence for dh
+   alone, of the dW kernel the same for dW alone (the joint one beside).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -114,8 +116,8 @@ KERNELS = {
 # device kernels of each entry, as the profiler names them
 DEVICE_KERNELS = {
     "fused_head_topk": ("head_stats_tc_kernel", "merge_kernel"),
-    "vocab_argmax_lse": ("xent_stats_tile_kernel", "xent_stats_reduce_kernel"),
-    "fused_xent_bwd_dh": ("xent_dh_tile_kernel", "xent_dh_reduce_kernel"),
+    "vocab_argmax_lse": ("xent_stats_tc_kernel", "xent_stats_reduce_kernel"),
+    "fused_xent_bwd_dh": ("xent_dh_tc_kernel",),
     "fused_xent_bwd_dw": ("xent_dw_tc_kernel",),
     "flash_attention_fwd": ("flash_fwd_kernel",),
     "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
@@ -349,18 +351,23 @@ def _check_xent(opt) -> dict:
     _check_xent_case("bf16", *_xent_inputs(rows, H, V, bf16, True, True, 7),
                      True)
     # two calls on the same operands repeat bit for bit (no atomics)
-    h, W, b, labels, cot = _xent_inputs(rows, H, V, f32, False, True, 5)
-    lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
-    first = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
-    second = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
-    assert all(torch.equal(a, c) for a, c in zip(first[1:], second[1:]))
-    print("check fused xent: the dW/db kernel repeats bit for bit")
+    for dtype in (f32, bf16):
+        h, W, b, labels, cot = _xent_inputs(rows, H, V, dtype, False, True, 5)
+        lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
+        first, second = (fx._bwd_cuda(h, W, b, labels, lse, *cot)
+                         for _ in range(2))
+        assert all(torch.equal(a, c) for a, c in zip(first, second)), dtype
+        first, second = (fht._argmax_lse_cuda(h, W, b, labels, True)
+                         for _ in range(2))
+        assert all(torch.equal(a, c) for a, c in zip(first, second)), dtype
+    print("check fused xent: K2 (argmax, max, lse, label logit, sum), K3a "
+          "(dh) and K3b (dW, db) repeat bit for bit, f32 and bf16")
     h, W, b, labels, cot = _xent_inputs(rows, H, V, f32, True, False, 8)
     # every column repeats 37 columns later, across tile and chunk borders
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_xent_case("ties", h, W, b, labels, cot, True)
-    # heads too wide for K3b's resident tiles (the median preset's H 768 in
-    # f32) take its streaming variant
+    # heads too wide for the resident tiles of K2, K3a and K3b (the median
+    # preset's H 768 in f32) take their streaming variants
     _check_xent_case("median H 768", *_xent_inputs(
         RAGGED * (opt["max_len"] - 1), 768, V, f32, False, True, 10), False)
     # the serving entry: no token ids, with a bias, leading dims kept
@@ -902,27 +909,33 @@ def phase_train(opt) -> dict:
     batch = device_batch(loader.batches[0], "cuda")
     _profile("one fused train step", lambda: t._train_step_fn(batch),
              ms / 1e3, trained)
-    _dw_scratch(opt)
+    _xent_scratch(opt)
     return {name: counts[name] for name in trained}
 
 
-def _dw_scratch(opt) -> None:
-    """What K3b's wrapper allocates beyond its outputs dW and db at the
-    training shape: the peak of allocated device memory during one call."""
+def _xent_scratch(opt) -> None:
+    """What the wrappers of K3a and K3b allocate beyond their outputs (dh;
+    dW and db) at the training shape: the peak of allocated device memory
+    during one call."""
     rows, H, V = BATCH * (opt["max_len"] - 1), opt["dim_hidden"], \
         opt["vocab_size"]
     h, W, _, labels, cot = _xent_inputs(rows, H, V, torch.float32, False,
                                         False, 5)
     lse = fht._argmax_lse_plain(h, W, None, labels, 1024, False)[2]
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    _, dW, db = fx._bwd_cuda(h, W, None, labels, lse, *cot, want_dh=False)
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - before - dW.nbytes - db.nbytes
-    print(f"train: K3b scratch at [{rows}, {H}] x [{V}, {H}]: {extra} bytes "
-          f"allocated beyond dW and db (the int32 copy of the labels; no "
-          f"[splits, V, H] partials)")
+    for label, want_dh in (("K3a", True), ("K3b", False)):
+        # the bytes asked for, not the allocator's rounded blocks
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        torch.cuda.reset_peak_memory_stats()
+        out = fx._bwd_cuda(h, W, None, labels, lse, *cot, want_dh=want_dh,
+                           want_dw=not want_dh)
+        torch.cuda.synchronize()
+        peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+        extra = peak - before - sum(t.nbytes for t in out if t is not None)
+        print(f"train: {label} scratch at [{rows}, {H}] x [{V}, {H}]: "
+              f"{extra} bytes allocated beyond its outputs (the int32 copy "
+              f"of the labels; no partials in device memory)")
+        del out
 
 
 # ---------------------------------------------------------------------------
@@ -941,6 +954,23 @@ def _time_ms(fn, n=100, warm=10):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def _device_ms(fn, reps=5):
+    """The device time of one call of ``fn``: the kernels' time per call as
+    the profiler sees it, without the host's launch work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 def _bound(flops, n_bytes, dtype=torch.float32):
@@ -1100,6 +1130,7 @@ def phase_time(opt, errors, counts) -> list:
     h, W, _, labels, cot = _xent_inputs(rows, H, V, torch.float32, False,
                                         False, 5)
     lse = fht._argmax_lse_plain(h, W, None, labels, 1024, False)[2]
+    row_bytes = 4 * rows * 5          # lse, three cotangents, labels
 
     def dense_forward(h, W):
         logits = h @ W.t()
@@ -1107,53 +1138,92 @@ def phase_time(opt, errors, counts) -> list:
                 logits.gather(1, labels[:, None])[:, 0], logits.sum(dim=-1),
                 logits.argmax(dim=-1))
 
-    hg, Wg = h.clone().requires_grad_(True), W.clone().requires_grad_(True)
+    def unfused(h, W):
+        """The unfused sequence's forward, and the autograd backward of its
+        three statistics with the kernels' cotangents for dh alone (K3a's
+        yardstick), dW alone (K3b's) and both, each timed as forward +
+        backward less the forward: on CUDA events around 100 calls (which
+        include the host's autograd work where it outlasts the device's),
+        and as device time alone (the profiler's kernel time per call)."""
+        forward_ms = _time_ms(lambda: dense_forward(h, W))
+        forward_dev = _device_ms(lambda: dense_forward(h, W))
+        backward, device = {}, {}
+        for need in ("both", "h", "W"):
+            hg = h.clone().requires_grad_(need in ("h", "both"))
+            Wg = W.clone().requires_grad_(need in ("W", "both"))
+            leaves = [t for t in (hg, Wg) if t.requires_grad]
 
-    def dense_forward_backward():
-        out = dense_forward(hg, Wg)
-        loss = sum((c * o).sum() for c, o in zip(cot, out))
-        return torch.autograd.grad(loss, (hg, Wg))
+            def run():
+                loss = sum((c * o).sum()
+                           for c, o in zip(cot, dense_forward(hg, Wg)))
+                return torch.autograd.grad(loss, leaves)
 
-    forward_ms = _time_ms(lambda: dense_forward(h, W))
-    backward_ms = _time_ms(dense_forward_backward) - forward_ms
-    row_bytes = 4 * rows * 5          # lse, three cotangents, labels
-    entries.append(_entry(
-        "vocab_argmax_lse", errors, counts,
-        _time_ms(lambda: fht._argmax_lse_cuda(h, W, None, labels, True)),
-        _time_ms(lambda: fht._argmax_lse_plain(h, W, None, labels, 1024,
-                                               True)),
-        forward_ms, 2 * rows * H * V,
-        4 * (rows * H + V * H) + 4 * rows + 4 * rows * 5, shape,
-        "unfused torch sequence (h @ W.T, logsumexp, gather, sum, argmax)"))
-    entries.append(_entry(
-        "fused_xent_bwd_dh", errors, counts,
-        _time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
-                                      want_dw=False)),
-        _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot, 1024,
-                                       want_dw=False)),
-        backward_ms, 4 * rows * H * V,
-        4 * (2 * rows * H + V * H) + row_bytes, shape,
-        "autograd backward of the unfused sequence (dh and dW together)"))
+            backward[need] = _time_ms(run) - forward_ms
+            device[need] = _device_ms(run) - forward_dev
+        return forward_ms, backward, forward_dev, device
 
-    def time_dw(h, W, labels, lse, cot):
-        return (_time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
-                                              want_dh=False)),
-                _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot,
-                                               1024, want_dh=False)))
+    def time_kernels(h, W):
+        """(kernel ms, plain ms) of K2, K3a and K3b on one set of operands."""
+        return (
+            (_time_ms(lambda: fht._argmax_lse_cuda(h, W, None, labels, True)),
+             _time_ms(lambda: fht._argmax_lse_plain(h, W, None, labels, 1024,
+                                                    True))),
+            (_time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
+                                           want_dw=False)),
+             _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot,
+                                            1024, want_dw=False))),
+            (_time_ms(lambda: fx._bwd_cuda(h, W, None, labels, lse, *cot,
+                                           want_dh=False)),
+             _time_ms(lambda: fx._bwd_plain(h, W, None, labels, lse, *cot,
+                                            1024, want_dh=False))))
 
-    entries.append(_entry(
-        "fused_xent_bwd_dw", errors, counts, *time_dw(h, W, labels, lse, cot),
-        backward_ms, 4 * rows * H * V,
-        4 * (rows * H + 2 * V * H + V) + row_bytes, shape,
-        "autograd backward of the unfused sequence (dh and dW together)"))
-    # bf16: the same operands rounded, the unfused backward in bf16
+    def work(itemsize):
+        """(flops, bytes) of K2, K3a and K3b: each input read once, each
+        output written once."""
+        hb, wb = itemsize * rows * H, itemsize * V * H
+        return ((2 * rows * H * V, hb + wb + 4 * rows + 4 * rows * 5),
+                (4 * rows * H * V, 2 * hb + wb + row_bytes),
+                (4 * rows * H * V, hb + 2 * wb + 4 * V + row_bytes))
+
+    names = ("vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    whats = ("unfused torch sequence (h @ W.T, logsumexp, gather, sum, "
+             "argmax)",
+             "autograd backward of the unfused sequence, dh alone",
+             "autograd backward of the unfused sequence, dW alone")
+    def report(dtype, forward_ms, backward, forward_dev, device):
+        print(f"time unfused sequence at {shape} {dtype}, event-timed / "
+              f"device time: forward {forward_ms:.4f} / {forward_dev:.4f} "
+              f"ms; backward, dh alone {backward['h']:.4f} / "
+              f"{device['h']:.4f} ms, dW alone {backward['W']:.4f} / "
+              f"{device['W']:.4f} ms, both {backward['both']:.4f} / "
+              f"{device['both']:.4f} ms")
+        return ({"unfused_device_ms": forward_dev},
+                {"unfused_device_ms": device["h"],
+                 "joint_unfused_torch_ms": backward["both"],
+                 "joint_unfused_device_ms": device["both"]},
+                {"unfused_device_ms": device["W"],
+                 "joint_unfused_torch_ms": backward["both"],
+                 "joint_unfused_device_ms": device["both"]})
+
+    forward_ms, backward, forward_dev, device = unfused(h, W)
+    extras = report("f32", forward_ms, backward, forward_dev, device)
+    xent = []
+    for name, times, (flops, n_bytes), what, unfused_ms, extra in zip(
+            names, time_kernels(h, W), work(4), whats,
+            (forward_ms, backward["h"], backward["W"]), extras):
+        xent.append(_entry(name, errors, counts, *times, unfused_ms, flops,
+                           n_bytes, shape, what))
+        xent[-1].update(extra)
+    # bf16: the same operands rounded, the unfused sequence in bf16
     h, W = h.bfloat16(), W.bfloat16()
-    hg, Wg = h.clone().requires_grad_(True), W.clone().requires_grad_(True)
-    backward_ms = _time_ms(dense_forward_backward) - _time_ms(
-        lambda: dense_forward(h, W))
-    _entry_bf16(entries[-1], *time_dw(h, W, labels, lse, cot), backward_ms,
-                4 * rows * H * V,
-                2 * (rows * H + 2 * V * H) + 4 * V + row_bytes)
+    forward_ms, backward, forward_dev, device = unfused(h, W)
+    extras = report("bf16", forward_ms, backward, forward_dev, device)
+    for entry, times, (flops, n_bytes), unfused_ms, extra in zip(
+            xent, time_kernels(h, W), work(2),
+            (forward_ms, backward["h"], backward["W"]), extras):
+        _entry_bf16(entry, *times, unfused_ms, flops, n_bytes)
+        entry.update({"bf16_" + k: v for k, v in extra.items()})
+    entries += xent
     return entries + _time_flash(errors, counts)
 
 

@@ -281,26 +281,50 @@ def _chip_smoke():
                                     (85, 768), (85, 1024)])
 def test_kernels_match_plain_at_width(rows, H, with_bias, dtype):
     """K2, K3a and K3b against the plain versions through ``chip_smoke.py``'s
-    check (K3b: dW within rtol 1e-4 + atol 2e-7 in f32, 2**-6 + 1e-4 in
-    bf16), at a V (10997) that is a multiple of no tile. H 512 is the
-    flagship's; 576 the widest f32 head whose tiles K3b keeps resident;
-    768 and 1024 (the ``median`` and ``large`` presets) take its streaming
-    variant in f32 and a second slice of dW's columns in both types. Two
-    calls of K3b repeat bit for bit."""
+    check (K2: lse within 1e-5; K3a and K3b: dh and dW within rtol 1e-4 +
+    atol 2e-7 in f32, 2**-6 + 1e-4 in bf16), at a V (10997) that is a
+    multiple of no tile. H 512 is the flagship's; 576 the widest f32 head
+    whose tiles the three kernels keep resident; 768 and 1024 (the
+    ``median`` and ``large`` presets) take their streaming variants in f32
+    and, in K3a and K3b, a second slice of dh's or dW's columns in both
+    types. Two calls of each kernel repeat bit for bit."""
     cs = _chip_smoke()
     torch.backends.cuda.matmul.allow_tf32 = False
     exact = dtype == torch.bfloat16
     h, W, b, labels, cot = cs._xent_inputs(rows, H, 10997, dtype, exact,
                                            with_bias, rows + H)
-    before = fx.dw_launches
+    before = (fht.argmax_lse_launches, fx.dh_launches, fx.dw_launches)
     cs._check_xent_case(f"rows {rows} H {H}", h, W, b, labels, cot, exact)
     lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
-    first = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
-    second = fx._bwd_cuda(h, W, b, labels, lse, *cot, want_dh=False)
+    first, second = (fx._bwd_cuda(h, W, b, labels, lse, *cot)
+                     for _ in range(2))
+    stats = [fht._argmax_lse_cuda(h, W, b, labels, True) for _ in range(2)]
     torch.cuda.synchronize()
-    assert fx.dw_launches == before + 3
-    assert torch.equal(first[1], second[1]) and torch.equal(first[2],
-                                                            second[2])
+    after = (fht.argmax_lse_launches, fx.dh_launches, fx.dw_launches)
+    assert tuple(a - c for a, c in zip(after, before)) == (3, 3, 3)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+    assert all(torch.equal(x, y) for x, y in zip(*stats))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,H", [(200, 512), (85, 768)])
+def test_kernel_ties_across_tile_borders(rows, H, dtype):
+    """Every vocab column repeats 37 columns later, so equal maxima fall in
+    different 64-column tiles, warps and vocab splits of K2 and across the
+    row tiles of K3a and K3b (rows 200: four 64-row tiles of K2, seven
+    32-row tiles of K3a). Small dyadic operands make every logit exact, so
+    the argmax, max, label logit and sum must equal the plain version's bit
+    for bit (``chip_smoke.py``'s exact check), dh and dW within their
+    tolerances."""
+    cs = _chip_smoke()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    V = 10997
+    h, W, b, labels, cot = cs._xent_inputs(rows, H, V, dtype, True, True,
+                                           rows + H + 1)
+    W = W[torch.arange(V, device="cuda") % 37].contiguous()
+    b = b[torch.arange(V, device="cuda") % 37].contiguous()
+    cs._check_xent_case(f"ties rows {rows} H {H}", h, W, b, labels, cot, True)
 
 
 @pytest.mark.gpu
