@@ -13,138 +13,215 @@
 // dk, dv are [B, H, Lk, Dh] in k's type, dbias [B, H, Lk] f32; the caller
 // sums dbias down to the bias's own shape. All products accumulate in f32.
 //
-// What bounds it on an H100 SXM (67 TFLOP/s f32 on the CUDA cores,
-// 3.35 TB/s): at the square shape [4, 8, 1568, 64], f32, four products of
-// 2 * 32 * 1568^2 * 64 flop each = 40.3 GFLOP, 0.601 ms, against 77 MB,
-// 0.023 ms: operations. No model path reaches it; it is the backward of
-// `flash_attention(backward="kernel")`.
+// What bounds it on an H100 SXM (3.35 TB/s; 495 TFLOP/s TF32 and 989 bf16
+// on the tensor cores): four products of 2 * B * H * Lq * Lk * Dh flop, 8
+// B H Lq Lk Dh in all; f32 at f32 accuracy takes three TF32 products each
+// (3xTF32). At the square shape [4, 8, 1568, 64] f32: 40.3 GFLOP x 3 at
+// 495 TFLOP/s = 0.244 ms, against 77 MB, 0.023 ms: operations. No model
+// path reaches it; it is the backward of `flash_attention(backward="kernel")`.
 //
 // Design. The TPU kernel accumulates (dk, dv, dbias) in scratch memory
 // across a sequential grid axis over the query blocks; here one block owns a
-// (batch * head, 64-key tile) pair, keeps K and V (transposed) in shared
-// memory, and loops over 64-row query tiles. For each it stages Q and dO,
-// forms its 4 x 4 corners of s and do v^T in registers, and writes p and g to
-// shared memory; then every thread, now owning 4 keys x Dh/16 columns, adds
-// p^T do and g^T q into its dv and dk accumulators, and 64 threads add g's
-// column sums into dbias. Query rows past Lq and keys past Lk get p = 0.
+// (batch * head, key tile) pair and loops over query tiles, every product on
+// the tensor cores through mma.sync (3xTF32 m16n8k8 for f32, m16n8k16 bf16),
+// as flash_attention_bwd_dq.cu with the roles of queries and keys swapped.
+// Each of the four warps owns 16 keys. K and V stay in shared memory, read
+// as A fragments (f32 split per warp as read); query tiles (Q, dO, and the
+// rows' lse and delta) stream through a cp.async ring, and an f32 tile is
+// split once into TF32 hi/lo planes after it lands. The warp forms
+// s^T = k q^T and dp^T = v do^T with its keys as the accumulator rows, so
+// p^T and g^T come out in accumulator layout and are the A operands of
+// dv += p^T do and dk += g^T q straight from the registers (do and q read
+// down their columns), each tile's products from zero and added in f32.
+// dbias[key] is then a row sum inside the thread (its two keys: per tile a
+// pairwise tree over its query rows, then one add) and, at the end, over
+// the four lanes of a quad by xor shuffles: no shared memory, no atomics.
+// The bias is a row of the thread's two keys, read once. As in the dq
+// kernel, what bounds it on an H100 is the work that feeds mma.sync, not
+// the tensor cores (kernel_probe: 41% of the mma.sync TF32 rate at the
+// square shape).
+//
+// Ragged edges are bounds checks: query rows past Lq read zeros and an lse
+// of +inf, so p = g = 0; keys past Lk get a bias of -inf and are not stored.
 // Every output element has one owner and every sum a fixed order: no
-// atomics, and a call repeats bit for bit. wgmma in a working type is later
-// work.
+// atomics, and a call repeats bit for bit.
 //
 // Build and interface: as flash_attention_fwd.cu.
 
 #include "flash_tile.cuh"
+#include "tile_logits_tc.cuh"
 
 namespace {
 
 using namespace care_flash;
+namespace tc = care::tc;
 
-static_assert(BQ == BKV, "a thread keeps its (ty, tx) place in both phases");
-
-template <int DH>
+template <typename T, int DH>
 struct Cfg {
-  static constexpr int TN_O = DH / TX;
-  static constexpr int LDQ = DH + PAD, LDK = BKV + PAD, LDS = BKV + PAD;
-  static constexpr int FLOATS =
-      2 * BQ * LDQ + 2 * DH * LDK + 2 * BQ * LDS + 2 * BQ;
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int WARPS = 4, BKV = 16 * WARPS, NT = 32 * WARPS;
+  // query rows per tile: what the dk and dv accumulators leave of the
+  // registers; bf16 at Dh 32 and 64 takes 128 rows in a 2-stage ring (on
+  // an H100 14% faster than 64 rows in 3 stages, with the tree below)
+  static constexpr int BQ =
+      F32 ? (DH == 128 ? 16 : 32) : (DH == 128 ? 32 : 128);
+  static constexpr int STAGES = F32 && DH < 128 ? 3 : 2;
+  static constexpr int LD = DH + 16 / (int)sizeof(T);   // pitch, elements
+  static constexpr int TILE = BQ * LD;                  // one Q or dO tile
+  static constexpr size_t BYTES =
+      sizeof(T) * (2 * BKV * LD + STAGES * 2 * TILE) +
+      sizeof(float) * (STAGES * 2 * BQ + (F32 ? 2 * TILE : 0));
 };
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<T, DH>::NT)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, BiasRef bias,
                      const float* __restrict__ lse, const T* __restrict__ dout,
                      const float* __restrict__ delta, int H, int Lq, int Lk,
                      float scale, T* __restrict__ dk, T* __restrict__ dv,
                      float* __restrict__ dbias) {
-  using C = Cfg<DH>;
-  constexpr int TN_O = C::TN_O;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                       // [BQ][LDQ]
-  float* dOs = Qs + BQ * C::LDQ;          // [BQ][LDQ]
-  float* Kt = dOs + BQ * C::LDQ;          // [DH][LDK], K transposed
-  float* Vt = Kt + DH * C::LDK;           // [DH][LDK], V transposed
-  float* Ps = Vt + DH * C::LDK;           // [BQ][LDS]
-  float* Gs = Ps + BQ * C::LDS;           // [BQ][LDS], unrounded
-  float* lse_s = Gs + BQ * C::LDS;        // [BQ]
-  float* delta_s = lse_s + BQ;            // [BQ]
+  using C = Cfg<T, DH>;
+  constexpr int BQ = C::BQ, BKV = C::BKV, LD = C::LD, NT = C::NT;
+  constexpr int NF = BQ / 8, NO = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* Ks = reinterpret_cast<T*>(smem_raw);                 // [BKV][LD]
+  T* Vs = Ks + BKV * LD;                                  // [BKV][LD]
+  T* ring = Vs + BKV * LD;            // STAGES x (Q [BQ][LD], dO [BQ][LD])
+  float* row_ring = reinterpret_cast<float*>(ring + C::STAGES * 2 * C::TILE);
+  float* lo = row_ring + C::STAGES * 2 * BQ;  // f32: Q lo, dO lo [BQ][LD]
 
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int tid = threadIdx.x, lane = tid & 31, m0 = (tid >> 5) * 16;
   const int bh = blockIdx.x, k0 = blockIdx.y * BKV;
   const int b = bh / H, h = bh % H;
   const T* qb = q + (size_t)bh * Lq * DH;
   const T* dob = dout + (size_t)bh * Lq * DH;
+  const int n_tiles = (Lq + BQ - 1) / BQ;
 
-  stage_transposed<T, BKV, DH, C::LDK, THREADS>(
-      Kt, k + (size_t)bh * Lk * DH, k0, Lk);
-  stage_transposed<T, BKV, DH, C::LDK, THREADS>(
-      Vt, v + (size_t)bh * Lk * DH, k0, Lk);
-  float acc_k[TM][TN_O], acc_v[TM][TN_O];
-  zero(acc_k);
-  zero(acc_v);
-  float db = 0.f;
-
-  for (int q0 = 0; q0 < Lq; q0 += BQ) {
-    stage_rows<T, BQ, DH, C::LDQ, THREADS>(Qs, qb, q0, Lq);
-    stage_rows<T, BQ, DH, C::LDQ, THREADS>(dOs, dob, q0, Lq);
-    if (tid < BQ) {
-      const bool live = q0 + tid < Lq;
-      lse_s[tid] = live ? lse[(size_t)bh * Lq + q0 + tid] : 0.f;
-      delta_s[tid] = live ? delta[(size_t)bh * Lq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    {
-      float s[TM][TN_S], dp[TM][TN_S];
-      zero(s);
-      mac_rows<TM, TN_S, DH, C::LDQ, C::LDK>(s, Qs + ty * TM * C::LDQ,
-                                             Kt + tx * TN_S);
-      finish_scores(s, scale, bias, b, h, q0 + ty * TM, k0 + tx * TN_S, Lq,
-                    Lk);
-      zero(dp);
-      mac_rows<TM, TN_S, DH, C::LDQ, C::LDK>(dp, dOs + ty * TM * C::LDQ,
-                                             Vt + tx * TN_S);
+  tc::stage_rows(Ks, LD, k + (size_t)bh * Lk * DH, DH, k0, Lk, BKV, 0, DH, DH,
+                 tid, NT);
+  tc::stage_rows(Vs, LD, v + (size_t)bh * Lk * DH, DH, k0, Lk, BKV, 0, DH, DH,
+                 tid, NT);
+  // the bias of the thread's two keys (accumulator rows g and g + 8)
+  const int g = lane >> 2, qd = lane & 3;
+  float key_bias[2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = ty * TM + i;
-        const bool live = q0 + row < Lq;
-        const float row_lse = lse_s[row], row_delta = delta_s[row];
-#pragma unroll
-        for (int j = 0; j < TN_S; ++j) {
-          // a key past Lk scored -inf: p = 0
-          const float p = live ? expf(s[i][j] - row_lse) : 0.f;
-          Ps[row * C::LDS + tx * TN_S + j] =
-              round_as(p, static_cast<const T*>(nullptr));
-          Gs[row * C::LDS + tx * TN_S + j] = p * (dp[i][j] - row_delta);
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + m0 + g + 8 * half;
+    key_bias[half] = key >= Lk ? -INFINITY
+                     : bias.p  ? bias.p[b * bias.sb + h * bias.sh +
+                                       key * bias.sk]
+                               : 0.f;
+  }
+
+  // query tile t into ring slot t % STAGES: Q, dO, then lse and delta of its
+  // rows (+inf and 0 past Lq)
+  auto load = [&](int t) {
+    if (t < n_tiles) {
+      const int slot = t % C::STAGES, q0 = t * BQ;
+      T* dst = ring + slot * 2 * C::TILE;
+      tc::stage_rows(dst, LD, qb, DH, q0, Lq, BQ, 0, DH, DH, tid, NT);
+      tc::stage_rows(dst + C::TILE, LD, dob, DH, q0, Lq, BQ, 0, DH, DH, tid,
+                     NT);
+      float* rows = row_ring + slot * 2 * BQ;
+      for (int i = tid; i < BQ; i += NT) {
+        const size_t at = (size_t)bh * Lq + q0 + i;
+        if (q0 + i < Lq) {
+          tc::cp_async4(rows + i, lse + at, 4);
+          tc::cp_async4(rows + BQ + i, delta + at, 4);
+        } else {
+          rows[i] = INFINITY;
+          rows[BQ + i] = 0.f;
         }
       }
     }
-    __syncthreads();
+    tc::cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < C::STAGES - 1; ++s) load(s);
 
-    // now the thread owns keys ty * TM.. and columns tx * TN_O..
-    mac_cols<float, TM, TN_O, BQ, C::LDS, C::LDQ>(acc_v, Ps + ty * TM,
-                                                  dOs + tx * TN_O);
-    mac_cols<T, TM, TN_O, BQ, C::LDS, C::LDQ>(acc_k, Gs + ty * TM,
-                                              Qs + tx * TN_O);
-    if (dbias != nullptr && tid < BKV) {
-      for (int r = 0; r < BQ; ++r) db += Gs[r * C::LDS + tid];
+  float acc_k[NO][4], acc_v[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[j][e] = acc_v[j][e] = 0.f;
+  float db[2] = {0.f, 0.f};
+  const bool want_db = dbias != nullptr;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    tc::cp_async_wait(C::STAGES - 2);
+    __syncthreads();   // tile t visible; every warp done with tile t - 1
+    load(t + C::STAGES - 1);
+    const int slot = t % C::STAGES;
+    T* Qt = ring + slot * 2 * C::TILE;
+    T* dOt = Qt + C::TILE;
+    tc::Planes<T> Qp, dOp;
+    if constexpr (C::F32) {
+      tc::split_in_place<BQ, DH, LD, NT>(Qt, lo, tid);
+      tc::split_in_place<BQ, DH, LD, NT>(dOt, lo + C::TILE, tid);
+      __syncthreads();
+      Qp = {Qt, lo, LD};
+      dOp = {dOt, lo + C::TILE, LD};
+    } else {
+      Qp = {Qt, LD};
+      dOp = {dOt, LD};
     }
-    __syncthreads();
+
+    // s^T and dp^T: rows the warp's keys, columns the tile's query rows
+    float st[NF][4], dpt[NF][4];
+    tc::score_pair<T, NF, DH>(st, dpt, Ks, Vs, LD, m0, Qp, dOp, lane);
+    // fragment element e is key g + 8 (e / 2), query row 8j + 2qd + e % 2;
+    // p^T into st, g^T into dpt
+    const float* row_lse = row_ring + slot * 2 * BQ;
+    const float* row_delta = row_lse + BQ;
+    float pair[2][NF];   // g^T summed over the thread's two rows of block j
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + 2 * qd + (e & 1);
+        const float p =
+            expf(st[j][e] * scale + key_bias[e >> 1] - row_lse[r]);
+        const float gt = p * (dpt[j][e] - row_delta[r]);
+        pair[e >> 1][j] = (e & 1) ? pair[e >> 1][j] + gt : gt;
+        st[j][e] = p;
+        dpt[j][e] = gt;
+      }
+    // the tile's share of dbias by a pairwise tree over the blocks, then one
+    // add: a chain of 2NF dependent adds per tile cost bf16 14% at 128 rows
+    if (want_db) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int w = 1; w < NF; w *= 2)
+#pragma unroll
+          for (int j = 0; j + w < NF; j += 2 * w)
+            pair[half][j] += pair[half][j + w];
+        db[half] += pair[half][0];
+      }
+    }
+    tc::acc_product<T, NF, NO>(acc_v, st, dOp, lane);
+    tc::acc_product<T, NF, NO>(acc_k, dpt, Qp, lane);
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int key = k0 + ty * TM + i;
+  for (int half = 0; half < 2; ++half) {
+    const int key = k0 + m0 + g + 8 * half;
+    // the quad's four partial sums, in one order on every lane
+    float sum = db[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     if (key >= Lk) continue;
-    const size_t at = ((size_t)bh * Lk + key) * DH + tx * TN_O;
+    const size_t at = ((size_t)bh * Lk + key) * DH + 2 * qd;
 #pragma unroll
-    for (int j = 0; j < TN_O; ++j) {
-      from_f32(acc_k[i][j] * scale, dk + at + j);
-      from_f32(acc_v[i][j], dv + at + j);
+    for (int j = 0; j < NO; ++j) {
+      from_f32(acc_k[j][2 * half] * scale, dk + at + 8 * j);
+      from_f32(acc_k[j][2 * half + 1] * scale, dk + at + 8 * j + 1);
+      from_f32(acc_v[j][2 * half], dv + at + 8 * j);
+      from_f32(acc_v[j][2 * half + 1], dv + at + 8 * j + 1);
     }
+    if (want_db && qd == 0) dbias[(size_t)bh * Lk + key] = sum;
   }
-  if (dbias != nullptr && tid < BKV && k0 + tid < Lk)
-    dbias[(size_t)bh * Lk + k0 + tid] = db;
 }
 
 template <typename T, int DH>
@@ -152,13 +229,14 @@ int launch_dh(const void* q, const void* k, const void* v, BiasRef bias,
               const void* lse, const void* dout, const void* delta, int B,
               int H, int Lq, int Lk, void* dk, void* dv, void* dbias,
               cudaStream_t st) {
+  using C = Cfg<T, DH>;
   auto kernel = flash_bwd_dkv_kernel<T, DH>;
-  constexpr int bytes = Cfg<DH>::FLOATS * sizeof(float);
+  constexpr int bytes = static_cast<int>(C::BYTES);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(B * H, (Lk + BKV - 1) / BKV);
-  kernel<<<grid, THREADS, bytes, st>>>(
+  dim3 grid(B * H, (Lk + C::BKV - 1) / C::BKV);
+  kernel<<<grid, C::NT, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<const float*>(lse),
       static_cast<const T*>(dout), static_cast<const float*>(delta), H, Lq, Lk,

@@ -1,20 +1,20 @@
-// Building blocks shared by the three flash-attention kernels
-// (flash_attention_fwd.cu, flash_attention_bwd_dq.cu,
-// flash_attention_bwd_dkv.cu).
+// Building blocks of the flash-attention kernels: the forward
+// (flash_attention_fwd.cu) and, for their bias and types, the two backward
+// kernels (flash_attention_bwd_dq.cu, flash_attention_bwd_dkv.cu), whose
+// products run on the tensor cores through tile_logits_tc.cuh.
 //
-// All three work on tiles held in shared memory as f32, whatever the input
-// type, and multiply them on the CUDA cores with f32 fused multiply-adds (no
-// TF32, no tensor cores), so that an f32 call rounds like torch's f32 matmul.
-// A tile is stored either by rows (`stage_rows`: tile[r][c]) or transposed
-// (`stage_transposed`: tile[c][r]); every shared row is padded by PAD floats,
-// which keeps its start on a 16-byte boundary and spreads consecutive rows
-// over the banks. Two products cover every matrix product of the kernels:
+// The forward works on tiles held in shared memory as f32, whatever the
+// input type, and multiplies them on the CUDA cores with f32 fused
+// multiply-adds (no TF32, no tensor cores), so that an f32 call rounds like
+// torch's f32 matmul. A tile is stored either by rows (`stage_rows`:
+// tile[r][c]) or transposed (`stage_transposed`: tile[c][r]); every shared
+// row is padded by PAD floats, which keeps its start on a 16-byte boundary
+// and spreads consecutive rows over the banks. One product covers its two
+// matrix products:
 //   mac_rows: acc[i][j] += sum_k A[i][k] * B[k][j]   (A by rows, depth inside
 //             a row of A, read four at a time)
-//   mac_cols: acc[i][j] += sum_r A[r][i] * B[r][j]   (depth across the rows
-//             of both)
-// Each thread owns TM consecutive rows (or columns of A) and TN consecutive
-// columns of B, read as 16-byte vectors where TM or TN allows.
+// Each thread owns TM consecutive rows and TN consecutive columns of B, read
+// as 16-byte vectors where TN allows.
 //
 // The additive bias is read in place through its own strides (0 on an axis
 // it broadcasts over): nothing of size [Lq, Lk] is ever made in device
@@ -135,26 +135,6 @@ __device__ __forceinline__ void mac_rows(float (&acc)[TM][TN], const float* A,
   }
 }
 
-// acc[i][j] += sum_r A[r * LDA + i] * B[r * LDB + j], r < DEPTH, with A's
-// values rounded to R's precision as they are read. A points at the thread's
-// first column of A, B at its first column of B.
-template <typename R, int TM, int TN, int DEPTH, int LDA, int LDB>
-__device__ __forceinline__ void mac_cols(float (&acc)[TM][TN], const float* A,
-                                         const float* B) {
-#pragma unroll 4
-  for (int r = 0; r < DEPTH; ++r) {
-    float a[TM], w[TN];
-    load_vec<TM>(A + r * LDA, a);
-    load_vec<TN>(B + r * LDB, w);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const float ai = round_as(a[i], static_cast<const R*>(nullptr));
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(ai, w[j], acc[i][j]);
-    }
-  }
-}
-
 // Raw products q.k -> scores: times scale, plus the bias; a key at or past
 // Lk scores -inf. The thread holds rows row0.. and keys key0.. of the problem.
 // A row past Lq reads the last row's bias and is never stored by the caller.
@@ -181,10 +161,9 @@ __device__ __forceinline__ void finish_scores(float (&s)[TM][TN], float scale,
   }
 }
 
-// The tile shape of the two backward kernels and of the forward kernel's
-// large-query variant: 256 threads as 16 x 16, each owning 4 query rows x 4
-// keys of a 64 x 64 score tile and 4 rows x DH/16 columns of an output tile.
+// The tile shape of the forward kernel's large-query variant: 256 threads as
+// 16 x 16, each owning 4 query rows x 4 keys of a 64 x 64 score tile and 4
+// rows x DH/16 columns of an output tile.
 constexpr int BQ = 64, BKV = 64, TX = 16, TM = 4;
-constexpr int TY = BQ / TM, THREADS = TX * TY, TN_S = BKV / TX;
 
 }  // namespace care_flash

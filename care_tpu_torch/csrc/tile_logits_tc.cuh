@@ -1,10 +1,14 @@
 // Tensor-core building blocks of the four vocab kernels (fused_head_topk.cu,
-// vocab_argmax_lse.cu, fused_xent_bwd_dh.cu, fused_xent_bwd_dw.cu):
-// asynchronous staging of K-major tiles into shared memory, warp-level
-// products of those tiles on the tensor cores, and chunk_logits, the one
-// depth-chunk order in which K2, K3a and K3b form a logit. tile_logits.cuh
-// keeps the helpers shared with the attention kernels (types, rounding,
-// the (value, id) ranking, the online-softmax merge).
+// vocab_argmax_lse.cu, fused_xent_bwd_dh.cu, fused_xent_bwd_dw.cu) and the
+// two flash-attention backward kernels (flash_attention_bwd_dq.cu,
+// flash_attention_bwd_dkv.cu): asynchronous staging of K-major tiles into
+// shared memory, warp-level products of those tiles on the tensor cores,
+// chunk_logits, the one depth-chunk order in which K2, K3a and K3b form a
+// logit, and the pieces of the flash products (tiles split once into TF32
+// planes, A operands taken from accumulators, B operands read down the
+// columns of a row-major tile). tile_logits.cuh keeps the helpers shared
+// with the attention kernels (types, rounding, the (value, id) ranking,
+// the online-softmax merge).
 //
 // Numerics. f32 operands stay f32 at every interface and go through the
 // tensor cores as three TF32 products accumulated in f32 ("3xTF32"): each
@@ -66,6 +70,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// 4 bytes (cp.async.ca: the .cg form takes only 16), zero-filled when
+// src_bytes is 0
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
 }
 
 // wait until at most n groups are pending; n is clipped to 7, which only
@@ -371,6 +384,211 @@ __device__ __forceinline__ void chunk_logits(float (&x)[NF][4], const T* As,
     for (int e = 0; e < 4; ++e)
       x[j][e] += (part[0][j][e] + part[1][j][e]) +
                  (part[2][j][e] + part[3][j][e]);
+}
+
+// ---------------------------------------------------------------------------
+// the flash backward products
+// ---------------------------------------------------------------------------
+//
+// The two flash backward kernels multiply three kinds of operand:
+//   * a resident row-major tile [m][k] (Q and dO in the dq kernel, K and V in
+//     the dk/dv kernel) as A, through ldsm_a, split per warp as it is read;
+//   * a streamed row-major tile [n][k] (K and V, or Q and dO) as B of the
+//     score-shaped products, and the same tile as B [k][n] of the products
+//     that accumulate the gradients (g k, p^T do, g^T q): read down its
+//     columns. An f32 tile is split once, after it lands, into TF32 planes
+//     (split_in_place: hi over the values, lo in a second plane), so that
+//     the warps that all read it split nothing; a bf16 tile is read as it is
+//     (ldmatrix .trans for the column reads);
+//   * p or g, held in mma accumulators, as A (acc_to_a): for bf16 two
+//     adjacent n8 accumulator fragments, packed in pairs, are an A fragment
+//     of m16n8k16. For TF32 m16n8k8 they are not: the accumulator holds
+//     columns (2q, 2q+1), the A fragment wants (q, q+4). The depth index is
+//     permuted instead: A slot q takes column 2q and slot q + 4 column
+//     2q + 1, and B is read at depth rows (2q, 2q + 1) to match (load_b_cols).
+//     Each depth row still meets its own column once; no shuffle and no
+//     trip through shared memory.
+
+// A streamed tile as the products read it: f32 as TF32 hi and lo planes of
+// one pitch, bf16 as it lies
+template <typename T> struct Planes;
+template <> struct Planes<float> { const float* hi; const float* lo; int ld; };
+template <> struct Planes<__nv_bfloat16> {
+  const __nv_bfloat16* v;
+  int ld;
+};
+
+// x[r * LD + c] for r < ROWS, c < WIDTH split in place for the tensor cores:
+// x keeps hi = tf32_rn(x), lo[r * LD + c] gets tf32_rn(x - hi). Rows start
+// 16-byte aligned and WIDTH is a multiple of 4.
+template <int ROWS, int WIDTH, int LD, int NT>
+__device__ __forceinline__ void split_in_place(float* x, float* lo, int tid) {
+  constexpr int C4 = WIDTH / 4;
+  for (int i = tid; i < ROWS * C4; i += NT) {
+    const int off = (i / C4) * LD + 4 * (i % C4);
+    const float4 v = *reinterpret_cast<const float4*>(x + off);
+    uint4 h, l;
+    split_tf32(v.x, h.x, l.x);
+    split_tf32(v.y, h.y, l.y);
+    split_tf32(v.z, h.z, l.z);
+    split_tf32(v.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(x + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// The B fragments of the n8 tiles at n0 and n0 + 8 of an n-major tile
+// [n][k] (rows n, depth contiguous), as ldsm_b2 reads them
+__device__ __forceinline__ void ldsm_b2(FragB<float>& f0, FragB<float>& f1,
+                                        const Planes<float>& t, int n0, int k0,
+                                        int lane) {
+  const int mat = lane >> 3, row = lane & 7;
+  const int at = (n0 + row + (mat >> 1) * 8) * t.ld + k0 + (mat & 1) * 4;
+  unsigned r[4];
+  ldsm_x4(r, t.hi + at);
+  f0.hi[0] = r[0]; f0.hi[1] = r[1]; f1.hi[0] = r[2]; f1.hi[1] = r[3];
+  ldsm_x4(r, t.lo + at);
+  f0.lo[0] = r[0]; f0.lo[1] = r[1]; f1.lo[0] = r[2]; f1.lo[1] = r[3];
+}
+__device__ __forceinline__ void ldsm_b2(FragB<__nv_bfloat16>& f0,
+                                        FragB<__nv_bfloat16>& f1,
+                                        const Planes<__nv_bfloat16>& t,
+                                        int n0, int k0, int lane) {
+  ldsm_b2(f0, f1, t.v, t.ld, n0, k0, lane);
+}
+
+// The B fragments of the n8 tiles at n0 and n0 + 8 of a tile read down its
+// columns: depth k runs down the rows of [k][n]. TF32: depth rows k0 + 2q
+// and k0 + 2q + 1 (the permuted depth of acc_to_a), scalar loads, which
+// fall on 32 distinct banks when the pitch is 4 modulo 16; bf16: the
+// fragment's own rows through ldmatrix .trans.
+__device__ __forceinline__ void load_b_cols(FragB<float>& f0, FragB<float>& f1,
+                                            const Planes<float>& t, int k0,
+                                            int n0, int lane) {
+  const int at = (k0 + 2 * (lane & 3)) * t.ld + n0 + (lane >> 2);
+  const float* hi = t.hi + at;
+  const float* lo = t.lo + at;
+  f0.hi[0] = __float_as_uint(hi[0]);
+  f0.hi[1] = __float_as_uint(hi[t.ld]);
+  f1.hi[0] = __float_as_uint(hi[8]);
+  f1.hi[1] = __float_as_uint(hi[t.ld + 8]);
+  f0.lo[0] = __float_as_uint(lo[0]);
+  f0.lo[1] = __float_as_uint(lo[t.ld]);
+  f1.lo[0] = __float_as_uint(lo[8]);
+  f1.lo[1] = __float_as_uint(lo[t.ld + 8]);
+}
+__device__ __forceinline__ void load_b_cols(FragB<__nv_bfloat16>& f0,
+                                            FragB<__nv_bfloat16>& f1,
+                                            const Planes<__nv_bfloat16>& t,
+                                            int k0, int n0, int lane) {
+  // matrix m of ldmatrix: depth rows k0 + (m & 1) * 8.., columns
+  // n0 + (m >> 1) * 8..
+  const int mat = lane >> 3, row = lane & 7;
+  unsigned r[4];
+  ldsm_x4_trans(r, t.v + (size_t)(k0 + row + (mat & 1) * 8) * t.ld + n0 +
+                       (mat >> 1) * 8);
+  f0.v[0] = r[0]; f0.v[1] = r[1]; f1.v[0] = r[2]; f1.v[1] = r[3];
+}
+
+// The A fragment of depth step kk of a 16 x 8NF tile held in accumulators
+// (c[j]: columns 8j..8j+7), rounded to T
+template <int NF>
+__device__ __forceinline__ void acc_to_a(FragA<float>& a,
+                                         const float (&c)[NF][4], int kk) {
+  split_tf32(c[kk][0], a.hi[0], a.lo[0]);   // (g, 2q)      -> slot (g, q)
+  split_tf32(c[kk][2], a.hi[1], a.lo[1]);   // (g + 8, 2q)  -> (g + 8, q)
+  split_tf32(c[kk][1], a.hi[2], a.lo[2]);   // (g, 2q + 1)  -> (g, q + 4)
+  split_tf32(c[kk][3], a.hi[3], a.lo[3]);   // (g + 8, 2q + 1)
+}
+template <int NF>
+__device__ __forceinline__ void acc_to_a(FragA<__nv_bfloat16>& a,
+                                         const float (&c)[NF][4], int kk) {
+  auto b = [](float x) { return __float2bfloat16_rn(x); };
+  a.v[0] = pack_bf16(b(c[2 * kk][0]), b(c[2 * kk][1]));
+  a.v[1] = pack_bf16(b(c[2 * kk][2]), b(c[2 * kk][3]));
+  a.v[2] = pack_bf16(b(c[2 * kk + 1][0]), b(c[2 * kk + 1][1]));
+  a.v[3] = pack_bf16(b(c[2 * kk + 1][2]), b(c[2 * kk + 1][3]));
+}
+
+// The two score-shaped products of a flash backward tile, from zero over
+// the whole depth DEPTH: x = A1 B1^T and y = A2 B2^T, A1, A2 rows m0..m0+15
+// of resident row-major tiles (pitch lda), B1, B2 streamed n-major tiles,
+// 8NF columns. The two products interleave, 2NF independent mma chains.
+template <typename T, int NF, int DEPTH>
+__device__ __forceinline__ void score_pair(float (&x)[NF][4],
+                                           float (&y)[NF][4], const T* A1,
+                                           const T* A2, int lda, int m0,
+                                           const Planes<T>& B1,
+                                           const Planes<T>& B2, int lane) {
+  static_assert(NF % 2 == 0, "B fragments come in pairs");
+  constexpr int KS = Kstep<T>::value;
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = y[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DEPTH; k0 += KS) {
+    FragA<T> a1, a2;
+    ldsm_a(a1, A1, lda, m0, k0, lane);
+    ldsm_a(a2, A2, lda, m0, k0, lane);
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      FragB<T> f0, f1, h0, h1;
+      ldsm_b2(f0, f1, B1, 8 * j, k0, lane);
+      ldsm_b2(h0, h1, B2, 8 * j, k0, lane);
+      mma(x[j], a1, f0);
+      mma(x[j + 1], a1, f1);
+      mma(y[j], a2, h0);
+      mma(y[j + 1], a2, h1);
+    }
+  }
+}
+
+// acc[j] += (A: the 16 x 8NK tile held in accumulators c, rounded to T) x
+// (B: rows 0..8NK-1 of a streamed tile read down its columns, columns
+// 8j..8j+7). Per four n8 blocks the tile's products run from zero and are
+// then added to acc with f32 adds, so the accumulators never take the
+// tensor cores' truncating adds over more than one tile's depth.
+template <typename T, int NK, int NO>
+__device__ __forceinline__ void acc_product(float (&acc)[NO][4],
+                                            const float (&c)[NK][4],
+                                            const Planes<T>& B, int lane) {
+  static_assert(NO % 4 == 0, "four n8 blocks at a time");
+  constexpr int KS = Kstep<T>::value, STEPS = NK * 8 / KS;
+  FragA<T> a[STEPS];
+#pragma unroll
+  for (int s = 0; s < STEPS; ++s) acc_to_a(a[s], c, s);
+#pragma unroll
+  for (int j = 0; j < NO; j += 4) {
+    float part[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[u][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < STEPS; ++s) {
+      FragB<T> f0, f1, f2, f3;
+      load_b_cols(f0, f1, B, s * KS, 8 * j, lane);
+      load_b_cols(f2, f3, B, s * KS, 8 * j + 16, lane);
+      mma(part[0], a[s], f0);
+      mma(part[1], a[s], f1);
+      mma(part[2], a[s], f2);
+      mma(part[3], a[s], f3);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j + u][e] += part[u][e];
+  }
 }
 
 }  // namespace tc

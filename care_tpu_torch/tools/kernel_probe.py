@@ -1,18 +1,23 @@
-"""What holds the tensor-core vocab kernels back, measured on the card.
+"""What holds the tensor-core kernels back, measured on the card.
 
-Two probes:
+Three probes:
 
 * ``mma``: the rate of ``mma.sync`` on this card, TF32 m16n8k8 and bf16
   m16n8k16, with 4, 8 and 16 warps per SM, each warp running eight
   independent accumulator chains. It is the ceiling of the route that
   ``csrc/tile_logits_tc.cuh`` took, beside the data-sheet peaks of dense
   ``wgmma`` (495 TFLOP/s TF32, 989 bf16).
+* ``sass``: the count of tensor-core instructions (``HMMA``) in the
+  machine code of each flash-attention kernel, by ``cuobjdump -sass``: the
+  two backward kernels reach the tensor cores, the forward (K4a, on the
+  CUDA cores) does not.
 * ``ablate``: K1 (``csrc/fused_head_topk.cu``), K2
-  (``csrc/vocab_argmax_lse.cu``), K3a (``csrc/fused_xent_bwd_dh.cu``) and
-  K3b (``csrc/fused_xent_bwd_dw.cu``) built again with one part taken out,
-  each timed at the shapes ``chip_smoke.py`` times them. A variant's time says
-  what the part costs where the others still run; the results of a
-  variant are wrong by design and are not looked at.
+  (``csrc/vocab_argmax_lse.cu``), K3a (``csrc/fused_xent_bwd_dh.cu``), K3b
+  (``csrc/fused_xent_bwd_dw.cu``), K4b (``csrc/flash_attention_bwd_dq.cu``)
+  and K4c (``csrc/flash_attention_bwd_dkv.cu``) built again with one part
+  taken out, each timed at the shapes ``chip_smoke.py`` times them. A
+  variant's time says what the part costs where the others still run; the
+  results of a variant are wrong by design and are not looked at.
 
 Variants are text patches of copies of ``csrc/`` (each must match once, so a
 patch that no longer fits the source fails loudly), built with the flags of
@@ -22,24 +27,27 @@ machine with a card::
     python3 -m care_tpu_torch.tools.kernel_probe
 
 It prints the card and its power limit, then one line a reading. With
-``--against DIR`` it instead builds the four vocab kernels from ``DIR``, a
-copy of ``csrc/`` with the same C interfaces (a parent commit's, say), and
-from this tree, checks that
-the two give bit-equal outputs, and times them in turns (base, new, new,
-base) at the same shapes: a change to a kernel measured against its parent
-in one call on one card.
+``--against DIR`` it instead builds the four vocab kernels and the three
+flash-attention kernels from ``DIR``, a copy of ``csrc/`` with the same C
+interfaces (a parent commit's, say), and from this tree, compares their
+outputs (bit-equal, else the largest difference), and times them in turns
+(base, new, new, base) at the same shapes: a change to a kernel measured
+against its parent in one call on one card.
 """
 
 import argparse
 import concurrent.futures
 import ctypes
+import functools
 import os
+import re
 import shutil
 import subprocess
 
 import torch
 
 from care_tpu_torch.ops import _build
+from care_tpu_torch.ops import flash_attention as fa
 from care_tpu_torch.ops import fused_head_topk as fht
 from care_tpu_torch.ops import fused_xent as fx
 
@@ -126,6 +134,49 @@ VARIANTS = {
                          "if (false)")],
     },
 }
+
+# the flash backward kernels: the ring's next tile waited for at once, so
+# that no load overlaps a product; no split of the streamed tile into TF32
+# planes (f32); no gradient products (the scores and g stay)
+def _no_ring(fname):
+    return [(fname, "    load(t + C::STAGES - 1);\n",
+             "    load(t + C::STAGES - 1);\n    tc::cp_async_wait(0);\n")]
+
+
+VARIANTS.update({
+    "flash_attention_bwd_dq": {
+        "base": [],
+        "no_mma": _NO_MMA,
+        "one_tf32": _ONE_TF32,
+        "no_ring": _no_ring("flash_attention_bwd_dq.cu"),
+        "no_split": [("flash_attention_bwd_dq.cu",
+                      "      tc::split_in_place<BKV, DH, LD, NT>(Kt, lo, "
+                      "tid);\n      tc::split_in_place<BKV, DH, LD, NT>(Vt, "
+                      "lo + C::TILE, tid);\n", "")],
+        "no_dq_product": [("flash_attention_bwd_dq.cu",
+                           "    tc::acc_product<T, NF, NO>(acc, s, Kp, lane);",
+                           "    acc[0][0] += s[0][0] + s[NF - 1][3];")],
+    },
+    "flash_attention_bwd_dkv": {
+        "base": [],
+        "no_mma": _NO_MMA,
+        "one_tf32": _ONE_TF32,
+        "no_ring": _no_ring("flash_attention_bwd_dkv.cu"),
+        "no_split": [("flash_attention_bwd_dkv.cu",
+                      "      tc::split_in_place<BQ, DH, LD, NT>(Qt, lo, tid);\n"
+                      "      tc::split_in_place<BQ, DH, LD, NT>(dOt, lo + "
+                      "C::TILE, tid);\n", "")],
+        "no_dbias": [("flash_attention_bwd_dkv.cu",
+                      "const bool want_db = dbias != nullptr;",
+                      "const bool want_db = false;")],
+        "no_dkv_products": [
+            ("flash_attention_bwd_dkv.cu",
+             "    tc::acc_product<T, NF, NO>(acc_v, st, dOp, lane);\n"
+             "    tc::acc_product<T, NF, NO>(acc_k, dpt, Qp, lane);",
+             "    acc_v[0][0] += st[0][0] + st[NF - 1][3];\n"
+             "    acc_k[0][0] += dpt[0][0] + dpt[NF - 1][3];")],
+    },
+})
 
 _MMA_SOURCE = r"""
 #include <cuda_runtime.h>
@@ -313,6 +364,55 @@ def _dw_call(lib, dtype, H, rows=1856, V=11000):
         dW.data_ptr(), db.data_ptr(), stream), [dW, db])
 
 
+# the square shape of chip_smoke.py's flash timing, hybrid bias
+FLASH_SHAPE = (4, 8, 1568, 1568)
+
+
+@functools.cache
+def _flash_operands(dtype, dh):
+    """q, k, v, do [B, H, L, dh], a [1, H, 1, Lk] bias with a -1e9 tail, the
+    forward's out and lse (the tree's K4a) and delta."""
+    b, h, lq, lk = FLASH_SHAPE
+    g = torch.Generator().manual_seed(41)
+    q, k, v, do = (torch.randn((b, h, n, dh), generator=g).to("cuda", dtype)
+                   for n in (lq, lk, lk, lq))
+    bias = torch.randn((1, h, 1, lk), generator=g) * 0.5
+    bias[..., -lk // 4:] = -1e9
+    bias = bias.cuda()
+    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+    delta = (do.float() * out.float()).sum(-1)
+    return q, k, v, do, bias, lse, delta
+
+
+def _flash_call(name):
+    """What makes the launcher of flash kernel ``name`` at FLASH_SHAPE."""
+    def build(lib, dtype, dh):
+        b, h, lq, lk = FLASH_SHAPE
+        q, k, v, do, bias, lse, delta = _flash_operands(dtype, dh)
+        suffix = "f32" if dtype == torch.float32 else "bf16"
+        stream = torch.cuda.current_stream().cuda_stream
+        f32 = dict(device="cuda", dtype=torch.float32)
+        if name == "flash_attention_fwd":
+            outs = [torch.empty_like(q), torch.empty((b, h, lq), **f32)]
+            fn = getattr(lib, "care_flash_fwd_" + suffix)
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    0, bias.stride(1), 0, bias.stride(3), b, h, lq, lk, dh)
+        else:
+            args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                    0, bias.stride(1), bias.stride(3), lse.data_ptr(),
+                    do.data_ptr(), delta.data_ptr(), b, h, lq, lk, dh)
+            if name == "flash_attention_bwd_dq":
+                outs = [torch.empty_like(q)]
+                fn = getattr(lib, "care_flash_bwd_dq_" + suffix)
+            else:
+                outs = [torch.empty_like(k), torch.empty_like(v),
+                        torch.empty((b, h, lk), **f32)]
+                fn = getattr(lib, "care_flash_bwd_dkv_" + suffix)
+        return _launcher(lambda: _call(
+            fn, *args, *(t.data_ptr() for t in outs), stream), outs)
+    return build
+
+
 # each kernel's cases: (label, dtype, H)
 SHAPES = {
     "fused_head_topk": [("K1 [320, 512] x [11000, 512]", dtype, 512)
@@ -324,13 +424,51 @@ SHAPES = {
                          ("fused_xent_bwd_dh", "K3a"),
                          ("fused_xent_bwd_dw", "K3b"))},
 }
+FLASH_IDS = {"flash_attention_fwd": "K4a", "flash_attention_bwd_dq": "K4b",
+             "flash_attention_bwd_dkv": "K4c"}
+SHAPES.update({
+    name: [(f"{kid} {list(FLASH_SHAPE[:3]) + [64]}", dtype, 64)
+           for dtype in (torch.float32, torch.bfloat16)]
+    for name, kid in FLASH_IDS.items()})
 CALLS = {"fused_head_topk": lambda lib, dtype, H: _head_call(lib, dtype),
          "vocab_argmax_lse": _k2_call, "fused_xent_bwd_dh": _dh_call,
-         "fused_xent_bwd_dw": _dw_call}
+         "fused_xent_bwd_dw": _dw_call,
+         **{name: _flash_call(name) for name in FLASH_IDS}}
+
+
+def probe_sass(libs) -> None:
+    """HMMA instructions in each flash kernel's machine code, by entry
+    function (template instance)."""
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    for name in FLASH_IDS:
+        sass = subprocess.run([cuobjdump, "-sass", libs[name, "base"]._name],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts = {}
+        function = None
+        for line in sass.splitlines():
+            if "Function : " in line:
+                function = line.split("Function : ")[1].strip()
+                counts[function] = 0
+            elif function is not None and "HMMA" in line:
+                counts[function] += 1
+        print(f"sass {FLASH_IDS[name]} {name}: HMMA instructions by entry "
+              "function: " + ", ".join(f"{_short(f)} {n}"
+                                       for f, n in counts.items()))
+
+
+def _short(mangled: str) -> str:
+    """<type, head width> of a mangled kernel<T, DH> instance name."""
+    found = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    if not found:
+        return mangled
+    return f"<{'f32' if found[1] == 'f' else 'bf16'}, {found[2]}>"
 
 
 def probe_ablation(libs) -> None:
     for name, cases in SHAPES.items():
+        if name not in VARIANTS:
+            continue
         for label, dtype, H in cases:
             for variant in VARIANTS[name]:
                 ms = _time_ms(CALLS[name](libs[name, variant], dtype, H))
@@ -349,14 +487,17 @@ def probe_against(libs) -> None:
             for run in runs.values():
                 run()
             torch.cuda.synchronize()
-            same = all(torch.equal(x, y) for x, y in
-                       zip(runs["base"].outputs, runs["new"].outputs))
+            pairs = list(zip(runs["base"].outputs, runs["new"].outputs))
+            same = all(torch.equal(x, y) for x, y in pairs)
+            diff = max(float((x.float() - y.float()).abs().max())
+                       for x, y in pairs)
             times = {"base": [], "new": []}
             for tag in ("base", "new", "new", "base"):
                 times[tag].append(_time_ms(runs[tag], n=100, warm=10))
             print(f"against {label} {str(dtype)[6:]}: outputs bit-equal "
-                  f"{same}; base " + ", ".join(f"{t:.4f}" for t in
-                                               times["base"])
+                  f"{same}" + ("" if same else f" (max |d| {diff:.3e})")
+                  + "; base " + ", ".join(f"{t:.4f}" for t in
+                                          times["base"])
                   + " ms; new " + ", ".join(f"{t:.4f}" for t in times["new"])
                   + " ms")
 
@@ -383,6 +524,13 @@ def _bind(name, lib):
         for fn in (lib.care_xent_bwd_dw_f32, lib.care_xent_bwd_dw_bf16):
             fn.argtypes = fx._BWD_ROWS + [ctypes.c_void_p] * 3
             fn.restype = ctypes.c_int
+    elif name == "flash_attention_fwd":
+        fa._bind(lib, "care_flash_fwd",
+                 [fa._PTR] * 4 + [fa._LL] * 4 + fa._SHAPE + [fa._PTR] * 3)
+    elif name == "flash_attention_bwd_dq":
+        fa._bind(lib, "care_flash_bwd_dq", fa._BWD_HEAD + [fa._PTR] * 2)
+    elif name == "flash_attention_bwd_dkv":
+        fa._bind(lib, "care_flash_bwd_dkv", fa._BWD_HEAD + [fa._PTR] * 4)
     else:
         lib.care_mma_rate.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
         lib.care_mma_rate.restype = ctypes.c_int
@@ -401,9 +549,9 @@ def _copy_sources(src_dir, tag, name):
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--against", metavar="CSRC",
-                        help="instead of the mma and ablate probes, compare "
-                             "the vocab kernels with those built from this "
-                             "copy of csrc/")
+                        help="instead of the mma, sass and ablate probes, "
+                             "compare the vocab and flash kernels with those "
+                             "built from this copy of csrc/")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: needs a CUDA device")
@@ -426,6 +574,8 @@ def main(argv=None) -> None:
         for name, variants in VARIANTS.items():
             for variant in variants:
                 jobs[name, variant] = _variant_source(name, variant)
+        jobs["flash_attention_fwd", "base"] = _copy_sources(
+            _build.CSRC_DIR, "base", "flash_attention_fwd")
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
         built = dict(zip(jobs, pool.map(lambda j: _compile(*j),
                                         jobs.values())))
@@ -435,6 +585,7 @@ def main(argv=None) -> None:
         probe_against(libs)
         return
     probe_mma(libs["mma", "base"])
+    probe_sass(libs)
     probe_ablation(libs)
 
 

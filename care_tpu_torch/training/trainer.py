@@ -20,7 +20,8 @@ transfer at its end; nothing in the step loop waits for the device.
 Not ported yet, each rejected with ``NotImplementedError``: validation and
 test loaders (caption generation + COCO scoring), checkpoints and
 ``resume``, a ``mesh``, a ``log_dir`` (TensorBoard), ``lr_scheduler_type:
-plateau``, ``profile_dir``, ``backbone_weights``, teachers. The device
+plateau``, a ``fused_xent_backend`` other than ``auto``, ``profile_dir``,
+``backbone_weights``, teachers. The device
 feature bank is simply not built: batches carry their features.
 """
 
@@ -76,6 +77,10 @@ def _check_opt(opt: dict) -> None:
             raise unsupported(key, opt[key])
     if opt.get("lr_scheduler_type") == "plateau":
         raise unsupported("lr_scheduler_type", "plateau")
+    # the JAX package's "xla" forces its scan form and "pallas" its kernel;
+    # the port has one rule per device (the kernels on a CUDA tensor)
+    if opt.get("fused_xent_backend", "auto") != "auto":
+        raise unsupported("fused_xent_backend", opt["fused_xent_backend"])
 
 
 class Trainer:

@@ -47,9 +47,12 @@ before the last line:
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
    the kernel's bound on the tensor cores (3xTF32 for f32 work) and its f32
-   CUDA-core bound; the four vocab kernels also in bf16. The yardstick of
-   the dh kernel is the autograd backward of the unfused sequence for dh
-   alone, of the dW kernel the same for dW alone (the joint one beside).
+   CUDA-core bound; the four vocab kernels and the two flash backward
+   kernels also in bf16. The yardstick of the dh kernel is the autograd
+   backward of the unfused sequence for dh alone, of the dW kernel the same
+   for dW alone; of the dq kernel SDPA's autograd backward for dq alone, of
+   the dk/dv/dbias kernel the same for dk and dv alone (the joint ones
+   beside), event-timed and as device time.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -510,13 +513,15 @@ def _check_flash() -> dict:
     _check_flash_case("bf16 decode", (RAGGED, 8, 5, 1654, 64), bf16, "hybrid",
                       20)
     # two calls on the same operands repeat bit for bit (no atomics)
-    (q, k, v, do), bias = _flash_inputs((2, 4, 70, 333, 64), f32, "hybrid", 21)
-    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
-    delta = (do * out).sum(-1)
-    first = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
-    second = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
-    assert torch.equal(out, fa._flash_fwd_cuda(q, k, v, bias)[0])
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for dtype in (f32, bf16):
+        (q, k, v, do), bias = _flash_inputs((2, 4, 70, 333, 64), dtype,
+                                            "hybrid", 21)
+        out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+        delta = (do.float() * out.float()).sum(-1)
+        first = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
+        second = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
+        assert torch.equal(out, fa._flash_fwd_cuda(q, k, v, bias)[0])
+        assert all(torch.equal(a, b) for a, b in zip(first, second)), dtype
     for bad in (q[..., :48].contiguous(), q.double()):
         try:
             fa.flash_attention(bad, bad, bad)
@@ -525,7 +530,8 @@ def _check_flash() -> dict:
                   f"{str(bad.dtype)[6:]} Dh {bad.shape[-1]}: {e}")
         else:
             raise AssertionError("the wrapper took what the kernel does not")
-    print("check flash attention: forward and backward repeat bit for bit")
+    print("check flash attention: forward and backward repeat bit for bit "
+          "in f32 and bf16")
     return {"flash_attention_fwd": err_fwd,
             "flash_attention_bwd_dq": errs["dq"],
             "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"],
@@ -1025,10 +1031,8 @@ def _time_flash(errors, counts) -> list:
     entries, fwd = [], {}
     for label, shape in (("decode", DECODE_SHAPE), ("square", SQUARE_SHAPE)):
         b, h, lq, lk, dh = shape
-        (q, k, v, do), bias = _flash_inputs(shape, torch.float32, "hybrid", 41)
+        (q, k, v, _), bias = _flash_inputs(shape, torch.float32, "hybrid", 41)
         mask = bias.expand(b, h, lq, lk)
-        out, lse = fa._flash_fwd_cuda(q, k, v, bias)
-        delta = (do * out).sum(-1)
         flops = 4 * b * h * lq * lk * dh
         qo, kv, rows = 4 * q.numel(), 4 * k.numel(), 4 * b * h * lq
         what = f"q {list(q.shape)} x {lk} keys, bias {list(bias.shape)}"
@@ -1048,23 +1052,90 @@ def _time_flash(errors, counts) -> list:
                    "unfused_torch_ms")})
     entries.append(entry)
 
-    # the square shape's operands are still bound: the backward kernels
-    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    # the backward kernels at the square shape, in f32 and in bf16
+    b, h, lq, lk, dh = SQUARE_SHAPE
+    flops_dq, flops_dkv = 6 * b * h * lq * lk * dh, 8 * b * h * lq * lk * dh
+    for dtype in (torch.float32, torch.bfloat16):
+        t = _time_flash_backward(dtype)
+        size = 2 if dtype == torch.bfloat16 else 4
+        qo, kv = size * b * h * lq * dh, size * b * h * lk * dh
+        rows = 4 * b * h * lq
+        bias_bytes = 4 * h * lk
+        work = {"flash_attention_bwd_dq": (
+                    flops_dq, 3 * qo + 2 * kv + bias_bytes + 2 * rows),
+                "flash_attention_bwd_dkv": (
+                    flops_dkv,
+                    2 * qo + 4 * kv + bias_bytes + 2 * rows + 4 * b * h * lk)}
+        for name, wrt in (("flash_attention_bwd_dq", "q"),
+                          ("flash_attention_bwd_dkv", "kv")):
+            flops, n_bytes = work[name]
+            lib, lib_dev = t["sdpa"][wrt]
+            joint, joint_dev = t["sdpa"]["qkv"]
+            extra = {"library_device_ms": lib_dev, "joint_library_ms": joint,
+                     "joint_library_device_ms": joint_dev}
+            if dtype == torch.float32:
+                entries.append(_entry(
+                    name, errors, counts, t["ms"][name], t["plain"],
+                    t["dense"], flops, n_bytes, t["what"],
+                    "autograd backward of the port's dense attention (dq, "
+                    "dk, dv together)", lib, SDPA_YARDSTICK[wrt]))
+                entries[-1].update(extra)
+            else:
+                entry = next(e for e in entries if e["name"] == name)
+                _entry_bf16(entry, t["ms"][name], t["plain"], t["dense"],
+                            flops, n_bytes)
+                entry.update(bf16_library_ms=lib, **{
+                    "bf16_" + key: value for key, value in extra.items()})
+    return entries
 
-    def dense_backward(fn):
-        return torch.autograd.grad(fn(*leaves), leaves, do)
 
-    def dense(q, k, v):
-        return dot_product_attention(q, k, v, bias=bias,
-                                     return_probs=False)[0]
+# what SDPA's autograd backward computes when only these inputs require a
+# gradient: the yardstick of K4b (dq) and of K4c (dk, dv; SDPA has no bias
+# gradient to give, K4c computes dbias besides)
+SDPA_YARDSTICK = {
+    "q": "autograd backward of F.scaled_dot_product_attention, dq alone",
+    "kv": "autograd backward of F.scaled_dot_product_attention, dk and dv "
+          "(no dbias)",
+    "qkv": "autograd backward of F.scaled_dot_product_attention, dq, dk, dv"}
 
-    def library(q, k, v):
-        return sdpa(q, k, v, attn_mask=mask)
 
-    dense_ms = _time_ms(lambda: dense_backward(dense)) \
-        - fwd["square"]["unfused_torch_ms"]
-    library_ms = _time_ms(lambda: dense_backward(library)) \
-        - fwd["square"]["library_ms"]
+def _time_flash_backward(dtype) -> dict:
+    """K4b and K4c at the square shape in ``dtype``: each kernel alone, both
+    through the wrapper, the plain backward, the autograd backward of the
+    port's dense attention, and SDPA's autograd backward for dq alone, for
+    dk and dv alone and for all three, each as forward + backward less the
+    same forward, event-timed and as device time (the profiler's kernel
+    time, without autograd's host work). The kernels themselves are timed
+    by events only: one launch each, and the profiler does not always see
+    a launch made through ctypes. The mask is handed to SDPA in the
+    inputs' dtype."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, lq, lk, dh = SQUARE_SHAPE
+    (q, k, v, do), bias = _flash_inputs(SQUARE_SHAPE, dtype, "hybrid", 41)
+    mask = bias.expand(b, h, lq, lk).to(dtype)
+    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+    delta = (do.float() * out.float()).sum(-1)
+    label = str(dtype)[6:]
+
+    def backward_ms(fn, wrt):
+        leaves = [t.clone().requires_grad_(i in wrt)
+                  for i, t in enumerate((q, k, v))]
+        need = [leaves[i] for i in wrt]
+
+        def forward():
+            return fn(*leaves)
+
+        def both():
+            return torch.autograd.grad(forward(), need, do)
+        return (_time_ms(both) - _time_ms(forward),
+                _device_ms(both) - _device_ms(forward))
+
+    sdpa_ms = {wrt: backward_ms(lambda q, k, v: sdpa(q, k, v, attn_mask=mask),
+                                idx)
+               for wrt, idx in (("q", (0,)), ("kv", (1, 2)),
+                                ("qkv", (0, 1, 2)))}
+    dense_ms = backward_ms(lambda q, k, v: dot_product_attention(
+        q, k, v, bias=bias, return_probs=False)[0], (0, 1, 2))[0]
     plain_ms = _time_ms(lambda: fa._flash_bwd_plain(q, k, v, bias, lse, do,
                                                     delta), 5, 1)
     both = _time_ms(lambda: fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta))
@@ -1073,32 +1144,31 @@ def _time_flash(errors, counts) -> list:
             bias.stride(1), bias.stride(3), lse.data_ptr(), do.data_ptr(),
             delta.data_ptr(), b, h, lq, lk, dh)
     stream = torch.cuda.current_stream().cuda_stream
+    suffix = "f32" if dtype == torch.float32 else "bf16"
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dbias = torch.empty((b, h, 1, lk), device="cuda")
-    dq_ms = _time_ms(lambda: fa._dq_library().care_flash_bwd_dq_f32(
-        *head, dq.data_ptr(), stream))
-    dkv_ms = _time_ms(lambda: fa._dkv_library().care_flash_bwd_dkv_f32(
-        *head, dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), stream))
+    calls = {
+        "flash_attention_bwd_dq": lambda: getattr(
+            fa._dq_library(), "care_flash_bwd_dq_" + suffix)(
+                *head, dq.data_ptr(), stream),
+        "flash_attention_bwd_dkv": lambda: getattr(
+            fa._dkv_library(), "care_flash_bwd_dkv_" + suffix)(
+                *head, dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(), stream)}
+    ms = {name: _time_ms(call) for name, call in calls.items()}
     torch.cuda.synchronize()
     want = fa._flash_bwd_cuda(q, k, v, bias, lse, do, delta)
     assert all(torch.equal(a, w) for a, w in zip((dq, dk, dv, dbias), want))
-    print(f"time flash backward: dq and dk/dv/dbias kernels through the "
-          f"wrapper {both:.4f} ms; the plain backward computes all four "
-          f"gradients in one pass, the dense and library backwards dq, dk "
-          f"and dv together")
-    common = ("autograd backward of the port's dense attention (dq, dk, dv "
-              "together)", library_ms,
-              "autograd backward of F.scaled_dot_product_attention")
-    entries.append(_entry(
-        "flash_attention_bwd_dq", errors, counts, dq_ms, plain_ms, dense_ms,
-        6 * b * h * lq * lk * dh,
-        3 * qo + 2 * kv + 4 * bias.numel() + 2 * rows, what, *common))
-    entries.append(_entry(
-        "flash_attention_bwd_dkv", errors, counts, dkv_ms, plain_ms, dense_ms,
-        8 * b * h * lq * lk * dh,
-        2 * qo + 4 * kv + 4 * bias.numel() + 2 * rows + 4 * b * h * lk, what,
-        *common))
-    return entries
+    print(f"time flash backward at {list(q.shape)} {label}: dq kernel "
+          f"{ms['flash_attention_bwd_dq']:.4f} ms, dk/dv/dbias kernel "
+          f"{ms['flash_attention_bwd_dkv']:.4f} ms, both through the "
+          f"wrapper {both:.4f} ms; plain (all four gradients in one pass) "
+          f"{plain_ms:.4f} ms; autograd backward of the port's dense "
+          f"attention {dense_ms:.4f} ms; "
+          + "; ".join(f"{SDPA_YARDSTICK[w]} {e:.4f} ms (device {d:.4f})"
+                      for w, (e, d) in sdpa_ms.items()))
+    return {"ms": ms, "plain": plain_ms, "dense": dense_ms,
+            "sdpa": sdpa_ms, "what": f"q {list(q.shape)} x {lk} keys, bias "
+                                     f"{list(bias.shape)}"}
 
 
 def _time_head(h, W, K):

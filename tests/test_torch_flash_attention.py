@@ -256,8 +256,9 @@ def test_flash_rejects_what_it_does_not_take():
 @pytest.mark.gpu
 def test_flash_kernels_match_plain_on_the_card():
     """K4a, K4b and K4c against their plain versions on a CUDA card: the
-    decode shape in small, ragged tiles, bf16, and gradients through
-    ``backward="kernel"`` with every launch counted."""
+    decode shape in small, ragged tiles, bf16 at head widths 64 and 128,
+    and gradients through ``backward="kernel"`` with every launch counted;
+    a second backward call on the same operands repeats bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -265,7 +266,8 @@ def test_flash_kernels_match_plain_on_the_card():
     for (b, h, lq, lk, dh), dtype in [((3, 2, 5, 1654, 64), torch.float32),
                                       ((2, 2, 37, 1568, 32), torch.float32),
                                       ((2, 2, 100, 200, 128), torch.float32),
-                                      ((2, 2, 70, 130, 64), torch.bfloat16)]:
+                                      ((2, 2, 70, 130, 64), torch.bfloat16),
+                                      ((2, 2, 70, 130, 128), torch.bfloat16)]:
         q, k, v, do = (torch.randn((b, h, n, dh), generator=g).to(
             "cuda", dtype) for n in (lq, lk, lk, lq))
         bias = (torch.randn((1, h, 1, lk), generator=g) * 0.5).cuda()
@@ -286,3 +288,5 @@ def test_flash_kernels_match_plain_on_the_card():
             torch.testing.assert_close(a.float(), r.float(), **gtol)
         assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
             c + 1 for c in counts)
+        again = fa._flash_bwd_cuda(q, k, v, bias, want_lse, do, delta)
+        assert all(torch.equal(a, r) for a, r in zip(got, again))

@@ -217,6 +217,18 @@ def test_fused_follows_dense_in_the_port():
     np.testing.assert_allclose(losses[True], losses[False], rtol=0, atol=1e-3)
 
 
+def test_fused_xent_backend_auto_trains():
+    """``fused_xent_backend: auto``, the one value the trainer takes, trains
+    through the fused cross-entropy."""
+    opt = _opt(epochs=1, fused_xent=True, fused_xent_chunk=32,
+               fused_xent_backend="auto")
+    tr = _port_trainer(opt, _numpy_batches(opt, 2))
+    tr.fit()
+    assert tr._fused_xent is True
+    losses = _step_losses(tr)
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+
+
 def test_fused_xent_auto_threshold():
     def gate(**extra):
         opt = _opt(**extra)
@@ -302,7 +314,8 @@ def test_dropout_keeps_the_mean():
     ("resume", True), ("profile_dir", "/tmp/trace"),
     ("backbone_weights", "resnet.pth"), ("teacher_path", "teacher.ckpt"),
     ("with_teacher_during_training", True),
-    ("lr_scheduler_type", "plateau")])
+    ("lr_scheduler_type", "plateau"), ("fused_xent_backend", "xla"),
+    ("fused_xent_backend", "pallas")])
 def test_rejected_options_raise_naming_themselves(key, value):
     opt = _opt(**{key: value})
     with pytest.raises(NotImplementedError, match=key):
