@@ -553,6 +553,104 @@ __device__ __forceinline__ void score_pair(float (&x)[NF][4],
   }
 }
 
+// The A fragment at (m0, k0) of a resident row-major tile held as planes:
+// f32 split once into TF32 hi and lo (two ldmatrix, no split per read),
+// bf16 as it lies
+__device__ __forceinline__ void ldsm_a(FragA<float>& f, const Planes<float>& t,
+                                       int m0, int k0, int lane) {
+  const int mat = lane >> 3, row = lane & 7;
+  const int at = (m0 + row + (mat & 1) * 8) * t.ld + k0 + (mat >> 1) * 4;
+  ldsm_x4(f.hi, t.hi + at);
+  ldsm_x4(f.lo, t.lo + at);
+}
+__device__ __forceinline__ void ldsm_a(FragA<__nv_bfloat16>& f,
+                                       const Planes<__nv_bfloat16>& t, int m0,
+                                       int k0, int lane) {
+  ldsm_a(f, t.v, t.ld, m0, k0, lane);
+}
+
+// x = A B^T from zero over the whole depth DEPTH: A rows m0..m0+15 of a
+// resident tile held as planes, B a streamed n-major tile of 8NF columns
+// (the flash forward's scores)
+template <typename T, int NF, int DEPTH>
+__device__ __forceinline__ void score_tile(float (&x)[NF][4],
+                                           const Planes<T>& A, int m0,
+                                           const Planes<T>& B, int lane) {
+  static_assert(NF % 2 == 0, "B fragments come in pairs");
+  constexpr int KS = Kstep<T>::value;
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DEPTH; k0 += KS) {
+    FragA<T> a;
+    ldsm_a(a, A, m0, k0, lane);
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      FragB<T> f0, f1;
+      ldsm_b2(f0, f1, B, 8 * j, k0, lane);
+      mma(x[j], a, f0);
+      mma(x[j + 1], a, f1);
+    }
+  }
+}
+
+// Rows m0..m0+15 of a resident row-major f32 tile split for the tensor
+// cores by the warp that reads them: the lo halves of its A fragments over
+// the depth DEPTH into registers, hi = tf32_rn(x) back in place (the rows'
+// elements, each written by the lane that holds it)
+template <int DEPTH>
+__device__ __forceinline__ void split_rows_a(unsigned (&lo)[DEPTH / 8][4],
+                                             float* s, int ld, int m0,
+                                             int lane) {
+  const int mat = lane >> 3, row = lane & 7;
+  float* own = s + (m0 + (lane >> 2)) * ld + (lane & 3);
+#pragma unroll
+  for (int ks = 0; ks < DEPTH / 8; ++ks) {
+    unsigned r[4], hi[4];
+    ldsm_x4(r, s + (m0 + row + (mat & 1) * 8) * ld + ks * 8 + (mat >> 1) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(r[i]), hi[i], lo[ks][i]);
+    // fragment word i: row g + 8 (i & 1), column q + 4 (i >> 1)
+    own[ks * 8] = __uint_as_float(hi[0]);
+    own[8 * ld + ks * 8] = __uint_as_float(hi[1]);
+    own[ks * 8 + 4] = __uint_as_float(hi[2]);
+    own[8 * ld + ks * 8 + 4] = __uint_as_float(hi[3]);
+  }
+  __syncwarp();
+}
+
+// score_tile for f32 with A split by split_rows_a: hi read from the tile,
+// lo from registers
+template <int NF, int DEPTH>
+__device__ __forceinline__ void score_tile(float (&x)[NF][4],
+                                           const float* A_hi, int ld, int m0,
+                                           const unsigned (&a_lo)[DEPTH / 8][4],
+                                           const Planes<float>& B, int lane) {
+  static_assert(NF % 2 == 0, "B fragments come in pairs");
+  const int mat = lane >> 3, row = lane & 7;
+#pragma unroll
+  for (int j = 0; j < NF; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < DEPTH / 8; ++ks) {
+    FragA<float> a;
+    ldsm_x4(a.hi, A_hi + (m0 + row + (mat & 1) * 8) * ld + ks * 8 +
+                      (mat >> 1) * 4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a.lo[i] = a_lo[ks][i];
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      FragB<float> f0, f1;
+      ldsm_b2(f0, f1, B, 8 * j, ks * 8, lane);
+      mma(x[j], a, f0);
+      mma(x[j + 1], a, f1);
+    }
+  }
+}
+
 // acc[j] += (A: the 16 x 8NK tile held in accumulators c, rounded to T) x
 // (B: rows 0..8NK-1 of a streamed tile read down its columns, columns
 // 8j..8j+7). Per four n8 blocks the tile's products run from zero and are

@@ -87,10 +87,17 @@ def _attention_reference(q, k, v, bias):
 # ---------------------------------------------------------------------------
 
 def _flash_fwd_plain(q, k, v, bias, block_q: int = _PLAIN_BLOCK,
-                     block_k: int = _PLAIN_BLOCK):
+                     block_k: int = _PLAIN_BLOCK, key_splits: int = 1):
     """(out [B, H, Lq, Dh] in q's dtype, lse [B, H, Lq] f32): the forward
     kernel's arithmetic, query block by query block and key block by key
-    block, a ragged last block being simply shorter."""
+    block, a ragged last block being simply shorter.
+
+    ``key_splits`` > 1 repeats the kernel's split of the keys over a cluster
+    of blocks: the key blocks fall into that many consecutive runs of
+    ceil(blocks / key_splits) (the last runs may hold no key at all), each
+    run keeps its own (maximum, sum, accumulator) from -1e9, 0, 0, and the
+    runs are merged in order, each weighted by exp(its maximum - the
+    largest); a row whose merged sum is 0 gives output 0 and lse 1e9."""
     b, h, lq, dh = q.shape
     lk = k.shape[2]
     scale = 1.0 / math.sqrt(dh)
@@ -98,25 +105,40 @@ def _flash_fwd_plain(q, k, v, bias, block_q: int = _PLAIN_BLOCK,
     f32 = dict(dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, lq), **f32)
+    starts = list(range(0, lk, block_k))
+    per = -(-len(starts) // key_splits)
     for q0 in range(0, lq, block_q):
         qs = slice(q0, q0 + block_q)
         qb = q[:, :, qs].float()
         rows = qb.shape[2]
-        m = torch.full((b, h, rows, 1), NEG_INF, **f32)
-        l = torch.zeros((b, h, rows, 1), **f32)
+        runs = []
+        for c in range(key_splits):
+            m = torch.full((b, h, rows, 1), NEG_INF, **f32)
+            l = torch.zeros((b, h, rows, 1), **f32)
+            acc = torch.zeros((b, h, rows, dh), **f32)
+            for k0 in starts[c * per:(c + 1) * per]:
+                ks = slice(k0, k0 + block_k)
+                s = torch.matmul(qb, k[:, :, ks].float().transpose(-1, -2)) \
+                    * scale
+                if bias is not None:
+                    s = s + bias[:, :, qs, ks]
+                m_new = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
+                p = torch.exp(s - m_new)
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.matmul(p.to(v.dtype).float(),
+                                                 v[:, :, ks].float())
+                m = m_new
+            runs.append((m, l, acc))
+        m = runs[0][0]
+        for run in runs[1:]:
+            m = torch.maximum(m, run[0])
+        l = torch.zeros_like(m)
         acc = torch.zeros((b, h, rows, dh), **f32)
-        for k0 in range(0, lk, block_k):
-            ks = slice(k0, k0 + block_k)
-            s = torch.matmul(qb, k[:, :, ks].float().transpose(-1, -2)) * scale
-            if bias is not None:
-                s = s + bias[:, :, qs, ks]
-            m_new = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
-            p = torch.exp(s - m_new)
-            alpha = torch.exp(m - m_new)
-            l = alpha * l + p.sum(dim=-1, keepdim=True)
-            acc = acc * alpha + torch.matmul(p.to(v.dtype).float(),
-                                             v[:, :, ks].float())
-            m = m_new
+        for m_c, l_c, acc_c in runs:
+            w = torch.exp(m_c - m)
+            l = l + l_c * w
+            acc = acc + acc_c * w
         empty = l == 0.0
         safe = torch.where(empty, torch.ones_like(l), l)
         out[:, :, qs] = (acc / safe).to(q.dtype)
@@ -182,8 +204,23 @@ def _bind(lib, stem, argtypes):
 @functools.cache
 def _fwd_library():
     # q, k, v, bias, 4 bias strides, shape, out, lse, stream
-    return _bind(_build.load("flash_attention_fwd"), "care_flash_fwd",
-                 [_PTR] * 4 + [_LL] * 4 + _SHAPE + [_PTR] * 3)
+    lib = _bind(_build.load("flash_attention_fwd"), "care_flash_fwd",
+                [_PTR] * 4 + [_LL] * 4 + _SHAPE + [_PTR] * 3)
+    lib.care_flash_fwd_key_splits.argtypes = _SHAPE + [_INT]
+    lib.care_flash_fwd_key_splits.restype = ctypes.c_int
+    return lib
+
+
+def fwd_key_splits(q, k) -> int:
+    """The number of blocks (a thread-block cluster) over which the forward
+    kernel splits each (batch, head)'s keys for these operands: 1 unless the
+    decode variant would leave the card part empty."""
+    b, h, lq, dh = q.shape
+    n = _fwd_library().care_flash_fwd_key_splits(
+        b, h, lq, k.shape[2], dh, int(q.dtype == torch.bfloat16))
+    if n < 0:
+        _raise_on(n, "flash attention forward", dh)
+    return n
 
 
 _BWD_HEAD = [_PTR] * 4 + [_LL] * 3 + [_PTR] * 3 + _SHAPE
@@ -236,6 +273,9 @@ def _check_operands(q, k, v, bias, query_extent: bool):
 def _raise_on(rc: int, what: str, dh: int):
     if rc == -1:
         raise ValueError(f"{what} kernel has no instance for head width {dh}")
+    if rc == -2:
+        raise RuntimeError(f"{what} kernel: a cluster of the blocks that "
+                           "split the keys cannot be resident on this card")
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
 

@@ -143,7 +143,35 @@ def _no_ring(fname):
              "    load(t + C::STAGES - 1);\n    tc::cp_async_wait(0);\n")]
 
 
+_FWD = "flash_attention_fwd.cu"
 VARIANTS.update({
+    "flash_attention_fwd": {
+        "base": [],
+        # the large-query variant's products
+        "no_mma": _NO_MMA,
+        "one_tf32": _ONE_TF32,
+        # both variants' next tiles waited for at once
+        "no_ring": _no_ring(_FWD) + [
+            (_FWD, "    load(i + STAGES - 1);\n",
+             "    load(i + STAGES - 1);\n    tc::cp_async_wait(0);\n")],
+        "no_split": [(_FWD,
+                      "      tc::split_in_place<BKV, DH, LD, NT>(Kt, lo, "
+                      "tid);\n      tc::split_in_place<BKV, DH, LD, NT>(Vt, "
+                      "lo + C::TILE, tid);\n", "")],
+        # the decode variant: no cluster split of the keys; a split up to
+        # four times wider; its products on the other engine (f32 on
+        # mma.sync, bf16 on the CUDA cores)
+        "no_cluster": [(_FWD, "constexpr int MAX_SPLITS = 8;",
+                        "constexpr int MAX_SPLITS = 1;")],
+        "more_splits": [(_FWD, "constexpr int SPLIT_BLOCKS_PER_SM = 2;",
+                         "constexpr int SPLIT_BLOCKS_PER_SM = 8;")],
+        "eight_warps": [(_FWD, "constexpr int DEC_WARPS = 4;",
+                         "constexpr int DEC_WARPS = 8;")],
+        "three_stages": [(_FWD, "  static constexpr int STAGES = 2;\n",
+                          "  static constexpr int STAGES = 3;\n")],
+        "decode_products_swapped": [(_FWD, "  return sizeof(T) == 2;\n",
+                                     "  return sizeof(T) == 4;\n")],
+    },
     "flash_attention_bwd_dq": {
         "base": [],
         "no_mma": _NO_MMA,
@@ -364,31 +392,38 @@ def _dw_call(lib, dtype, H, rows=1856, V=11000):
         dW.data_ptr(), db.data_ptr(), stream), [dW, db])
 
 
-# the square shape of chip_smoke.py's flash timing, hybrid bias
-FLASH_SHAPE = (4, 8, 1568, 1568)
+# the shapes of chip_smoke.py's flash timing, [B, H, Lq, Lk, Dh], hybrid
+# bias: the square shape (all three kernels), the decode step at batch 64
+# and at the ragged batch of 17 (K4a)
+SQUARE = (4, 8, 1568, 1568, 64)
+DECODE = (64, 8, 5, 1654, 64)
+DECODE_RAGGED = (17, 8, 5, 1654, 64)
 
 
 @functools.cache
-def _flash_operands(dtype, dh):
-    """q, k, v, do [B, H, L, dh], a [1, H, 1, Lk] bias with a -1e9 tail, the
-    forward's out and lse (the tree's K4a) and delta."""
-    b, h, lq, lk = FLASH_SHAPE
+def _flash_operands(dtype, shape):
+    """q, k, v, do [B, H, L, Dh], a [1, H, 1, Lk] bias with a -1e9 tail, and
+    the plain forward's lse and delta: the same operands for K4b and K4c
+    whichever tree's K4a is built, so that only a backward kernel's own
+    change shows in its outputs."""
+    b, h, lq, lk, dh = shape
     g = torch.Generator().manual_seed(41)
     q, k, v, do = (torch.randn((b, h, n, dh), generator=g).to("cuda", dtype)
                    for n in (lq, lk, lk, lq))
     bias = torch.randn((1, h, 1, lk), generator=g) * 0.5
     bias[..., -lk // 4:] = -1e9
     bias = bias.cuda()
-    out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+    out, lse = fa._flash_fwd_plain(q, k, v, bias)
     delta = (do.float() * out.float()).sum(-1)
     return q, k, v, do, bias, lse, delta
 
 
 def _flash_call(name):
-    """What makes the launcher of flash kernel ``name`` at FLASH_SHAPE."""
-    def build(lib, dtype, dh):
-        b, h, lq, lk = FLASH_SHAPE
-        q, k, v, do, bias, lse, delta = _flash_operands(dtype, dh)
+    """What makes the launcher of flash kernel ``name`` at a shape
+    [B, H, Lq, Lk, Dh]."""
+    def build(lib, dtype, shape):
+        b, h, lq, lk, dh = shape
+        q, k, v, do, bias, lse, delta = _flash_operands(dtype, shape)
         suffix = "f32" if dtype == torch.float32 else "bf16"
         stream = torch.cuda.current_stream().cuda_stream
         f32 = dict(device="cuda", dtype=torch.float32)
@@ -413,7 +448,7 @@ def _flash_call(name):
     return build
 
 
-# each kernel's cases: (label, dtype, H)
+# each kernel's cases: (label, dtype, H, or the flash kernels' shape)
 SHAPES = {
     "fused_head_topk": [("K1 [320, 512] x [11000, 512]", dtype, 512)
                         for dtype in (torch.float32, torch.bfloat16)],
@@ -427,7 +462,10 @@ SHAPES = {
 FLASH_IDS = {"flash_attention_fwd": "K4a", "flash_attention_bwd_dq": "K4b",
              "flash_attention_bwd_dkv": "K4c"}
 SHAPES.update({
-    name: [(f"{kid} {list(FLASH_SHAPE[:3]) + [64]}", dtype, 64)
+    name: [(f"{kid} {list(shape[:3])} x {shape[3]} keys, Dh {shape[4]}",
+            dtype, shape)
+           for shape in ((DECODE, DECODE_RAGGED, SQUARE)
+                         if name == "flash_attention_fwd" else (SQUARE,))
            for dtype in (torch.float32, torch.bfloat16)]
     for name, kid in FLASH_IDS.items()})
 CALLS = {"fused_head_topk": lambda lib, dtype, H: _head_call(lib, dtype),
@@ -441,6 +479,8 @@ def probe_sass(libs) -> None:
     function (template instance)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     for name in FLASH_IDS:
+        if (name, "base") not in libs:
+            continue
         sass = subprocess.run([cuobjdump, "-sass", libs[name, "base"]._name],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -458,11 +498,14 @@ def probe_sass(libs) -> None:
 
 
 def _short(mangled: str) -> str:
-    """<type, head width> of a mangled kernel<T, DH> instance name."""
-    found = re.search(r"kernelI(f|13__nv_bfloat16)Li(\d+)E", mangled)
+    """name<type, template integers> of a mangled kernel instance name."""
+    found = re.search(r"([a-z_]*kernel)I(f|13__nv_bfloat16)((?:Li\d+E)+)",
+                      mangled)
     if not found:
         return mangled
-    return f"<{'f32' if found[1] == 'f' else 'bf16'}, {found[2]}>"
+    ints = re.findall(r"Li(\d+)E", found[3])
+    return (f"{found[1]}<{'f32' if found[2] == 'f' else 'bf16'}, "
+            f"{', '.join(ints)}>")
 
 
 def probe_ablation(libs) -> None:
@@ -471,16 +514,21 @@ def probe_ablation(libs) -> None:
             continue
         for label, dtype, H in cases:
             for variant in VARIANTS[name]:
+                if (name, variant) not in libs:
+                    continue
                 ms = _time_ms(CALLS[name](libs[name, variant], dtype, H))
                 print(f"ablate {label} {str(dtype)[6:]} {variant}: "
                       f"{ms:.4f} ms")
 
 
-def probe_against(libs) -> None:
-    """Each vocab kernel built from another copy of the sources ("base")
-    and from this tree ("new"): outputs compared bit for bit, then times in
-    turns base, new, new, base, in one process on one card."""
+def probe_against(libs, names) -> None:
+    """Each kernel of ``names`` built from another copy of the sources
+    ("base") and from this tree ("new"): outputs compared bit for bit (else
+    the largest difference printed), then times in turns base, new, new,
+    base, in one process on one card."""
     for name, cases in SHAPES.items():
+        if name not in names:
+            continue
         for label, dtype, H in cases:
             runs = {tag: CALLS[name](libs[name, tag], dtype, H)
                     for tag in ("base", "new")}
@@ -552,7 +600,11 @@ def main(argv=None) -> None:
                         help="instead of the mma, sass and ablate probes, "
                              "compare the vocab and flash kernels with those "
                              "built from this copy of csrc/")
+    parser.add_argument("--kernels", metavar="NAMES",
+                        help="comma-separated kernel names (the csrc/ "
+                             "stems): probe only these")
     args = parser.parse_args(argv)
+    wanted = set(args.kernels.split(",")) if args.kernels else set(SHAPES)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_probe: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -562,7 +614,7 @@ def main(argv=None) -> None:
     os.makedirs(PROBE_DIR, exist_ok=True)
     jobs = {}
     if args.against:
-        for name in SHAPES:
+        for name in wanted:
             jobs[name, "base"] = _copy_sources(args.against, "base", name)
             jobs[name, "new"] = _copy_sources(_build.CSRC_DIR, "new", name)
     else:
@@ -571,18 +623,28 @@ def main(argv=None) -> None:
             f.write(_MMA_SOURCE)
         jobs["mma", "base"] = (mma_src,
                                os.path.join(PROBE_DIR, "libmma_rate.so"))
-        for name, variants in VARIANTS.items():
-            for variant in variants:
+        for name in wanted:
+            for variant in VARIANTS[name]:
                 jobs[name, variant] = _variant_source(name, variant)
-        jobs["flash_attention_fwd", "base"] = _copy_sources(
-            _build.CSRC_DIR, "base", "flash_attention_fwd")
+
+    def build(key):
+        # a variant that does not build is reported and left out; the base
+        # builds and the --against builds must build
+        try:
+            return _compile(*jobs[key])
+        except RuntimeError as e:
+            if args.against or key[1] == "base":
+                raise
+            print(f"build {key[0]}.{key[1]} failed, left out: "
+                  + str(e)[-2000:])
+            return None
+
     with concurrent.futures.ThreadPoolExecutor(len(jobs)) as pool:
-        built = dict(zip(jobs, pool.map(lambda j: _compile(*j),
-                                        jobs.values())))
+        built = dict(zip(jobs, pool.map(build, jobs)))
     libs = {key: _bind(key[0], ctypes.CDLL(path))
-            for key, path in built.items()}
+            for key, path in built.items() if path}
     if args.against:
-        probe_against(libs)
+        probe_against(libs, wanted)
         return
     probe_mma(libs["mma", "base"])
     probe_sass(libs)

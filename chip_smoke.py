@@ -59,6 +59,7 @@ last line is the device JSON object.
 """
 
 import concurrent.futures
+import functools
 import json
 import re
 import subprocess
@@ -122,7 +123,7 @@ DEVICE_KERNELS = {
     "vocab_argmax_lse": ("xent_stats_tc_kernel", "xent_stats_reduce_kernel"),
     "fused_xent_bwd_dh": ("xent_dh_tc_kernel",),
     "fused_xent_bwd_dw": ("xent_dw_tc_kernel",),
-    "flash_attention_fwd": ("flash_fwd_kernel",),
+    "flash_attention_fwd": ("flash_fwd_kernel", "flash_fwd_decode_kernel"),
     "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
 }
@@ -393,6 +394,12 @@ def _check_xent(opt) -> dict:
 # backward kernels
 DECODE_SHAPE = (BATCH, 8, 5, 1654, 64)
 SQUARE_SHAPE = (4, 8, 1568, 1568, 64)
+# the decode step of the ragged batch of 17: 136 (batch, head) pairs, about
+# one per SM, which K4a splits over a cluster of blocks
+RAGGED_DECODE_SHAPE = (RAGGED, 8, 5, 1654, 64)
+FLASH_FWD_SHAPES = (("decode", DECODE_SHAPE),
+                    ("decode17", RAGGED_DECODE_SHAPE),
+                    ("square", SQUARE_SHAPE))
 
 
 def _flash_inputs(shape, dtype, bias_kind, seed):
@@ -512,6 +519,21 @@ def _check_flash() -> dict:
     _check_flash_case("bf16", (2, 4, 70, 333, 64), bf16, "hybrid", 19)
     _check_flash_case("bf16 decode", (RAGGED, 8, 5, 1654, 64), bf16, "hybrid",
                       20)
+    # the ragged decode batch: each (batch, head)'s keys split over a
+    # cluster of blocks, merged in rank order through distributed shared
+    # memory; the split repeats bit for bit
+    for dh in (32, 64, 128):
+        for dtype in (f32, bf16):
+            shape = (RAGGED, 8, 5, 1654, dh)
+            (q, k, _, _), _ = _flash_inputs(shape, dtype, "hybrid", 22)
+            splits = fa.fwd_key_splits(q, k)
+            assert splits > 1, (shape, splits)
+            _check_flash_case(f"decode split over {splits} blocks", shape,
+                              dtype, "hybrid", 22)
+            (q, k, v, _), bias = _flash_inputs(shape, dtype, "hybrid", 22)
+            first = fa._flash_fwd_cuda(q, k, v, bias)
+            second = fa._flash_fwd_cuda(q, k, v, bias)
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
     # two calls on the same operands repeat bit for bit (no atomics)
     for dtype in (f32, bf16):
         (q, k, v, do), bias = _flash_inputs((2, 4, 70, 333, 64), dtype,
@@ -531,7 +553,7 @@ def _check_flash() -> dict:
         else:
             raise AssertionError("the wrapper took what the kernel does not")
     print("check flash attention: forward and backward repeat bit for bit "
-          "in f32 and bf16")
+          "in f32 and bf16, the forward's cluster split too")
     return {"flash_attention_fwd": err_fwd,
             "flash_attention_bwd_dq": errs["dq"],
             "flash_attention_bwd_dkv": max(errs["dk"], errs["dv"],
@@ -1022,34 +1044,89 @@ def _entry_bf16(entry, ms, plain_ms, unfused_ms, flops, n_bytes):
           f"{bound_ms:.4f} ms ({bound_by}: {flops} flop, {n_bytes} bytes)")
 
 
-def _time_flash(errors, counts) -> list:
-    """K4a at the decode shape (its entry) and at the square shape, K4b and
-    K4c at the square shape; beside each its plain version, the port's dense
-    attention (matmul, softmax, matmul) and
-    ``F.scaled_dot_product_attention``, which the port never calls."""
+def _flash_fwd_work(shape, dtype, bias):
+    """(flops, bytes) of one K4a call: q, k, v and the bias read once, out
+    and lse written once."""
+    b, h, lq, lk, dh = shape
+    size = 2 if dtype == torch.bfloat16 else 4
+    return (4 * b * h * lq * lk * dh,
+            size * (2 * b * h * lq * dh + 2 * b * h * lk * dh)
+            + 4 * bias.numel() + 4 * b * h * lq)
+
+
+def _time_flash_forward() -> dict:
+    """K4a in f32 and bf16 at the decode shape (batch 64), the ragged decode
+    batch of 17 and the square shape, hybrid bias: the kernel (its library
+    called with the outputs made once), the wrapper, its plain version, the
+    port's dense attention (matmul, softmax, matmul) and
+    ``F.scaled_dot_product_attention`` in the same dtype (the mask handed
+    over in that dtype; the port never calls it), beside the bound. Returns
+    {(label, dtype): readings}."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    entries, fwd = [], {}
-    for label, shape in (("decode", DECODE_SHAPE), ("square", SQUARE_SHAPE)):
+    readings = {}
+    for label, shape in FLASH_FWD_SHAPES:
         b, h, lq, lk, dh = shape
-        (q, k, v, _), bias = _flash_inputs(shape, torch.float32, "hybrid", 41)
-        mask = bias.expand(b, h, lq, lk)
-        flops = 4 * b * h * lq * lk * dh
-        qo, kv, rows = 4 * q.numel(), 4 * k.numel(), 4 * b * h * lq
-        what = f"q {list(q.shape)} x {lk} keys, bias {list(bias.shape)}"
-        fwd[label] = _entry(
-            "flash_attention_fwd", errors, counts,
-            _time_ms(lambda: fa._flash_fwd_cuda(q, k, v, bias)),
-            _time_ms(lambda: fa._flash_fwd_plain(q, k, v, bias), 10, 2),
-            _time_ms(lambda: dot_product_attention(q, k, v, bias=bias,
-                                                   return_probs=False)),
-            flops, 2 * qo + 2 * kv + 4 * bias.numel() + rows, what,
-            "the port's dense attention",
-            _time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
-            "F.scaled_dot_product_attention")
-    entry = fwd["decode"]
-    entry.update({"square_" + key: fwd["square"][key] for key in
-                  ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                   "unfused_torch_ms")})
+        for dtype in (torch.float32, torch.bfloat16):
+            (q, k, v, _), bias = _flash_inputs(shape, dtype, "hybrid", 41)
+            mask = bias.expand(b, h, lq, lk).to(dtype)
+            flops, n_bytes = _flash_fwd_work(shape, dtype, bias)
+            bound_ms, bound_by = _bound(flops, n_bytes, dtype)
+            # the kernel alone, through its library with the outputs made
+            # once, as the backward kernels are timed; the wrapper (operand
+            # checks, allocations, the ctypes call) beside it
+            out, lse = fa._flash_fwd_cuda(q, k, v, bias)
+            call = functools.partial(
+                getattr(fa._fwd_library(), "care_flash_fwd_" + (
+                    "f32" if dtype == torch.float32 else "bf16")),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                *bias.expand(b, h, lq, lk).stride(), b, h, lq, lk, dh,
+                out.data_ptr(), lse.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            r = dict(
+                ms=_time_ms(call),
+                wrapper_ms=_time_ms(lambda: fa._flash_fwd_cuda(q, k, v,
+                                                               bias)),
+                plain_ms=_time_ms(lambda: fa._flash_fwd_plain(q, k, v, bias),
+                                  5, 1),
+                unfused_torch_ms=_time_ms(lambda: dot_product_attention(
+                    q, k, v, bias=bias, return_probs=False)),
+                library_ms=_time_ms(lambda: sdpa(q, k, v, attn_mask=mask)),
+                bound_ms=bound_ms, bound_by=bound_by, flops=flops,
+                n_bytes=n_bytes, key_splits=fa.fwd_key_splits(q, k),
+                what=f"q {list(q.shape)} x {lk} keys, bias {list(bias.shape)}")
+            readings[label, dtype] = r
+            want = fa._flash_fwd_cuda(q, k, v, bias)
+            assert torch.equal(out, want[0]) and torch.equal(lse, want[1])
+            print(f"time flash_attention_fwd {label} {str(dtype)[6:]} at "
+                  f"{r['what']}: kernel {r['ms']:.4f} ms "
+                  f"({100 * bound_ms / r['ms']:.1f}% of the bound; key "
+                  f"splits {r['key_splits']}), through the wrapper "
+                  f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                  f"the port's dense attention {r['unfused_torch_ms']:.4f} "
+                  f"ms, F.scaled_dot_product_attention "
+                  f"{r['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}: {flops} flop, {n_bytes} bytes)")
+    return readings
+
+
+def _time_flash(errors, counts) -> list:
+    """K4a at the decode shape (its entry; the ragged decode batch, the
+    square shape and bf16 beside it), K4b and K4c at the square shape;
+    beside each its plain version, the port's dense attention and
+    ``F.scaled_dot_product_attention``, which the port never calls."""
+    entries = []
+    fwd = _time_flash_forward()
+    main = fwd["decode", torch.float32]
+    entry = _entry("flash_attention_fwd", errors, counts, main["ms"],
+                   main["plain_ms"], main["unfused_torch_ms"], main["flops"],
+                   main["n_bytes"], main["what"], "the port's dense attention",
+                   main["library_ms"], "F.scaled_dot_product_attention")
+    for (label, dtype), r in fwd.items():
+        prefix = ("" if label == "decode" else label + "_") + (
+            "" if dtype == torch.float32 else "bf16_")
+        entry.update({prefix + key: r[key] for key in
+                      ("ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                       "library_ms", "unfused_torch_ms", "key_splits")})
     entries.append(entry)
 
     # the backward kernels at the square shape, in f32 and in bf16

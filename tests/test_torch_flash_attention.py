@@ -112,6 +112,57 @@ def test_flash_all_masked_row_matches_dense_softmax():
     np.testing.assert_allclose(out, np.asarray(want), **FWD)
 
 
+def _split_case(name):
+    """q, k, v, bias and the plain forward's key block of one key-split
+    case: head widths 32 and 128 with a -1e9 tail, where 4 and 8 splits
+    leave runs of key blocks wholly past Lk; and the all-masked instance."""
+    rs = np.random.RandomState(11)
+    if name == "all masked":
+        q, k, v = _qkv(rs, 2, 2, 6, 40, 8)
+        bias = np.zeros((2, 1, 1, 40), np.float32)
+        bias[0] = -1e9
+        bias[1, ..., 30:] = -1e9
+        return q, k, v, bias, 16
+    dh, lq, lk = (32, 5, 40) if name == "Dh 32" else (128, 7, 70)
+    q, k, v = _qkv(rs, 2, 2, lq, lk, dh)
+    bias = rs.randn(1, 2, 1, lk).astype(np.float32) * 0.5
+    bias[..., -lk // 4:] = -1e9
+    return q, k, v, bias, 16
+
+
+@pytest.mark.parametrize("name", ["Dh 32", "Dh 128", "all masked"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_flash_key_splits_match_jax(name, splits):
+    """``_flash_fwd_plain(..., key_splits=s)``, the forward kernel's split of
+    the keys over a cluster of blocks and its merge in order, against the
+    JAX package's forward and the dense attention; its lse against the
+    unsplit one. A run of key blocks wholly past Lk weighs nothing, and the
+    all-masked instance keeps the dense softmax's near-uniform weights."""
+    import jax.numpy as jnp
+    q, k, v, bias, block_k = _split_case(name)
+    args = [torch.as_tensor(x) for x in (q, k, v, bias)]
+    out, lse = fa._flash_fwd_plain(*args, block_k=block_k, key_splits=splits)
+    _, want_lse = fa._flash_fwd_plain(*args, block_k=block_k)
+    # runs of ceil(blocks / splits) key blocks: from 4 splits on, the last
+    # runs hold no key at all
+    n_blocks = -(-k.shape[2] // block_k)
+    per = -(-n_blocks // splits)
+    assert (splits - -(-n_blocks // per) > 0) == (splits >= 4)
+    want = jax_flash_attention(*map(jnp.asarray, (q, k, v)),
+                               bias=jnp.asarray(bias), interpret=True,
+                               block_k=8)
+    dense, _ = dot_product_attention(*args, return_probs=False)
+    out = out.numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, np.asarray(want), **FWD)
+    np.testing.assert_allclose(out, dense.numpy(), **FWD)
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5,
+                               atol=2e-5)
+    if name == "all masked":
+        np.testing.assert_allclose(out[0], np.broadcast_to(
+            v[0].mean(axis=1, keepdims=True), out[0].shape), **FWD)
+
+
 def _port_grads(q, k, v, bias, weight, wrt, **kw):
     leaves = [torch.as_tensor(x).requires_grad_(True)
               for x in (q, k, v) + (() if bias is None else (bias,))]
@@ -257,17 +308,22 @@ def test_flash_rejects_what_it_does_not_take():
 def test_flash_kernels_match_plain_on_the_card():
     """K4a, K4b and K4c against their plain versions on a CUDA card: the
     decode shape in small, ragged tiles, bf16 at head widths 64 and 128,
-    and gradients through ``backward="kernel"`` with every launch counted;
-    a second backward call on the same operands repeats bit for bit."""
+    the ragged decode batch of 17 whose keys K4a splits over a cluster of
+    blocks (f32 and bf16, head widths 32, 64, 128), and gradients through
+    ``backward="kernel"`` with every launch counted; a second call of each
+    kernel on the same operands repeats bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
-    for (b, h, lq, lk, dh), dtype in [((3, 2, 5, 1654, 64), torch.float32),
-                                      ((2, 2, 37, 1568, 32), torch.float32),
-                                      ((2, 2, 100, 200, 128), torch.float32),
-                                      ((2, 2, 70, 130, 64), torch.bfloat16),
-                                      ((2, 2, 70, 130, 128), torch.bfloat16)]:
+    cases = [((3, 2, 5, 1654, 64), torch.float32),
+             ((2, 2, 37, 1568, 32), torch.float32),
+             ((2, 2, 100, 200, 128), torch.float32),
+             ((2, 2, 70, 130, 64), torch.bfloat16),
+             ((2, 2, 70, 130, 128), torch.bfloat16)]
+    cases += [((17, 8, 5, 1654, dh), dtype) for dh in (32, 64, 128)
+              for dtype in (torch.float32, torch.bfloat16)]
+    for (b, h, lq, lk, dh), dtype in cases:
         q, k, v, do = (torch.randn((b, h, n, dh), generator=g).to(
             "cuda", dtype) for n in (lq, lk, lk, lq))
         bias = (torch.randn((1, h, 1, lk), generator=g) * 0.5).cuda()
@@ -275,6 +331,10 @@ def test_flash_kernels_match_plain_on_the_card():
         counts = (fa.fwd_launches, fa.dq_launches, fa.dkv_launches)
         out, lse = fa._flash_fwd_cuda(q, k, v, bias)
         want, want_lse = fa._flash_fwd_plain(q, k, v, bias)
+        if b == 17:
+            assert fa.fwd_key_splits(q, k) > 1
+        again = fa._flash_fwd_cuda(q, k, v, bias)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         tol = (dict(atol=2e-5, rtol=1e-4) if dtype == torch.float32
                else dict(atol=2e-2, rtol=2e-2))
         torch.testing.assert_close(out.float(), want.float(), **tol)
@@ -286,7 +346,7 @@ def test_flash_kernels_match_plain_on_the_card():
                 else dict(atol=5e-2, rtol=5e-2))
         for a, r in zip(got, ref):
             torch.testing.assert_close(a.float(), r.float(), **gtol)
-        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == tuple(
-            c + 1 for c in counts)
+        assert (fa.fwd_launches, fa.dq_launches, fa.dkv_launches) == (
+            counts[0] + 2, counts[1] + 1, counts[2] + 1)
         again = fa._flash_bwd_cuda(q, k, v, bias, want_lse, do, delta)
         assert all(torch.equal(a, r) for a, r in zip(got, again))

@@ -1,6 +1,8 @@
-"""The working-dtype decision of the flash backward kernels, on the CPU.
+"""The working-dtype decision of the flash kernels, on the CPU.
 
-``care_tpu_torch/csrc/flash_attention_bwd_dq.cu`` (dq) and
+``care_tpu_torch/csrc/flash_attention_fwd.cu`` (the forward's large-query
+variant: scores, then p v; at the end of this file),
+``flash_attention_bwd_dq.cu`` (dq) and
 ``flash_attention_bwd_dkv.cu`` (dk, dv, dbias) take their f32 products
 through the tensor cores as three TF32 products (3xTF32, as the vocab
 kernels: ``tests/test_torch_tf32_split.py``). This file emulates, with
@@ -163,3 +165,85 @@ def test_one_tf32_product_misses(grads, name):
     three."""
     want, got = grads
     assert spent(got["1xtf32"][name], want[name]) > 1.0
+
+
+# ---------------------------------------------------------------------------
+# the forward (flash_attention_fwd.cu), large-query variant
+# ---------------------------------------------------------------------------
+#
+# Scores s = q k^T from zero over the head width per 32-key tile, one mma
+# step of depth 8 at a time, its TF32 terms in order; x = s * scale + bias;
+# the online softmax per tile (maximum from -1e9, alpha = exp(m - m_new),
+# the sum of the unrounded weights); the output accumulators rescaled by
+# alpha and each tile's p v added from zero with an f32 add. chip_smoke.py
+# holds the kernel at rtol 1e-4 + atol 2e-5 for out and 1e-5 + 2e-5 for lse.
+
+FWD_TOL = {"out": dict(rtol=1e-4, atol=2e-5), "lse": dict(rtol=1e-5, atol=2e-5)}
+
+
+def forward_reference(q, k, v, bias):
+    """out and lse in f64."""
+    q, k, v, bias = (x.astype(np.float64) for x in (q, k, v, bias))
+    s = q @ np.swapaxes(k, -1, -2) * DH ** -0.5 + bias[:, :, None, :]
+    m = s.max(-1, keepdims=True)
+    lse = m + np.log(np.exp(s - m).sum(-1, keepdims=True))
+    return {"out": np.exp(s - lse) @ v, "lse": lse[..., 0]}
+
+
+def forward_emulated(q, k, v, bias, terms):
+    """The kernel's out and lse in f32 with the given TF32 terms per mma
+    step."""
+    scale = np.float32(DH ** -0.5)
+    out = np.zeros(q.shape, np.float32)
+    lse = np.zeros(q.shape[:3], np.float32)
+    for b in range(B):
+        for h in range(H):
+            m = np.full((LQ, 1), -1e9, np.float32)
+            l = np.zeros((LQ, 1), np.float32)
+            acc = np.zeros((LQ, DH), np.float32)
+            for k0 in range(0, LK, TILE):
+                kt, vt = k[b, h, k0:k0 + TILE], v[b, h, k0:k0 + TILE]
+                x = (emulated_product(q[b, h], kt, terms) * scale
+                     + bias[b, h, None, k0:k0 + TILE])
+                m_new = np.maximum(m, x.max(-1, keepdims=True))
+                alpha = np.exp(m - m_new)
+                p = np.exp(x - m_new)
+                l = alpha * l + p.sum(-1, keepdims=True, dtype=np.float32)
+                acc = acc * alpha + emulated_product(
+                    p, np.ascontiguousarray(vt.T), terms)
+                m = m_new
+            out[b, h] = acc / l
+            lse[b, h] = (m + np.log(l))[:, 0]
+    return {"out": out, "lse": lse}
+
+
+def forward_spent(got, want, name):
+    tol = FWD_TOL[name]
+    return float((np.abs(got - want)
+                  / (tol["atol"] + tol["rtol"] * np.abs(want))).max())
+
+
+@pytest.fixture(scope="module")
+def forward():
+    q, k, v, _, bias = case()
+    want = forward_reference(q, k, v, bias)
+    got = {arith: forward_emulated(q, k, v, bias, terms)
+           for arith, terms in ARITHMETIC.items()}
+    return want, got
+
+
+@pytest.mark.parametrize("name", ["out", "lse"])
+def test_forward_three_tf32_products_meet_the_tolerance(forward, name):
+    want, got = forward
+    assert np.all(np.isfinite(got["3xtf32"][name]))
+    assert forward_spent(got["3xtf32"][name], want[name], name) <= 0.05
+
+
+def test_forward_one_tf32_product_misses(forward):
+    """One TF32 product (hi*hi alone) in both products of the forward: at
+    this shape it misses the output's tolerance by 10.8x and the lse's by
+    2.5x, where three products spend under 1% of them: the kernel takes
+    three."""
+    want, got = forward
+    for name in ("out", "lse"):
+        assert forward_spent(got["1xtf32"][name], want[name], name) > 1.0
