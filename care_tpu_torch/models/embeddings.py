@@ -9,6 +9,7 @@ decode step.
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from care_tpu_torch.models.common import (Dropout, unsupported,
                                           xavier_param)
@@ -91,7 +92,7 @@ class NaiveEmbeddings(nn.Module):
         self.dropout = Dropout(hidden_dropout_prob if has_dropout else 0.0)
 
     def forward(self, input_ids):
-        embs = self.word_embeddings[input_ids]
+        embs = F.embedding(input_ids, self.word_embeddings)
         embs = embs + self.position_embeddings[None, :embs.shape[1]]
         return self.dropout(self.LayerNorm(embs))
 
@@ -129,7 +130,7 @@ class Embeddings(nn.Module):
 
     def forward(self, input_ids, semantic_hidden_states=None,
                 position_ids=None):
-        embeddings = self.word_embeddings[input_ids]
+        embeddings = F.embedding(input_ids, self.word_embeddings)
         if self.position_embeddings is not None:
             if position_ids is None:
                 position_ids = torch.arange(input_ids.shape[-1],

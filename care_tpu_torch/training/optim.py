@@ -29,7 +29,6 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.weights import jax_leaf_key
 
 
@@ -67,10 +66,45 @@ def make_lr_schedule(opt: dict, steps_per_epoch: int,
                 return lr * step / warmup
             return lr * (1.0 - min(step - warmup, down) / down)
         return sched
-    if kind == "plateau":
-        # needs the validation scores of every epoch
-        raise unsupported("lr_scheduler_type", kind)
+    # 'plateau' is handled by the trainer scaling the LR after validation
+    # (PlateauController); before that, and for any other kind, a constant
     return lambda step: lr
+
+
+class PlateauController:
+    """Host-side ReduceLROnPlateau (reference ``Wrapper.py:362-376``):
+    multiply the learning rate by ``factor`` after ``patience`` epochs
+    without improvement of the monitored metric."""
+
+    def __init__(self, opt: dict):
+        self.mode = opt.get("lr_monitor_mode", "max")
+        self.metric = opt.get("lr_monitor_metric", "CIDEr")
+        self.patience = opt.get("lr_monitor_patience", 1)
+        self.factor = opt.get("lr_decay", 0.9)
+        self.min_lr = opt.get("min_lr", 1e-6)
+        self.best = None
+        self.bad_epochs = 0
+        self.scale = 1.0
+
+    def update(self, scores: dict) -> float:
+        """Feed this epoch's scores; returns the current LR scale."""
+        v = scores.get(self.metric)
+        if v is None:
+            return self.scale
+        better = (self.best is None
+                  or (v > self.best if self.mode == "max" else v < self.best))
+        if better:
+            self.best = v
+            self.bad_epochs = 0
+        else:
+            self.bad_epochs += 1
+            if self.bad_epochs > self.patience:
+                self.scale *= self.factor
+                self.bad_epochs = 0
+        return self.scale
+
+    def current_lr(self, base_lr: float) -> float:
+        return max(base_lr * self.scale, self.min_lr)
 
 
 def param_paths(model: nn.Module) -> Dict[str, str]:
@@ -189,6 +223,19 @@ class ChainedAdam:
                 self.adam.param_groups[g]["lr"] = lr
         self.adam.step()
         self.count += 1
+
+    def set_constant_lr(self, lr: float) -> None:
+        """Every chain at the constant ``lr`` from now on; the moments and
+        the count are kept (the plateau rule's rebuild)."""
+        for chain in self.chains:
+            chain["schedule"] = lambda step: lr
+
+    def state_dict(self) -> dict:
+        return {"adam": self.adam.state_dict(), "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.adam.load_state_dict(state["adam"])
+        self.count = int(state["count"])
 
     def learning_rates(self) -> List[float]:
         """Each chain's LR at the current count."""

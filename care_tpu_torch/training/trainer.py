@@ -1,42 +1,60 @@
-"""Training runtime: the fit loop of the port.
+"""Training runtime: the fit loop, validation, test and resume of the port.
 
 Port of ``care_tpu/training/trainer.py`` (reference ``train.py:30-145`` and
-``models/Wrapper.py``) for what training needs before validation exists:
-the train step (forward in training mode, multi-task loss, backward, the
-Adam recipe), the epoch loop with the epoch-indexed ``training_scales``
-re-weighting and the CARE dual-optimizer switch at ``lowlr_start_epoch``,
-the scheduled-sampling ramp, and the per-epoch ``history``.
+``models/Wrapper.py``): the train step (forward in training mode, multi-task
+loss, backward, the Adam recipe), the epoch loop with the epoch-indexed
+``training_scales`` re-weighting, the CARE dual-optimizer switch at
+``lowlr_start_epoch`` and the scheduled-sampling ramp; per-epoch caption
+generation and COCO scoring on the validation set, CIDEr-monitored top-k
+checkpoints, the plateau LR rule, the best-checkpoint reload and the test
+pass with its CSV and caption-quality analysis; the train state saved every
+epoch under ``resume``, so an interrupted run continues where it stopped.
 
 With ``fused_xent`` the step skips the model's vocab projection and the
 language loss takes its statistics from (hidden states, head weight)
 through ``ops/fused_xent.py``, whose forward and backward are hand-written
 CUDA kernels on the card: the ``[B, L, V]`` logits and their gradient never
 exist. The eligibility rule and the ``auto`` threshold are the JAX
-package's, term by term.
+package's, term by term. Validation and test decode through the
+translator's beam search, whose vocab expansion is the fused head + top-k
+kernel on the card.
 
 Per-step scalars stay on the device during an epoch and are fetched in one
-transfer at its end; nothing in the step loop waits for the device.
+transfer at its end; nothing in the step loop waits for the device. The
+loader's batches are prepared on a background thread (``prefetch``) and
+copied to the device on the thread that runs the step.
 
-Not ported yet, each rejected with ``NotImplementedError``: validation and
-test loaders (caption generation + COCO scoring), checkpoints and
-``resume``, a ``mesh``, a ``log_dir`` (TensorBoard), ``lr_scheduler_type:
-plateau``, a ``fused_xent_backend`` other than ``auto``, ``profile_dir``,
-``backbone_weights``, teachers. The device
-feature bank is simply not built: batches carry their features.
+Not ported yet, each rejected with ``NotImplementedError``: a ``mesh``, a
+``fused_xent_backend`` other than ``auto``, ``backbone_weights``, teachers.
+The device feature bank is not built, and validation decodes batch by batch
+(the JAX package's path for ``eval_fused_k <= 1``) whatever
+``eval_fused_k`` says.
 """
 
+import json
 import math
+import os
 import time
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from care_tpu_torch.data.loader import prefetch
+from care_tpu_torch.decoding import get_translator
+from care_tpu_torch.metrics import COCOScorer
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.models.common import set_dropout_generator, unsupported
+from care_tpu_torch.models.weights import params_from_jax, params_to_jax
 from care_tpu_torch.training import optim as optim_lib
+from care_tpu_torch.training.checkpoints import (CheckpointManager,
+                                                 TrainStateCheckpointer,
+                                                 load_checkpoint)
 from care_tpu_torch.training.losses import Criterion
 from care_tpu_torch.utils.device import resolve_device
+from care_tpu_torch.utils.logger import (MetricTracker,
+                                         analyze_length_novel_unique,
+                                         save_dict_to_csv, to_sentence)
 
 ARRAY_BATCH_KEYS_SKIP = ("video_ids", "caption_ids", "frame_ids")
 
@@ -71,43 +89,77 @@ def schedule_sampling_prob(opt: dict, epoch: int) -> float:
 
 
 def _check_opt(opt: dict) -> None:
-    for key in ("resume", "profile_dir", "backbone_weights", "teacher_path",
+    for key in ("backbone_weights", "teacher_path",
                 "with_teacher_during_training"):
         if opt.get(key):
             raise unsupported(key, opt[key])
-    if opt.get("lr_scheduler_type") == "plateau":
-        raise unsupported("lr_scheduler_type", "plateau")
     # the JAX package's "xla" forces its scan form and "pallas" its kernel;
     # the port has one rule per device (the kernels on a CUDA tensor)
     if opt.get("fused_xent_backend", "auto") != "auto":
         raise unsupported("fused_xent_backend", opt["fused_xent_backend"])
 
 
+def _rng_state(rs: np.random.RandomState) -> dict:
+    key, state, pos, has_gauss, cached = rs.get_state()
+    return {"key": key, "state": torch.from_numpy(state.astype(np.int64)),
+            "pos": int(pos), "has_gauss": int(has_gauss),
+            "cached": float(cached)}
+
+
+def _set_rng_state(rs: np.random.RandomState, st: dict) -> None:
+    rs.set_state((st["key"], st["state"].numpy().astype(np.uint32),
+                  st["pos"], st["has_gauss"], st["cached"]))
+
+
 class Trainer:
-    """``Trainer(opt, train_loader).fit(epochs)``. ``train_loader`` is any
-    object with ``__iter__``, ``__len__`` and ``set_epoch``, yielding dicts
-    of numpy arrays (``feats`` a list per modality, ``input_ids``,
-    ``labels``, ``labels_attr``). ``device`` None means the CUDA card
-    (raises without one); the CPU only when asked for by name."""
+    """``Trainer(opt, train_loader, val_loader, test_loader, references,
+    vocab, log_dir).fit(epochs)``. A loader is any object with
+    ``__iter__``, ``__len__`` and (for training) ``set_epoch``, yielding
+    dicts of numpy arrays (``feats`` a list per modality, ``input_ids``,
+    ``labels``, ``labels_attr``; validation and test batches also
+    ``video_ids`` and, from a padding loader, ``batch_mask``).
+    ``device`` None means the CUDA card (raises without one); the CPU only
+    when asked for by name."""
 
     def __init__(self, opt: dict, train_loader=None, val_loader=None,
                  test_loader=None, references=None, vocab=None,
                  log_dir: Optional[str] = None, mesh=None, device=None):
-        for name, value in (("val_loader", val_loader),
-                            ("test_loader", test_loader), ("mesh", mesh),
-                            ("log_dir", log_dir)):
-            if value is not None:
-                raise unsupported(name)
+        if mesh is not None:
+            raise unsupported("mesh")
         _check_opt(opt)
         self.opt = opt
         self.device = resolve_device(device)
         self.criterion = Criterion(opt, override_opt={"calculate_mAP": False})
+        self.eval_criterion = Criterion(opt, skip_crit_list=["lang"],
+                                        override_opt={"calculate_mAP": True},
+                                        with_metrics=True)
         self.train_loader = train_loader
+        self.val_loader = val_loader
+        self.test_loader = test_loader
         self.references = references
         self.vocab = vocab
 
+        self.ckpt_manager = CheckpointManager(
+            opt.get("checkpoint_path", "./exps/run"),
+            monitor_metric=opt.get("monitor_metric", "CIDEr"),
+            monitor_mode=opt.get("monitor_mode", "max"),
+            save_topk=opt.get("save_topk_models", 1),
+            start_saving_epoch=opt.get("start_saving_epoch", 0))
+
+        self.tb = None
+        if log_dir:
+            try:
+                from tensorboardX import SummaryWriter
+            except ImportError:
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self.tb = SummaryWriter(log_dir)
+
         self.model = None
         self.tx = None
+        self._translator = None
+        self._ts_ckpt = None
+        self._plateau = None
         self.global_step = 0
         self.best_scores: Dict[str, float] = {}
         self.history: list = []   # per-epoch log dicts (loss, time, scores)
@@ -126,6 +178,17 @@ class Trainer:
         set_dropout_generator(self.model, self.dropout_generator)
         return self.model
 
+    @property
+    def translator(self):
+        if self._translator is None:
+            self._translator = get_translator(self.opt, self.device)
+        return self._translator
+
+    def variables(self) -> Dict[str, Any]:
+        """The model's parameters as the flax ``{"params": ...}`` tree, the
+        layout of the checkpoints."""
+        return {"params": params_to_jax(self.model)}
+
     def _build_tx(self, steps_per_epoch: int):
         opt = self.opt
         sched = optim_lib.make_lr_schedule(opt, steps_per_epoch)
@@ -135,6 +198,7 @@ class Trainer:
         self._is_multi_optimizer = (opt.get("wrapper") ==
                                     "MultipleOptimizerModel")
         self._switched = False
+        self._switch_offset = 0
 
     def _maybe_switch_optimizer(self, epoch: int):
         """CARE recipe: a fresh low-LR-on-(encoder, detector) Adam takes
@@ -212,6 +276,12 @@ class Trainer:
                    {k: float(v) for k, v in zip(lk, row[1:1 + len(lk)])},
                    {k: float(v) for k, v in zip(mk, row[1 + len(lk):])})
 
+    def _profiler(self):
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        return torch.profiler.profile(activities=activities)
+
     # ------------------------------------------------------------------
     def fit(self, epochs: Optional[int] = None):
         opt = self.opt
@@ -222,10 +292,15 @@ class Trainer:
             self.init_model()
         if self.tx is None:
             self._build_tx(max(len(self.train_loader), 1))
-        self.model.train()
 
         training_scales = opt.get("training_scales", {}) or {}
-        for epoch in range(epochs):
+        start_epoch = 0
+        if opt.get("resume"):
+            start_epoch = self._try_resume(training_scales)
+
+        profile_dir = opt.get("profile_dir", "")
+        for epoch in range(start_epoch, epochs):
+            self.model.train()
             self._maybe_switch_optimizer(epoch)
             if epoch in training_scales:
                 self.criterion.set_scales(training_scales[epoch])
@@ -238,10 +313,21 @@ class Trainer:
             # per-step stats stay ON DEVICE during the epoch and drain in
             # one stacked fetch at its end, so steps queue back to back
             step_stats = []
-            for batch in self.train_loader:
+            prof = None
+            for step_in_epoch, batch in enumerate(prefetch(
+                    self.train_loader, n=opt.get("prefetch_batches", 2))):
+                # a profiler trace over steps 5-10 of epoch 0
+                if profile_dir and epoch == 0 and step_in_epoch == 5:
+                    prof = self._profiler()
+                    prof.start()
+                if prof is not None and step_in_epoch == 10:
+                    self._stop_profiler(prof, profile_dir)
+                    prof = None
                 step_stats.append(self._train_step_fn(
                     device_batch(batch, self.device)))
                 self.global_step += 1
+            if prof is not None:
+                self._stop_profiler(prof, profile_dir)
 
             step_losses, loss_sums, metric_sums = [], {}, {}
             for lv, ld, md in self._drain_step_stats(step_stats):
@@ -264,8 +350,295 @@ class Trainer:
             if metric_sums.get("xent_count"):
                 log["Perplexity"] = math.exp(metric_sums["xent_sum"]
                                              / metric_sums["xent_count"])
+            if self.tb:
+                for k, v in log.items():
+                    self.tb.add_scalar(k, v, epoch)
+
+            # validation: generation + COCO scoring
+            scores = {}
+            if self.val_loader is not None and (
+                    (epoch + 1) % opt.get("check_val_every_n_epoch", 1) == 0):
+                scores = self.validate(epoch)
+
+            # host-side ReduceLROnPlateau (reference Wrapper.py:362-376):
+            # when the monitored metric stalls, every chain continues at a
+            # scaled constant LR with its Adam moments kept
+            if opt.get("lr_scheduler_type") == "plateau" and scores:
+                if self._plateau is None:
+                    self._plateau = optim_lib.PlateauController(opt)
+                prev = self._plateau.scale
+                self._plateau.update(scores)
+                if self._plateau.scale != prev:
+                    self.tx.set_constant_lr(
+                        self._plateau.current_lr(opt["learning_rate"]))
+
+            self.ckpt_manager.on_epoch_end(epoch, self.variables(), opt,
+                                           scores)
+            if opt.get("resume"):
+                self._save_train_state(epoch)
             self.history.append({"epoch": epoch, **log, "n_steps": n_steps,
-                                 "step_losses": step_losses, "scores": {}})
+                                 "step_losses": step_losses,
+                                 "scores": dict(scores)})
             print(f"- epoch {epoch}: loss={log['train_loss']:.4f} "
-                  f"({epoch_time:.1f}s)")
+                  f"{self._fmt_scores(scores)} ({epoch_time:.1f}s)")
         return self.best_scores
+
+    @staticmethod
+    def _stop_profiler(prof, profile_dir: str) -> None:
+        prof.stop()
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+
+    # ------------------------------------------------------------------
+    # mid-run resume (beyond the reference, which restarts from scratch)
+    # ------------------------------------------------------------------
+    def _train_state_ckpt(self) -> TrainStateCheckpointer:
+        if self._ts_ckpt is None:
+            state_dir = self.opt.get("train_state_dir") or os.path.join(
+                self.opt.get("checkpoint_path", "./exps/run"), "train_state")
+            self._ts_ckpt = TrainStateCheckpointer(state_dir)
+        return self._ts_ckpt
+
+    def _loader_rngs(self) -> Dict[str, np.random.RandomState]:
+        """The train dataset's sampling streams (frame ids, caption
+        subsets), so that a resumed epoch draws what the uninterrupted one
+        would."""
+        dataset = getattr(self.train_loader, "dataset", None)
+        return {attr: getattr(dataset, attr) for attr in ("rng", "random")
+                if isinstance(getattr(dataset, attr, None),
+                              np.random.RandomState)}
+
+    def _save_train_state(self, epoch: int):
+        meta = {"epoch": epoch, "global_step": self.global_step,
+                "switched": self._switched,
+                "switch_offset": self._switch_offset,
+                "ckpt_manager": self.ckpt_manager.state_dict()}
+        if self._plateau is not None:
+            meta["plateau"] = {"best": self._plateau.best,
+                               "bad_epochs": self._plateau.bad_epochs,
+                               "scale": self._plateau.scale}
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.tx.state_dict(),
+                 "generator": self.dropout_generator.get_state(),
+                 "loader_rngs": {k: _rng_state(r)
+                                 for k, r in self._loader_rngs().items()}}
+        self._train_state_ckpt().save(epoch, state, meta)
+
+    def _try_resume(self, training_scales) -> int:
+        """Restore the latest epoch's train state (if any); returns the
+        epoch to continue from."""
+        ts = self._train_state_ckpt()
+        latest = ts.latest_epoch()
+        if latest is None:
+            return 0
+        opt = self.opt
+        meta = ts.restore_meta(latest)
+        self.global_step = int(meta["global_step"])
+
+        # replay the optimizer phase so the optimizer's chains line up
+        for e in range(latest + 1):
+            if e in training_scales:
+                self.criterion.set_scales(training_scales[e])
+        if meta.get("switched"):
+            self._switch_offset = int(meta.get("switch_offset", 0))
+            self.tx = optim_lib.make_dual_adam(
+                opt, self.model, self.steps_per_epoch,
+                offset_steps=self._switch_offset)
+            self._switched = True
+        if meta.get("plateau"):
+            self._plateau = optim_lib.PlateauController(opt)
+            self._plateau.best = meta["plateau"]["best"]
+            self._plateau.bad_epochs = int(meta["plateau"]["bad_epochs"])
+            self._plateau.scale = float(meta["plateau"]["scale"])
+            if self._plateau.scale != 1.0:
+                self.tx.set_constant_lr(
+                    self._plateau.current_lr(opt["learning_rate"]))
+        self.ckpt_manager.load_state_dict(meta.get("ckpt_manager", {}))
+
+        state = ts.restore_state(latest)
+        self.model.load_state_dict(state["model"])
+        self.tx.load_state_dict(state["optimizer"])
+        self.dropout_generator.set_state(state["generator"])
+        rngs = self._loader_rngs()
+        for k, st in state["loader_rngs"].items():
+            _set_rng_state(rngs[k], st)
+        self._train_step_fn = None
+        print(f"- resumed train state from epoch {latest}")
+        return latest + 1
+
+    def _fmt_scores(self, scores):
+        keys = ["CIDEr", "Bleu_4", "METEOR", "ROUGE_L", "Sum"]
+        return " ".join(f"{k}={scores[k]:.4f}" for k in keys if k in scores)
+
+    # ------------------------------------------------------------------
+    # caption generation and scoring
+    # ------------------------------------------------------------------
+    def translate_step(self, batch) -> Dict[str, list]:
+        """Generate captions for a batch; returns dict[vid] -> preds."""
+        hyps, scores = self.translator.translate_batch(
+            self.model, device_batch(batch, self.device))
+        return self._collect_preds(batch, hyps, scores)
+
+    def _collect_preds(self, batch, hyps, scores) -> Dict[str, list]:
+        preds = {}
+        mask = batch.get("batch_mask")
+        for i, vid in enumerate(batch["video_ids"]):
+            if mask is not None and not bool(mask[i]):
+                continue  # padded duplicate row (pad_to_batch loaders)
+            entries = []
+            hyps_i = hyps[i] if isinstance(hyps[i][0], list) else [hyps[i]]
+            for k, hyp in enumerate(hyps_i):
+                caption = to_sentence(hyp, self.vocab)
+                score = scores[i][k] if isinstance(scores[i], list) \
+                    else scores[i]
+                entries.append({"image_id": vid, "caption": caption,
+                                "score": float(np.ravel(score)[0])})
+            preds[vid] = entries
+        return preds
+
+    def _sum_score(self, scores: dict) -> float:
+        candidate = [scores["Bleu_4"], scores["METEOR"], scores["ROUGE_L"],
+                     scores["CIDEr"]]
+        return sum(s for s, flag in zip(candidate, self.opt["metric_sum"])
+                   if flag)
+
+    @torch.no_grad()
+    def validate(self, epoch: int = 0, loader=None, references=None,
+                 log_prefix: str = "") -> Dict[str, float]:
+        """Caption the validation set with beam search (the model in eval
+        mode), score it with the COCO metrics, add the concept detector's
+        F1@k and mAP from the eval criterion, ``Sum`` by ``metric_sum``, and
+        keep the best ``Sum`` and ``CIDEr``."""
+        loader = loader or self.val_loader
+        references = references or self.references
+        was_training = self.model.training
+        self.model.eval()
+        run_concept_metrics = "attribute" in self.eval_criterion.crits
+        preds = {}
+        # per-batch metric scalars stay on the device until the pass ends
+        batch_metrics = []
+        # host batches in decode order; the device batch rides through
+        # translate_batches and is released per iteration
+        originals = []
+
+        def device_batches():
+            for b in loader:
+                originals.append(b)
+                yield device_batch(b, self.device)
+
+        try:
+            for db, (hyps, scores) in self.translator.translate_batches(
+                    self.model, device_batches()):
+                batch = originals.pop(0)
+                preds.update(self._collect_preds(batch, hyps, scores))
+                if run_concept_metrics and "labels_attr" in batch:
+                    outputs = self.model(db, compute_logits=False)
+                    batch_metrics.append(
+                        self.eval_criterion({**outputs, **db})[2])
+        finally:
+            self.model.train(was_training)
+
+        tracker = MetricTracker()
+        if batch_metrics:
+            keys = sorted(batch_metrics[0])
+            mat = torch.stack([m[k].float().reshape(()) for m in batch_metrics
+                               for k in keys]).reshape(len(batch_metrics), -1)
+            for row in mat.cpu().numpy():
+                tracker.update(dict(zip(keys, row)))
+
+        scorer = COCOScorer()
+        scores, _ = scorer.score(references, preds, list(preds.keys()))
+        for topk in (5, 10, 20, 30, 40, 50):
+            if tracker.sums.get(f"V_f1_{topk}_count"):
+                scores[f"F1-{topk:02d}"] = tracker.ratio(
+                    f"V_f1_{topk}_sum", f"V_f1_{topk}_count")
+        if tracker.sums.get("V_ap_count"):
+            scores["mAP"] = tracker.ratio("V_ap_sum", "V_ap_count")
+        scores["Sum"] = self._sum_score(scores)
+
+        for key in ("Sum", "CIDEr"):
+            if scores[key] > self.best_scores.get(key, float("-inf")):
+                self.best_scores[key] = scores[key]
+        if self.tb:
+            for k, v in scores.items():
+                if isinstance(v, (int, float)):
+                    self.tb.add_scalar(f"{log_prefix or 'vali'}_{k}", v,
+                                       epoch)
+        return scores
+
+    @torch.no_grad()
+    def test(self, loader=None, references=None, info_corpus=None,
+             save_csv_path: Optional[str] = None,
+             keys_added_to_scores=("seed",)) -> Dict[str, float]:
+        """Best-checkpoint evaluation + caption-quality analysis + CSV
+        (reference ``Wrapper.py:75-149``)."""
+        loader = loader or self.test_loader
+        references = references or self.references
+        was_training = self.model.training
+        self.model.eval()
+        preds = {}
+        try:
+            for batch in loader:
+                preds.update(self.translate_step(batch))
+        finally:
+            self.model.train(was_training)
+
+        # VATEX missing-video completion from an I3D model's predictions
+        # (reference ``Wrapper.py:94-105``)
+        if (self.opt.get("dataset") == "VATEX"
+                and self.opt.get("feats", "") != "I3D"
+                and self.opt.get("VATEX_I3D_preds_json", "")):
+            with open(self.opt["VATEX_I3D_preds_json"]) as f:
+                completion = json.load(f)
+            n_missing = 0
+            for key, val in completion.items():
+                if key not in preds:
+                    preds[key] = val
+                    n_missing += 1
+            if n_missing:
+                print(f"- Adding {n_missing} missing predictions")
+
+        scorer = COCOScorer()
+        scores, detail = scorer.score(references, preds, list(preds.keys()))
+        scores["Sum"] = self._sum_score(scores)
+
+        for key in keys_added_to_scores:
+            v = self.opt.get(key)
+            scores[key] = ("-".join(map(str, v))
+                           if isinstance(v, (list, tuple)) else v)
+
+        if info_corpus is not None:
+            ave_length, novel, unique, usage = analyze_length_novel_unique(
+                info_corpus["captions"], preds, vocab=self.vocab,
+                splits=info_corpus["info"]["split"], n=1)
+            scores.update({"ave_length": ave_length, "novel": novel,
+                           "unique": unique, "usage": usage})
+
+        if self.opt.get("save_csv", False):
+            path = save_csv_path or self.opt["checkpoint_path"]
+            save_dict_to_csv(path, self.opt.get("csv_name",
+                                                "test_result.csv"), scores)
+
+        # prediction/detail dumps (reference ``Wrapper.py:136-140`` +
+        # ``translate.py:78-81``)
+        if self.opt.get("json_path", ""):
+            os.makedirs(self.opt["json_path"], exist_ok=True)
+            with open(os.path.join(self.opt["json_path"],
+                                   self.opt.get("json_name", "preds.json")),
+                      "w") as f:
+                json.dump(preds, f)
+        if self.opt.get("save_detail_scores_path", ""):
+            p = self.opt["save_detail_scores_path"]
+            os.makedirs(os.path.dirname(p) or ".", exist_ok=True)
+            with open(p, "w") as f:
+                json.dump(detail, f)
+        return scores
+
+    def load_best(self):
+        """Load the best checkpoint's weights into the model (no-op when no
+        checkpoint was kept); returns the model."""
+        path = self.ckpt_manager.best_path
+        if path:
+            variables, _, _ = load_checkpoint(path, self.variables())
+            params_from_jax(self.model, variables["params"])
+        return self.model

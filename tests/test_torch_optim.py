@@ -156,10 +156,14 @@ def test_schedules_match_jax_on_a_grid(name):
                                        err_msg=f"{name} step {step}")
 
 
-def test_plateau_is_rejected():
+def test_plateau_schedule_is_the_jax_constant():
+    """Under ``plateau`` the schedule is the constant base LR; the trainer
+    scales it after validation (``PlateauController``)."""
     opt = dict(flagship_small_opt(), lr_scheduler_type="plateau")
-    with pytest.raises(NotImplementedError, match="plateau"):
-        optim.make_lr_schedule(opt, 10)
+    want = jax_optim.make_lr_schedule(opt, 10)
+    got = optim.make_lr_schedule(opt, 10)
+    for step in (0, 9, 10, 99):
+        assert got(step) == float(want(step)) == opt["learning_rate"]
 
 
 def test_clip_is_the_optax_rule():
