@@ -1,5 +1,7 @@
 """PyTorch/CUDA port of CARE-TPU: the CARE flagship's serving, training and
-main path (data, validation, checkpoints, test), and long-key serving.
+main path (data, the device feature bank, validation, checkpoints, test),
+long-key and half-precision serving, and the ``translate`` / ``eval_json``
+entry points.
 
 Beside the JAX package ``care_tpu`` and held against it by the
 ``tests/test_torch_*.py`` suite. Imports ``torch``, numpy and the standard

@@ -1,5 +1,5 @@
-"""The data pipeline: corpora, datasets, samplers, caption targets and the
-batch loader (port of ``care_tpu/data``, without the device feature bank)."""
+"""The data pipeline: corpora, datasets, samplers, caption targets, the
+batch loader and the device feature bank (port of ``care_tpu/data``)."""
 
 from care_tpu_torch.data.datasets import (JointDataset, TextOnlyDataset,
                                           VideoOnlyDataset)

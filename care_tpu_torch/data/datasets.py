@@ -9,8 +9,10 @@ NAR MLM / visual-word targets, masks, multi-hot concept labels) and
 streams).
 
 Port of ``care_tpu/data/datasets.py``. Pure numpy; samples are dicts of
-np arrays batched by ``loader.py`` into fixed shapes. The device feature
-bank (``skip_feats``) is not ported: every sample carries its features.
+np arrays batched by ``loader.py`` into fixed shapes. With ``skip_feats``
+set (the trainer does so once its device feature bank covers the dataset,
+``data/feature_bank.py``) a sample carries its ``frame_ids`` and no
+``feats``: the features are gathered on the device instead.
 """
 
 from typing import Any, Dict, Optional
@@ -85,19 +87,24 @@ class VideoOnlyDataset:
                 self.opt["n_frames"], self.random_type, self.rng)
             _dict["frame_ids"] = frame_ids
 
-        _dict["feats"] = []
-        for item in self.databases:
-            modality = item[0]
-            if modality == "r":
-                feats = self.load_r_feats(item, vid)
-            elif modality == "t":
-                feats = self.load_t_feats(item, vid)
-            else:
-                load_all = (self.opt.get("feats") == "SwinBERTDense"
-                            and modality == "m")
-                feats = self._load_feats(item[1:], vid, frame_ids=frame_ids,
-                                         load_all=load_all)
-            _dict["feats"].append(feats)
+        # with a device feature bank active the trainer assembles the
+        # features on the device from (video_ids, frame_ids): skip the
+        # host-side reads; the sampling draws above stay the same
+        if not getattr(self, "skip_feats", False):
+            _dict["feats"] = []
+            for item in self.databases:
+                modality = item[0]
+                if modality == "r":
+                    feats = self.load_r_feats(item, vid)
+                elif modality == "t":
+                    feats = self.load_t_feats(item, vid)
+                else:
+                    load_all = (self.opt.get("feats") == "SwinBERTDense"
+                                and modality == "m")
+                    feats = self._load_feats(item[1:], vid,
+                                             frame_ids=frame_ids,
+                                             load_all=load_all)
+                _dict["feats"].append(feats)
 
         if self.itoc is not None:
             _dict["category"] = np.asarray(

@@ -8,10 +8,25 @@ the KV cache with cross-attention K/V at [B] rows and the self-attention
 cache at [B*beam] rows, and runs the beam loop. With the default
 ``fused_head_topk`` each step's vocab expansion goes through the fused
 head + top-k kernel, so the [B*beam, V] logits never exist.
+
+Three ways through a stream of batches, all giving what
+:meth:`translate_batch` gives batch by batch: ``translate_batches`` keeps a
+few decodes' outputs on the device before fetching them;
+``translate_batches_fused`` decodes K batches back to back on the card's
+stream before it fetches their outputs; and ``translate_batches_grouped``,
+the ``--fused_k`` / ``eval_fused_k`` path of serving and validation, keeps
+up to K decodes in flight over a stream.
+
+Half-precision serving (``compute_dtype_decode: bfloat16``) decodes with a
+bf16 copy of the model's parameters (``decode_head_f32`` keeps the vocab
+head in f32) and bf16 feature streams; the caller's model is untouched.
+Every module computes in the promoted dtype of its input and parameters,
+as the JAX package's flax modules do, and the beam scores stay f32.
 """
 
+import copy
 from collections import deque
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -21,6 +36,10 @@ from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.framework import Captioner
 from care_tpu_torch.utils.device import resolve_device
 
+# what ``compute_dtype_decode`` may say: argparse delivers the string
+_DECODE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+                  torch.bfloat16: torch.bfloat16}
+
 
 def get_translator(opt: dict, device=None):
     """The translator for ``opt`` on ``device`` (``None`` = the CUDA card;
@@ -28,6 +47,32 @@ def get_translator(opt: dict, device=None):
     if opt["decoding_type"] != "ARFormer":
         raise unsupported("decoding_type", opt["decoding_type"])
     return TranslatorARFormer(opt, device)
+
+
+def decode_dtype(value) -> Optional[torch.dtype]:
+    """``compute_dtype_decode`` as a torch dtype (None: decode in f32)."""
+    if value is None:
+        return None
+    try:
+        return _DECODE_DTYPES[value]
+    except (KeyError, TypeError):
+        raise unsupported("compute_dtype_decode", value) from None
+
+
+def _cast_variables(model: Captioner, compute_dtype: torch.dtype,
+                    keep_head_f32: bool) -> Captioner:
+    """A copy of ``model`` for serving whose floating parameters are in
+    ``compute_dtype``; with ``keep_head_f32`` the vocab projection
+    (``cls_head``) keeps f32. Buffers (a fixed sinusoid table) keep their
+    dtype, as the JAX package casts only its variables."""
+    served = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in served.named_parameters():
+            if keep_head_f32 and name.startswith("cls_head."):
+                continue
+            if p.is_floating_point():
+                p.data = p.data.to(compute_dtype)
+    return served
 
 
 def auto_enlarge(tree, beam_size: int):
@@ -54,9 +99,6 @@ class TranslatorARFormer:
     """Batched beam search over a KV cache."""
 
     def __init__(self, opt: dict, device=None):
-        for key in ("compute_dtype_decode", "decode_head_f32"):
-            if opt.get(key):
-                raise unsupported(key, opt[key])
         if opt.get("fused_head_backend", "auto") != "auto":
             raise unsupported("fused_head_backend", opt["fused_head_backend"])
         if opt.get("pointer") or opt.get("cls_head") != "NaiveHead":
@@ -68,6 +110,11 @@ class TranslatorARFormer:
         self.topk = opt.get("topk", 1)
         self.max_len = opt.get("max_len", 30)
         self.fused_head = opt.get("fused_head_topk", True)
+        self.compute_dtype = decode_dtype(opt.get("compute_dtype_decode"))
+        self.keep_head_f32 = bool(opt.get("decode_head_f32", False))
+        # the cast copy of the last model served in half precision, with
+        # the source model and the version counters of its parameters
+        self._served = None
         # beam steps run by this translator, all batches together
         self.beam_steps = 0
 
@@ -87,16 +134,32 @@ class TranslatorARFormer:
                              f"serves on {self.device}")
         return models
 
+    def serving_model(self, models) -> Captioner:
+        """The model a decode runs: the caller's, or in half precision its
+        cast copy, made again whenever the caller's parameters changed in
+        place (a train step, a checkpoint load)."""
+        model = self._model(models)
+        if self.compute_dtype is None:
+            return model
+        stamp = tuple(p._version for p in model.parameters())
+        if (self._served is None or self._served[0] is not model
+                or self._served[1] != stamp):
+            self._served = (model, stamp, _cast_variables(
+                model, self.compute_dtype, self.keep_head_f32))
+        return self._served[2]
+
     def _feats(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
+        dtype = self.compute_dtype or torch.float32
         return [torch.as_tensor(np.asarray(f) if not torch.is_tensor(f) else f,
-                                dtype=torch.float32, device=self.device)
+                                dtype=torch.float32,
+                                device=self.device).to(dtype)
                 for f in batch["feats"]]
 
     @torch.no_grad()
     def dispatch(self, models, batch: Dict[str, Any]):
         """Decode one batch on the device; returns the beam's output tensors
         on the device (pair with :meth:`collect`)."""
-        model = self._model(models)
+        model = self.serving_model(models)
         feats = self._feats(batch)
         N = feats[0].shape[0]
         enc = model.encoding_phase(feats)
@@ -121,8 +184,10 @@ class TranslatorARFormer:
     def collect(self, out) -> Tuple[List[List[List[int]]], List[List[float]]]:
         """Host side of one decode: fetch the outputs and collect the
         hypotheses as the reference does."""
-        hyp_tokens, hyp_scores, hyp_lengths, hyp_valid = (
-            t.cpu().numpy() for t in out)
+        return self._collect_arrays(tuple(t.cpu().numpy() for t in out))
+
+    def _collect_arrays(self, arrays):
+        hyp_tokens, hyp_scores, hyp_lengths, hyp_valid = arrays
         all_hyp, all_scores = [], []
         # the reference's collect_hypothesis_and_scores reassigns
         # n_best = min(n_best, len(scores)) inside the instance loop
@@ -148,21 +213,39 @@ class TranslatorARFormer:
         shaped like the reference: hyps[n] = list of topk token-id lists."""
         return self.collect(self.dispatch(models, batch))
 
-    def translate_batches_fused(self, *args, **kwargs):
-        raise unsupported("translate_batches_fused")
-
     def translate_batches(self, models, batches, depth: int = 2):
         """Decode an iterable of batches, keeping up to ``depth`` decodes'
         outputs on the device before fetching them, so the host's collection
         of one batch overlaps the device's work on the next. Yields
         ``(batch, (hyps, scores))`` in input order, identical to
         :meth:`translate_batch` per batch."""
+        yield from self._pipelined(models, ((b, b) for b in batches), depth)
+
+    def _pipelined(self, models, tagged_batches, depth: int):
         pending = deque()
-        for batch in batches:
-            pending.append((batch, self.dispatch(models, batch)))
+        for tag, batch in tagged_batches:
+            pending.append((tag, self.dispatch(models, batch)))
             while len(pending) > depth:
-                b, out = pending.popleft()
-                yield b, self.collect(out)
+                t, out = pending.popleft()
+                yield t, self.collect(out)
         while pending:
-            b, out = pending.popleft()
-            yield b, self.collect(out)
+            t, out = pending.popleft()
+            yield t, self.collect(out)
+
+    def translate_batches_fused(self, models, batches: List[Dict[str, Any]]):
+        """Decode K batches back to back on the card's stream, then fetch
+        and collect their outputs; returns a list of per-batch (hyps,
+        scores), identical to per-batch :meth:`translate_batch`."""
+        outs = [self.dispatch(models, b) for b in batches]
+        return [self.collect(out) for out in outs]
+
+    def translate_batches_grouped(self, models, tagged_batches,
+                                  fused_k: int):
+        """Decode an iterable of ``(tag, batch)`` pairs with up to
+        ``fused_k`` decodes in flight on the card before their outputs are
+        fetched. Yields ``(tag, (hyps, scores))`` in input order, the
+        results of per-batch :meth:`translate_batch`. The JAX package pads
+        short batches and partial groups to the shapes of one compiled
+        ``lax.map`` program; eager decodes need no padding, so every batch
+        decodes at its own rows and none is decoded twice."""
+        yield from self._pipelined(models, tagged_batches, max(1, fused_k))

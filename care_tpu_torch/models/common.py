@@ -8,14 +8,44 @@ zeroed. Init draws from the ``torch.Generator`` the model is built with.
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from care_tpu_torch import constants
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` that computes in the promoted dtype of its input and
+    its parameters, as flax's ``Dense`` does: a bf16 layer applied to f32
+    inputs computes in f32 (the half-precision decode of a model whose
+    concept vector stays f32, ``decoding/translator.py``)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        return F.linear(x.to(dtype), self.weight.to(dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` with flax's dtype rule: the output takes the
+    promoted dtype of the input and the parameters; the statistics are
+    taken in f32 whatever the dtype (torch's bf16 kernels accumulate in
+    f32, flax promotes to f32)."""
+
+    def forward(self, x):
+        if x.dtype == self.weight.dtype:
+            return super().forward(x)
+        dtype = torch.promote_types(x.dtype, self.weight.dtype)
+        return F.layer_norm(x.to(dtype), self.normalized_shape,
+                            self.weight.to(dtype), self.bias.to(dtype),
+                            self.eps)
+
+
 def dense(dim_in: int, dim_out: int, generator: torch.Generator,
-          bias: bool = True) -> nn.Linear:
-    """``nn.Linear`` with the JAX package's ``Dense`` init."""
-    layer = nn.Linear(dim_in, dim_out, bias=bias)
+          bias: bool = True) -> Dense:
+    """``Dense`` with the JAX package's ``Dense`` init."""
+    layer = Dense(dim_in, dim_out, bias=bias)
     with torch.no_grad():
         nn.init.xavier_uniform_(layer.weight, generator=generator)
         if bias:

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from care_tpu_torch import constants
-from care_tpu_torch.models.common import Dropout, unsupported
+from care_tpu_torch.models.common import Dropout, LayerNorm, unsupported
 from care_tpu_torch.models.embeddings import Embeddings
 from care_tpu_torch.models.layers import DecoderLayer
 from care_tpu_torch.ops.attention import NEG_INF
@@ -76,8 +76,8 @@ class TransformerDecoder(nn.Module):
         # stack
         self.LayerNorm = None
         if opt.get("transformer_pre_ln", False):
-            self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
-                                          eps=opt["layer_norm_eps"])
+            self.LayerNorm = LayerNorm(opt["dim_hidden"],
+                                       eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     @property

@@ -11,7 +11,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from care_tpu_torch.models.common import (Dropout, unsupported,
+from care_tpu_torch.models.common import (Dropout, LayerNorm, unsupported,
                                           xavier_param)
 from care_tpu_torch.ops.attention import relative_position_index
 
@@ -88,7 +88,7 @@ class NaiveEmbeddings(nn.Module):
         self.word_embeddings = xavier_param((n_words, dim_hidden), generator)
         self.position_embeddings = xavier_param((n_positions, dim_hidden),
                                                 generator)
-        self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
+        self.LayerNorm = LayerNorm(dim_hidden, eps=layer_norm_eps)
         self.dropout = Dropout(hidden_dropout_prob if has_dropout else 0.0)
 
     def forward(self, input_ids):
@@ -124,8 +124,8 @@ class Embeddings(nn.Module):
                 opt.get("trainable_pe", False), generator)
         self.LayerNorm = None
         if not opt.get("transformer_pre_ln", False):
-            self.LayerNorm = nn.LayerNorm(opt["dim_hidden"],
-                                          eps=opt["layer_norm_eps"])
+            self.LayerNorm = LayerNorm(opt["dim_hidden"],
+                                       eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
 
     def forward(self, input_ids, semantic_hidden_states=None,

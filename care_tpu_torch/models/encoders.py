@@ -12,7 +12,8 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import Dropout, dense, unsupported
+from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
+                                          unsupported)
 
 
 class LinearLNDrop(nn.Module):
@@ -20,7 +21,7 @@ class LinearLNDrop(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         self.linear = dense(dim_in, dim_out, generator)
-        self.ln = nn.LayerNorm(dim_out, eps=eps)
+        self.ln = LayerNorm(dim_out, eps=eps)
         self.dropout = Dropout(dropout)
 
     def forward(self, x):

@@ -12,8 +12,8 @@ the key axis is long. Masks are additive f32 biases (0 / -1e9).
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import (Dropout, dense, get_activation,
-                                          unsupported)
+from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
+                                          get_activation, unsupported)
 from care_tpu_torch.models.embeddings import RelativePositionBias
 from care_tpu_torch.ops.attention import dot_product_attention
 
@@ -73,7 +73,7 @@ class MultiHeadAttention(nn.Module):
                 torch.zeros(num_attention_heads, hybrid_length))
         else:
             self.hybrid_bias = None
-        self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
+        self.LayerNorm = LayerNorm(dim_hidden, eps=layer_norm_eps)
         self.attn_dropout = Dropout(attention_probs_dropout_prob)
         self.out_dropout = Dropout(hidden_dropout_prob)
 
@@ -88,10 +88,14 @@ class MultiHeadAttention(nn.Module):
     def project_qkv(self, x):
         """Self-attention q/k/v in one [3D, D] product for the decode step;
         each output element is the same dot product as in the separate
-        projections. Returns (q, (k, v)) in head form."""
-        w = torch.cat([self.query.weight, self.key.weight, self.value.weight])
+        projections. The weights take the input's dtype, as the JAX
+        package's fused projection casts its kernel. Returns (q, (k, v)) in
+        head form."""
+        w = torch.cat([self.query.weight, self.key.weight,
+                       self.value.weight]).to(x.dtype)
         b = (None if self.query.bias is None else
-             torch.cat([self.query.bias, self.key.bias, self.value.bias]))
+             torch.cat([self.query.bias, self.key.bias,
+                        self.value.bias]).to(x.dtype))
         q, k, v = nn.functional.linear(x, w, b).chunk(3, dim=-1)
         h = self.num_attention_heads
         return split_heads(q, h), (split_heads(k, h), split_heads(v, h))
@@ -190,7 +194,7 @@ class PositionwiseFeedForward(nn.Module):
         self.dense2 = dense(dim_intermediate, dim_hidden, generator)
         self.act = get_activation(hidden_act)
         self.dropout = Dropout(hidden_dropout_prob)
-        self.LayerNorm = nn.LayerNorm(dim_hidden, eps=layer_norm_eps)
+        self.LayerNorm = LayerNorm(dim_hidden, eps=layer_norm_eps)
 
     def forward(self, hidden_states):
         x = self.LayerNorm(hidden_states) if self.pre_ln else hidden_states

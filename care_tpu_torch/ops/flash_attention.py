@@ -55,8 +55,10 @@ NEG_INF = -1e9
 _BWD_KERNEL_MIN_BYTES = 2e9
 
 # kernel launches made by the CUDA paths, so that a run can show that it went
-# through the kernels; `plain_forward_calls` counts the CPU path's forwards
+# through the kernels (`fwd_bf16_launches`: the forwards that ran in bf16);
+# `plain_forward_calls` counts the CPU path's forwards
 fwd_launches = 0
+fwd_bf16_launches = 0
 dq_launches = 0
 dkv_launches = 0
 plain_forward_calls = 0
@@ -283,7 +285,7 @@ def _raise_on(rc: int, what: str, dh: int):
 def _flash_fwd_cuda(q, k, v, bias):
     """The kernel's (out, lse): the contract of ``_flash_fwd_plain``. One
     launch on the current stream, without syncing."""
-    global fwd_launches
+    global fwd_launches, fwd_bf16_launches
     _check_operands(q, k, v, bias, query_extent=True)
     b, h, lq, dh = q.shape
     lk = k.shape[2]
@@ -302,6 +304,7 @@ def _flash_fwd_cuda(q, k, v, bias):
             torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash attention forward", dh)
     fwd_launches += 1
+    fwd_bf16_launches += int(q.dtype == torch.bfloat16)
     return out, lse
 
 
@@ -452,7 +455,8 @@ def flash_attention(query, key, value, bias=None, backward: str = "auto",
       ``_BWD_KERNEL_MIN_BYTES``, else the dense rule.
 
     A bias with a query extent other than 1 always takes the dense rule.
-    On a CUDA tensor the forward, and the kernel rule of the backward, launch
+    Query, key and value of different dtypes are promoted to one first. On a
+    CUDA tensor the forward, and the kernel rule of the backward, launch
     the hand-written kernels (head widths 32, 64 and 128; f32 or bf16) or
     raise; a CPU tensor takes their plain versions, whose blocks ``block_q``
     and ``block_k`` set (the kernels choose their own tiles).
@@ -460,5 +464,12 @@ def flash_attention(query, key, value, bias=None, backward: str = "auto",
     if backward not in ("auto", "kernel", "dense"):
         raise ValueError(f"backward must be auto, kernel or dense, not "
                          f"{backward!r}")
+    # mixed operands (an f32 query against a bf16 cache of keys and values,
+    # the half-precision decode of a model whose decoder runs f32) compute
+    # in their promoted dtype; the kernels take one dtype
+    if not query.dtype == key.dtype == value.dtype:
+        dtype = torch.promote_types(
+            torch.promote_types(query.dtype, key.dtype), value.dtype)
+        query, key, value = query.to(dtype), key.to(dtype), value.to(dtype)
     return _Flash.apply(query, key, value, bias, backward,
                         block_q or _PLAIN_BLOCK, block_k or _PLAIN_BLOCK)

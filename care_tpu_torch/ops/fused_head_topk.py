@@ -49,8 +49,10 @@ DEAD = -1e20
 _PAD_LOGIT = -1e30
 
 # kernel launches made by the CUDA path of `fused_head_beam_topk`, so that a
-# run can show the main path went through the kernel
+# run can show the main path went through the kernel; `bf16_launches` counts
+# those of them that ran the bf16 kernel
 launches = 0
+bf16_launches = 0
 # the same for the CUDA path of `vocab_argmax_lse` / `argmax_lse_stats`
 argmax_lse_launches = 0
 
@@ -124,7 +126,7 @@ def _library():
 def _stats_cuda(h, W, b, beam_k: int):
     """The kernel's (cv, ids, m, s), ids int32; the same contract as
     ``_stats_plain``. Launches on the current stream without syncing."""
-    global launches
+    global launches, bf16_launches
     _check_head_operands(h, W, b)
     rows, H = h.shape
     V = W.shape[0]
@@ -154,6 +156,7 @@ def _stats_cuda(h, W, b, beam_k: int):
     if rc != 0:
         raise RuntimeError(f"fused head kernel launch failed: CUDA error {rc}")
     launches += 1
+    bf16_launches += int(h.dtype == torch.bfloat16)
     return cv, ids, m, s
 
 
@@ -206,7 +209,19 @@ def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
 
     would give. ``chunk_size`` sets the vocab chunk of the plain CPU path
     only; the kernel tiles the vocab its own way. Both give the same ids.
+
+    Mixed operands compute in their promoted dtype, as the unfused linear
+    head would: bf16 h against an f32 W (the ``decode_head_f32`` serving
+    flag) runs in f32 with no rounding of the logits; only an all-bf16
+    product rounds them to bf16 before the bias. The kernel itself takes
+    one dtype.
     """
+    if h.dtype != W.dtype or (b is not None and b.dtype != W.dtype):
+        dtype = torch.promote_types(h.dtype, W.dtype)
+        if b is not None:
+            dtype = torch.promote_types(dtype, b.dtype)
+        h, W = h.to(dtype), W.to(dtype)
+        b = None if b is None else b.to(dtype)
     rows = h.shape[0]
     V = W.shape[0]
     N, Kb = scores.shape

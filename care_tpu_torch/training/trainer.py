@@ -24,11 +24,15 @@ transfer at its end; nothing in the step loop waits for the device. The
 loader's batches are prepared on a background thread (``prefetch``) and
 copied to the device on the thread that runs the step.
 
+With ``device_feature_cache`` (the default) the train dataset's feature
+tables go to the device once (``data/feature_bank.py``), the dataset stops
+reading features (``skip_feats``) and every train batch gathers its
+features there from its video and frame ids; validation keeps a bank of its
+own dataset. Validation decodes in groups of ``eval_fused_k`` batches
+(``translate_batches_grouped``), or batch by batch when that is 1.
+
 Not ported yet, each rejected with ``NotImplementedError``: a ``mesh``, a
 ``fused_xent_backend`` other than ``auto``, ``backbone_weights``, teachers.
-The device feature bank is not built, and validation decodes batch by batch
-(the JAX package's path for ``eval_fused_k <= 1``) whatever
-``eval_fused_k`` says.
 """
 
 import json
@@ -164,6 +168,8 @@ class Trainer:
         self.best_scores: Dict[str, float] = {}
         self.history: list = []   # per-epoch log dicts (loss, time, scores)
         self._train_step_fn = None
+        self._feature_bank = None
+        self._val_banks: Dict[int, Any] = {}
 
     # ------------------------------------------------------------------
     def init_model(self, seed: int = None):
@@ -188,6 +194,96 @@ class Trainer:
         """The model's parameters as the flax ``{"params": ...}`` tree, the
         layout of the checkpoints."""
         return {"params": params_to_jax(self.model)}
+
+    # ------------------------------------------------------------------
+    # the device feature bank
+    # ------------------------------------------------------------------
+    def _device_batch(self, batch):
+        """A train batch on the device: its features gathered from the
+        bank when it covers the batch, else shipped from the host."""
+        bank = self._feature_bank
+        served = self._bank_serve(bank, batch)
+        if served is not None:
+            return served
+        if bank is not None and "feats" not in batch:
+            # skip_feats stripped the host features but the bank cannot
+            # serve this batch: fail here, not deep in the model (the
+            # build-time coverage check makes this unreachable for a
+            # consistent dataset)
+            missing = [v for v in batch.get("video_ids", [])
+                       if v not in bank.vid_to_row]
+            raise RuntimeError(
+                "device feature bank cannot serve batch (uncovered "
+                f"video_ids {missing[:5]}...) and host feats were "
+                "skipped; set opt['device_feature_cache']=False")
+        return device_batch(batch, self.device)
+
+    def _bank_serve(self, bank, batch):
+        """The batch on the device with its features gathered from
+        ``bank``; None when the bank cannot serve it."""
+        if bank is None or "video_ids" not in batch \
+                or not bank.covers(batch["video_ids"]):
+            return None
+        b = device_batch({k: v for k, v in batch.items() if k != "feats"},
+                         self.device)
+        b["feats"] = bank.lookup(batch["video_ids"], batch.get("frame_ids"))
+        return b
+
+    def _maybe_val_bank(self, loader):
+        """Feature bank of an eval loader's dataset (built on first use,
+        kept per dataset). Unlike the train bank it never sets
+        ``skip_feats``: the host features stay the fall-back."""
+        if not self.opt.get("device_feature_cache", True):
+            return None
+        ds = getattr(loader, "dataset", None)
+        if ds is None:
+            return None
+        key = id(ds)
+        if key not in self._val_banks:
+            from care_tpu_torch.data.feature_bank import build_feature_bank
+            bank = build_feature_bank(ds, self.opt, self.device)
+            # the dataset is kept with its bank so its id stays its own
+            self._val_banks[key] = (bank, ds)
+            if bank is not None:
+                print(f"- validation feature cache: {bank.describe()}")
+        return self._val_banks[key][0]
+
+    def _maybe_build_feature_bank(self):
+        """Upload the train dataset's feature tables once and gather each
+        batch's features on the device from then on."""
+        opt = self.opt
+        if self._feature_bank is not None \
+                or not opt.get("device_feature_cache", True) \
+                or self.train_loader is None \
+                or not hasattr(self.train_loader, "dataset"):
+            return
+        from care_tpu_torch.data.feature_bank import build_feature_bank
+        dataset = self.train_loader.dataset
+        bank = build_feature_bank(dataset, opt, self.device)
+        if bank is None:
+            return
+        # coverage check on a real sample before committing to the bank: a
+        # video-naming mismatch must fall back, not fail mid-epoch. The
+        # probe must not advance the dataset's sampling streams (resume and
+        # loss trajectories repeat exactly)
+        rngs = [r for r in (getattr(dataset, a, None) for a in ("rng",
+                                                                "random"))
+                if isinstance(r, np.random.RandomState)]
+        states = [r.get_state() for r in rngs]
+        probe = dataset[0]
+        for r, st in zip(rngs, states):
+            r.set_state(st)
+        if probe.get("video_ids") not in bank.vid_to_row:
+            return
+        # full coverage where the samples are enumerable (the JointDataset
+        # infoset), before skip_feats strips features from any batch
+        infoset = getattr(dataset, "infoset", None)
+        if infoset is not None:
+            if not all(e.get("vid") in bank.vid_to_row for e in infoset):
+                return
+        self._feature_bank = bank
+        dataset.skip_feats = True
+        print(f"- device feature cache: {bank.describe()}")
 
     def _build_tx(self, steps_per_epoch: int):
         opt = self.opt
@@ -292,6 +388,7 @@ class Trainer:
             self.init_model()
         if self.tx is None:
             self._build_tx(max(len(self.train_loader), 1))
+        self._maybe_build_feature_bank()
 
         training_scales = opt.get("training_scales", {}) or {}
         start_epoch = 0
@@ -324,7 +421,7 @@ class Trainer:
                     self._stop_profiler(prof, profile_dir)
                     prof = None
                 step_stats.append(self._train_step_fn(
-                    device_batch(batch, self.device)))
+                    self._device_batch(batch)))
                 self.global_step += 1
             if prof is not None:
                 self._stop_profiler(prof, profile_dir)
@@ -517,19 +614,49 @@ class Trainer:
         preds = {}
         # per-batch metric scalars stay on the device until the pass ends
         batch_metrics = []
-        # host batches in decode order; the device batch rides through
-        # translate_batches and is released per iteration
-        originals = []
+        # fused-K decode (the default): up to eval_fused_k decodes in
+        # flight before their outputs are fetched, K clamped to the
+        # validation set's batches; 1 decodes batch by batch
+        fused_k = int(self.opt.get("eval_fused_k", 4))
+        try:
+            fused_k = max(1, min(fused_k, len(loader)))
+        except TypeError:
+            pass
+        # the validation set's features upload once; the dataset keeps
+        # reading host features (no skip_feats), so a batch the bank does
+        # not cover ships them
+        val_bank = self._maybe_val_bank(loader)
 
-        def device_batches():
-            for b in loader:
-                originals.append(b)
-                yield device_batch(b, self.device)
+        def to_device(b):
+            served = (self._bank_serve(val_bank, b) if "feats" in b
+                      else None)
+            return served if served is not None else device_batch(
+                b, self.device)
+
+        if fused_k > 1:
+            def tagged():
+                for b in loader:
+                    db = to_device(b)
+                    yield (b, db), db
+
+            stream = self.translator.translate_batches_grouped(
+                self.model, tagged(), fused_k)
+        else:
+            # host batches in decode order; the device batch rides through
+            # translate_batches and is released per iteration
+            originals = []
+
+            def device_batches():
+                for b in loader:
+                    originals.append(b)
+                    yield to_device(b)
+
+            stream = (((originals.pop(0), db), out) for db, out in
+                      self.translator.translate_batches(
+                          self.model, device_batches()))
 
         try:
-            for db, (hyps, scores) in self.translator.translate_batches(
-                    self.model, device_batches()):
-                batch = originals.pop(0)
+            for (batch, db), (hyps, scores) in stream:
                 preds.update(self._collect_preds(batch, hyps, scores))
                 if run_concept_metrics and "labels_attr" in batch:
                     outputs = self.model(db, compute_logits=False)

@@ -32,7 +32,14 @@ before the last line:
    match the beam steps run (times the decoder layers for the flash
    kernel), and every returned score must equal the teacher-forced score of
    its tokens from the full forward, which runs the dense attention. One
-   batch of each configuration is profiled.
+   batch of each configuration is profiled. Then half precision
+   (``compute_dtype_decode: bfloat16``): the flagship, the flagship with
+   ``decode_head_f32``, and the long-key ``CARE`` and ``Base``
+   configurations, each beside its f32 run; the scores re-checked by
+   teacher forcing the served bf16 model. Modules compute in the promoted
+   dtype of their operands, as the JAX package's do: the ``CARE`` task's
+   f32 concept vector makes its decoder f32, so its K1 and K4a launch in
+   f32, while ``Base`` launches both in bf16 (the counts are asserted).
 5. flash gradient: three descent steps through
    ``flash_attention(backward="kernel")`` at the square shape, which is the
    entry point of the two backward kernels (no model path reaches them).
@@ -59,7 +66,22 @@ before the last line:
    time, validation captions per second, the scorer's seconds, checkpoint
    seconds and bytes; then a run of 1 epoch and a fresh trainer resuming
    it to 2 must reproduce the main run's epoch-1 loss (1e-5 relative) and
-   final parameters (1e-5 absolute).
+   final parameters (1e-5 absolute). It runs on ``care_tpu``'s defaults:
+   the train batches' features come from the device feature bank (lookups
+   == train steps; the loader with ``skip_feats`` timed beside the loader
+   that reads features), and validation decodes in groups of
+   ``eval_fused_k`` batches, whose captions, scores and COCO dict must
+   equal batch-by-batch validation's (``==``).
+7b. entry: ``care_tpu_torch.translate.main`` on the pipeline's best
+   checkpoint through ``load_model``: ``--fused_k 4`` against pipelined
+   (equal predictions JSON and COCO dict), ``--latency`` at
+   batch 1 (a ``latency.txt`` line in a temporary directory), and
+   ``care_tpu_torch.eval_json`` on the written predictions (the scores of
+   ``run_eval``); K1 launches == beam steps.
+7c. bank: the device feature bank at the flagship's MSRVTT size (10 000
+   videos x 60 frames x (128 + 2048 + 512) plus 20 x 512 retrieval rows),
+   in f32 and bf16 storage: resident bytes, build seconds, gather ms at
+   batch 64.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -155,6 +177,13 @@ DEVICE_KERNELS = {
 }
 
 
+def _bf16_launch_counts() -> dict:
+    """The launches of the two kernels that serving runs in either dtype
+    that ran their bf16 instance."""
+    return {"fused_head_topk": fht.bf16_launches,
+            "flash_attention_fwd": fa.fwd_bf16_launches}
+
+
 def _launch_counts() -> dict:
     return {"fused_head_topk": fht.launches,
             "vocab_argmax_lse": fht.argmax_lse_launches,
@@ -166,9 +195,10 @@ def _launch_counts() -> dict:
 
 
 def _zero_launch_counts() -> None:
-    fht.launches = fht.argmax_lse_launches = 0
+    fht.launches = fht.argmax_lse_launches = fht.bf16_launches = 0
     fx.dh_launches = fx.dw_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
+    fa.fwd_bf16_launches = 0
 
 
 def flagship_opt(arch: str = "base") -> dict:
@@ -608,12 +638,14 @@ def _synthetic_feats(opt, n, seed):
 
 
 @torch.no_grad()
-def _teacher_forced_scores(model, opt, feats, hyps):
-    """Σ log p(token) / len**alpha of each hypothesis from the full forward.
-    Filler after a hypothesis is EOS, not PAD: causal attention keeps the
-    filler out of earlier positions, while a PAD input would be masked."""
+def _teacher_forced_scores(model, opt, feats, hyps, dtype=torch.float32):
+    """Σ log p(token) / len**alpha of each hypothesis from the full forward
+    of ``model`` on the features in ``dtype`` (the served model and its
+    feature dtype). Filler after a hypothesis is EOS, not PAD: causal
+    attention keeps the filler out of earlier positions, while a PAD input
+    would be masked."""
     dev = next(model.parameters()).device
-    tf = [torch.as_tensor(f, device=dev) for f in feats]
+    tf = [torch.as_tensor(f, device=dev).to(dtype) for f in feats]
     inputs = model.prepare_inputs_for_decoder(model.encoding_phase(tf), {})
     L = max(len(h[0]) for h in hyps)
     ids = torch.full((len(hyps), L), constants.EOS, dtype=torch.long)
@@ -653,21 +685,36 @@ def long_key_opt(task: str) -> dict:
     return opt
 
 
-def _serve(label, opt, batch_sizes, flash: bool, profile_kernels) -> dict:
+# the teacher-forced re-check of served scores: f32 serving against the
+# full forward agrees to SCORE_TOL; bf16 serving (a bf16 KV cache and bf16
+# weights, the full forward without the cache) to SCORE_TOL_BF16 per
+# length-normalised score, a few times the largest sound reading on an H100
+# (8.1e-4, the Base decoder in bf16; 2.7e-4 to 4.4e-4 for the others)
+SCORE_TOL, SCORE_TOL_BF16 = 1e-3, 3e-3
+
+
+def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
+           bf16_kernels=()) -> dict:
     """Caption synthetic batches of the given sizes through
     ``get_translator(opt).translate_batch`` with the launch counts set to 0
     just before and read just after; hold the counts against the beam steps
-    and every score against teacher forcing through the full forward (the
-    dense attention). Returns the launch counts of the run."""
+    (``bf16_kernels``: the kernels whose every launch must be bf16, the
+    others' none) and every score against teacher forcing through the full
+    forward of the served model (the dense attention). Returns the launch
+    counts, caps/s, ms per beam step and the first hypotheses."""
     t0 = time.perf_counter()
     model = build_captioner(opt, seed=SEED)
     translator = get_translator(opt)
+    served = translator.serving_model(model)
     torch.cuda.synchronize()
     layers = opt["num_hidden_layers_decoder"]
     assert all(l.inter_attention.use_flash is flash
                for l in model.decoder.layers)
+    dtype = translator.compute_dtype or torch.float32
     print(f"serve {label}: built the Captioner "
-          f"({sum(p.numel() for p in model.parameters())} parameters) in "
+          f"({sum(p.numel() for p in model.parameters())} parameters, served "
+          f"in {str(next(served.parameters()).dtype)[6:]}, vocab head "
+          f"{str(served.cls_head.tgt_word_prj.weight.dtype)[6:]}) in "
           f"{time.perf_counter() - t0:.1f} s")
     batches = [_synthetic_feats(opt, n, SEED + 10 + i)
                for i, n in enumerate(batch_sizes)]
@@ -683,33 +730,50 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
     counts = _launch_counts()
+    bf16 = _bf16_launch_counts()
     steps = translator.beam_steps
     assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
     assert counts["flash_attention_fwd"] == (steps * layers if flash else 0), \
         (counts, steps)
+    for name, n in bf16.items():
+        assert n == (counts[name] if name in bf16_kernels else 0), \
+            (name, bf16, counts)
 
-    worst, checked, total = 0.0, 0, 0
+    tol = SCORE_TOL if dtype == torch.float32 else SCORE_TOL_BF16
+    # control of the bf16 check: the same hypotheses teacher-forced through
+    # the caller's f32 model, the gap a decode that lost the cast would show
+    worst, control, checked, total = 0.0, 0.0, 0, 0
     for feats, (hyps, scores) in zip(batches, results):
         assert len(hyps) == feats[0].shape[0]
         assert all(len(h) == 1 and len(h[0]) >= 1 for h in hyps)
         assert all(np.isfinite(s[0]) for s in scores)
-        ref, usable = _teacher_forced_scores(model, opt, feats, hyps)
-        for s, r, ok in zip(scores, ref, usable):
+        ref, usable = _teacher_forced_scores(served, opt, feats, hyps, dtype)
+        f32_ref = (ref if served is model else
+                   _teacher_forced_scores(model, opt, feats, hyps)[0])
+        for s, r, r32, ok in zip(scores, ref, f32_ref, usable):
             total += 1
             if ok:
                 checked += 1
                 worst = max(worst, abs(s[0] - r))
-    assert worst <= 1e-3, worst
+                control = max(control, abs(s[0] - r32))
+    assert worst <= tol, (worst, tol)
     assert checked >= total // 2, (checked, total)
     full = [s for s, n in zip(seconds, batch_sizes) if n == BATCH]
+    caps = BATCH * len(full) / sum(full)
+    step_ms = 1e3 * sum(seconds) / steps
     print(f"serve {label}: batches of {list(batch_sizes)} videos, "
           f"{steps} beam steps, launches "
-          f"{ {k: v for k, v in counts.items() if v} }")
+          f"{ {k: v for k, v in counts.items() if v} } (of them bf16: "
+          f"{ {k: v for k, v in bf16.items() if v} })")
     print(f"serve {label}: batch seconds {[round(s, 4) for s in seconds]}; "
-          f"{BATCH * len(full) / sum(full):.1f} caps/s at batch {BATCH}; "
-          f"{1e3 * sum(seconds) / steps:.3f} ms per beam step")
+          f"{caps:.1f} caps/s at batch {BATCH}; {step_ms:.3f} ms per beam "
+          f"step")
     print(f"serve {label}: scores re-checked by teacher forcing: "
-          f"{checked}/{total} hypotheses, max |diff| {worst:.2e}")
+          f"{checked}/{total} hypotheses, max |diff| {worst:.2e} "
+          f"(tolerance {tol:g})"
+          + ("" if served is model else
+             f"; control, against the f32 model's teacher forcing: max "
+             f"|diff| {control:.2e}"))
     print(f"serve {label}: first caption tokens {results[0][0][0][0][:12]}")
     if flash:
         # what of a batch's wall time is the copy of its features
@@ -720,8 +784,9 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels) -> dict:
         torch.cuda.synchronize()
         copy_s = time.perf_counter() - t0
         del on_card
+        cast = "" if dtype == torch.float32 else ", then the cast to bf16"
         print(f"serve {label}: host-to-device copy of one batch's features "
-              f"({n_bytes / 1e6:.1f} MB of pageable numpy): "
+              f"({n_bytes / 1e6:.1f} MB of pageable numpy{cast}): "
               f"{1e3 * copy_s:.3f} ms ({n_bytes / copy_s / 1e9:.2f} GB/s), "
               f"{100 * copy_s / seconds[0]:.1f}% of the batch's wall time")
     if profile_kernels:
@@ -729,22 +794,59 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels) -> dict:
                  lambda: translator.translate_batch(model,
                                                     {"feats": batches[0]}),
                  seconds[0], profile_kernels, steps=steps // len(batches))
-    return counts
+    return {"counts": counts, "caps": caps, "step_ms": step_ms,
+            "first": [h[0] for r in results for h in r[0]]}
+
+
+def _half(opt, head_f32=False) -> dict:
+    return dict(opt, compute_dtype_decode="bfloat16",
+                decode_head_f32=head_f32)
+
+
+def _against_f32(label, got, f32) -> None:
+    same = np.mean([a == b for a, b in zip(got["first"], f32["first"])])
+    print(f"serve {label}: {got['caps']:.1f} caps/s and {got['step_ms']:.3f} "
+          f"ms per beam step against f32's {f32['caps']:.1f} and "
+          f"{f32['step_ms']:.3f} in this run; first hypotheses equal to "
+          f"f32's: {100 * same:.1f}% (a reading: random weights give "
+          f"near-ties)")
 
 
 def phase_serve(opt) -> dict:
     """The flagship (short keys, dense decode step), then the long-key
-    configuration with and without the concept stack. Returns the launch
-    counts: K1's from the flagship run, K4a's from the long-key ``CARE``
-    run."""
-    counts = _serve("flagship", opt, [BATCH] * 3 + [RAGGED], False,
-                    ["fused_head_topk"])
-    long_counts = _serve("long keys, CARE", long_key_opt("CARE"),
-                         [BATCH] * 2 + [RAGGED], True,
-                         ["flash_attention_fwd", "fused_head_topk"])
-    _serve("long keys, Base", long_key_opt("Base"), [BATCH], True, None)
-    return {"fused_head_topk": counts["fused_head_topk"],
-            "flash_attention_fwd": long_counts["flash_attention_fwd"]}
+    configuration with and without the concept stack; then each again in
+    half precision (``compute_dtype_decode: bfloat16``), the flagship also
+    with ``decode_head_f32``. Under bf16 weights every module computes in
+    the promoted dtype of its operands, as the JAX package's flax modules
+    do: the ``CARE`` task's f32 concept vector (``semantic2hidden`` of the
+    f32 concept probabilities) promotes the decoder's embeddings, so its
+    decoder runs f32 on bf16 weights and K1 and K4a launch in f32 there;
+    the ``Base`` task's decoder runs bf16 and launches both in bf16.
+    Returns the launch counts summed over the runs."""
+    f32 = _serve("flagship", opt, [BATCH] * 3 + [RAGGED], False,
+                 ["fused_head_topk"])
+    long_f32 = _serve("long keys, CARE", long_key_opt("CARE"),
+                      [BATCH] * 2 + [RAGGED], True,
+                      ["flash_attention_fwd", "fused_head_topk"])
+    base_f32 = _serve("long keys, Base", long_key_opt("Base"), [BATCH],
+                      True, ["flash_attention_fwd", "fused_head_topk"])
+    runs = [f32, long_f32, base_f32]
+    for label, cfg, ref, flash, bf16 in (
+            ("flagship, bf16", _half(opt), f32, False, ()),
+            ("flagship, bf16, f32 head", _half(opt, True), f32, False, ()),
+            ("long keys, CARE, bf16", _half(long_key_opt("CARE")), long_f32,
+             True, ()),
+            ("long keys, Base, bf16", _half(long_key_opt("Base")), base_f32,
+             True, ("fused_head_topk", "flash_attention_fwd"))):
+        # device time of one batch beside the f32 run's: the host clock of
+        # these host-bound runs swings more than the difference
+        run = _serve(label, cfg, [BATCH] * (3 if ref is f32 else 1), flash,
+                     ["fused_head_topk"] + ["flash_attention_fwd"] * flash,
+                     bf16)
+        _against_f32(label, run, ref)
+        runs.append(run)
+    return {k: sum(r["counts"][k] for r in runs)
+            for k in ("fused_head_topk", "flash_attention_fwd")}
 
 
 def phase_flash_gradient() -> dict:
@@ -1026,7 +1128,8 @@ def _pipeline_data(opt, root):
     """Write the synthetic dataset under ``root`` (HDF5 when ``h5py``
     imports, else the same arrays in memory), widen the written corpus's
     vocabulary to ``opt["vocab_size"]`` with unused words, and point the
-    options at it. Returns (opt, loaders, corpus, references)."""
+    options at it. Returns (opt, loaders, corpus, references, a
+    ``get_loader`` over the store)."""
     import pickle
     opt = dict(opt)
     hdf5 = importlib.util.find_spec("h5py") is not None
@@ -1076,14 +1179,18 @@ def _pipeline_data(opt, root):
     print(f"pipeline: {PIPELINE_VIDEOS} videos, split {split}, {used} words "
           f"used of the {len(itow)} in the vocabulary")
 
-    def loader(mode, is_validation=False, not_shuffle=False, batch_size=None,
-               pad_to_batch=False):
-        """``get_loader``'s dataset and batching, over either store."""
+    def loader(opt, mode, specific=-1, batch_size=None, not_shuffle=False,
+               is_validation=False, pad_to_batch=False):
+        """``get_loader`` over either store (its signature, so that the
+        entry phase can stand it in for ``care_tpu_torch.data.get_loader``
+        where the store is in memory)."""
         if hdf5:
-            return get_loader(opt, mode, is_validation=is_validation,
+            return get_loader(opt, mode, specific=specific,
+                              is_validation=is_validation,
                               not_shuffle=not_shuffle, batch_size=batch_size,
                               pad_to_batch=pad_to_batch)
-        dataset = InMemoryJointDataset(opt, mode, is_validation=is_validation)
+        dataset = InMemoryJointDataset(opt, mode, specific=specific,
+                                       is_validation=is_validation)
         return Loader(dataset, batch_size or opt["batch_size"],
                       mode == "train" and not not_shuffle, seed=opt["seed"],
                       pad_to_batch=pad_to_batch)
@@ -1092,11 +1199,11 @@ def _pipeline_data(opt, root):
     eval_kwargs = dict(not_shuffle=True, batch_size=opt["eval_batch_size"],
                        pad_to_batch=True)
     loaders = dict(
-        train_loader=loader("train"),
-        val_loader=loader("validate", is_validation=True, **eval_kwargs),
-        test_loader=loader("test", **eval_kwargs))
+        train_loader=loader(opt, "train"),
+        val_loader=loader(opt, "validate", is_validation=True, **eval_kwargs),
+        test_loader=loader(opt, "test", **eval_kwargs))
     return (opt, loaders, corpus,
-            corpus_lib.load_references(opt["reference"]))
+            corpus_lib.load_references(opt["reference"]), loader)
 
 
 def _loader_ms(loader) -> float:
@@ -1134,6 +1241,26 @@ def _resume_run(opt, loaders, refs, vocab, epochs, state_dir, ckpt_dir):
     return trainer
 
 
+def _validate_preds(trainer, fused_k):
+    """``trainer.validate()`` with ``eval_fused_k`` set to ``fused_k``;
+    returns its scores and the predictions it scored."""
+    preds = {}
+    collect = trainer._collect_preds
+
+    def spy(*args):
+        out = collect(*args)
+        preds.update(out)
+        return out
+
+    trainer._collect_preds = spy
+    kept, trainer.opt["eval_fused_k"] = trainer.opt["eval_fused_k"], fused_k
+    try:
+        return trainer.validate(), preds
+    finally:
+        trainer.opt["eval_fused_k"] = kept
+        del trainer._collect_preds
+
+
 def phase_pipeline(opt, scratch) -> dict:
     """The port's main path as ``care_tpu_torch.train.run`` drives it, on
     the flagship at full width (fused cross-entropy, dropout on, the
@@ -1141,24 +1268,53 @@ def phase_pipeline(opt, scratch) -> dict:
     layout, 2 epochs of ``Trainer.fit`` through the port's loader with
     beam-search validation and COCO scores after each, top-1 checkpoints on
     CIDEr, ``load_best`` and ``test``; the launch counts set to 0 just
-    before and read just after. Then a resume check: 1 epoch, and a second
-    trainer resuming it to 2, against the main run."""
+    before and read just after. It runs on ``care_tpu``'s defaults: every
+    train batch's features come from the device feature bank, and
+    validation decodes in groups of ``eval_fused_k`` batches, whose COCO
+    dict must equal batch-by-batch validation's. Then a resume check, the
+    bank on: 1 epoch, and a second trainer resuming it to 2, against the
+    main run. Returns the launch counts and what the entry phase needs."""
     from care_tpu_torch import native
     from care_tpu_torch.metrics import meteor
     from care_tpu_torch.training import checkpoints as ckpt_lib
     base = dict(opt, epochs=PIPELINE_EPOCHS, batch_size=BATCH,
                 eval_batch_size=BATCH, fused_xent=True, lowlr_start_epoch=1,
                 checkpoint_path=os.path.join(scratch, "pipeline", "exps"))
+    # care_tpu's defaults, which the port now takes: the device feature
+    # bank and fused-K validation
+    assert base["device_feature_cache"] and base["eval_fused_k"] == 4, base
     t0 = time.perf_counter()
-    base, loaders, corpus, refs = _pipeline_data(
+    base, loaders, corpus, refs, loader_fn = _pipeline_data(
         base, os.path.join(scratch, "pipeline"))
     vocab = corpus["info"]["itow"]
     print(f"pipeline: dataset written and loaders built in "
           f"{time.perf_counter() - t0:.1f} s")
     loader_ms = _loader_ms(loaders["train_loader"])
+    # the loader as the bank leaves it (its own dataset, so that the main
+    # run's sampling streams stay where they are): no feature reads
+    skip_loader = loader_fn(base, "train")
+    skip_loader.dataset.skip_feats = True
+    skip_ms = _loader_ms(skip_loader)
 
     trainer = Trainer(base, **loaders, references=refs, vocab=vocab,
                       log_dir=os.path.join(base["checkpoint_path"], "tb"))
+    trainer.init_model()
+    t0 = time.perf_counter()
+    trainer._maybe_build_feature_bank()
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    bank = trainer._feature_bank
+    assert bank is not None, "the device feature bank was not built"
+    assert loaders["train_loader"].dataset.skip_feats
+    translator = trainer.translator
+    grouped_calls = []
+    inner_grouped = translator.translate_batches_grouped
+
+    def grouped(*args, **kwargs):
+        grouped_calls.append(args[2] if len(args) > 2 else kwargs["fused_k"])
+        return inner_grouped(*args, **kwargs)
+
+    translator.translate_batches_grouped = grouped
     val_s, score_s, save_s = [], [], []
     _timed(trainer, "validate", val_s)
     _timed(trainer.ckpt_manager, "on_epoch_end", save_s)
@@ -1198,6 +1354,13 @@ def phase_pipeline(opt, scratch) -> dict:
                  "flash_attention_bwd_dkv"):
         assert counts[name] == 0, (name, counts)
     assert trainer._switched and trainer._fused_xent
+    # every train step's features came from the bank, and every validation
+    # decoded in groups (K clamped to the validation set's batches)
+    lookups = bank.lookups
+    assert lookups == steps, (lookups, steps)
+    fused_k = min(base["eval_fused_k"], len(loaders["val_loader"]))
+    assert grouped_calls == ([fused_k] * PIPELINE_EPOCHS if fused_k > 1
+                             else []), (grouped_calls, fused_k)
     losses = [h["train_loss"] for h in trainer.history]
     assert all(np.isfinite(l) for h in trainer.history
                for l in h["step_losses"]), losses
@@ -1230,10 +1393,17 @@ def phase_pipeline(opt, scratch) -> dict:
           f"{t_load:.3f} s")
     step_ms = [1e3 * h["epoch_time"] / h["n_steps"] for h in trainer.history]
     val_caps = [n_val_videos / s for s in val_s]
+    vids = next(iter(skip_loader))
+    gather_ms = _time_ms(lambda: bank.lookup(vids["video_ids"],
+                                             vids["frame_ids"]), n=50)
+    print(f"pipeline: device feature bank {bank.describe()}; built and "
+          f"uploaded in {bank_s:.3f} s; gather {gather_ms:.4f} ms per batch "
+          f"of {BATCH}; {lookups} lookups == {steps} train steps")
     print(f"pipeline: loader alone {loader_ms:.3f} ms of host time per "
-          f"train batch of {BATCH} (HDF5 reads, sampling, collation); train "
-          f"step {[round(m, 3) for m in step_ms]} ms on the host clock per "
-          f"epoch (prefetch on)")
+          f"train batch of {BATCH} with the feature reads, {skip_ms:.3f} ms "
+          f"with skip_feats; train step {[round(m, 3) for m in step_ms]} "
+          f"ms on the host clock per epoch, the loader feeding it "
+          f"(prefetch on)")
     print(f"pipeline: validation {[round(s, 3) for s in val_s]} s for "
           f"{n_val_videos} videos ({[round(c, 1) for c in val_caps]} caps/s,"
           f" scoring included); COCOScorer.score "
@@ -1241,11 +1411,25 @@ def phase_pipeline(opt, scratch) -> dict:
           f"{'loaded' if native.available() else 'absent (Python paths)'}; "
           f"METEOR stemmer "
           f"{'nltk Porter' if meteor._STEMMER is not None else 'none'}")
-    batch = device_batch(next(iter(loaders["train_loader"])), "cuda")
+    batch = trainer._device_batch(next(iter(skip_loader)))
     step_dev = _device_ms(lambda: trainer._train_step_fn(batch), reps=3)
     print(f"pipeline: one train step's device time {step_dev:.3f} ms "
           f"(profiler) against the loader's {loader_ms:.3f} ms of host time "
           f"per batch")
+
+    # grouped validation against per-batch validation of the same weights:
+    # the captions and their scores, and the COCO dict
+    fused_scores, fused_preds = _validate_preds(trainer, 4)
+    batch_scores, batch_preds = _validate_preds(trainer, 1)
+    assert len(fused_preds) == n_val_videos, len(fused_preds)
+    assert fused_preds == batch_preds
+    assert fused_scores == batch_scores, (fused_scores, batch_scores)
+    distinct = len({e["caption"] for v in fused_preds.values() for e in v})
+    print(f"pipeline: validation with eval_fused_k 4 (grouped) == 1 (batch "
+          f"by batch): {len(fused_preds)} videos' captions and scores equal "
+          f"({distinct} distinct captions), {len(fused_scores)} COCO scores "
+          f"equal (CIDEr {fused_scores['CIDEr']:.6f}); grouped "
+          f"{val_s[-2]:.3f} s, batch by batch {val_s[-1]:.3f} s")
 
     # a standalone save and load of the flagship's weights
     path = os.path.join(scratch, "pipeline", "probe.ckpt")
@@ -1275,10 +1459,188 @@ def phase_pipeline(opt, scratch) -> dict:
         resumed.model.state_dict().values(), final_state.values()))
     assert worst <= 1e-5, worst
     assert resumed._switched and resumed.global_step == steps
+    assert resumed._feature_bank is not None
+    assert resumed._feature_bank.lookups == steps // PIPELINE_EPOCHS
     print(f"pipeline: resume: epoch 1 loss {got:.6f} against the "
           f"uninterrupted {want:.6f} (relative gap {rel:.2e} <= 1e-5), "
           f"parameters within {worst:.2e} (<= 1e-5)")
-    return {name: counts[name] for name in ("fused_head_topk",) + trained}
+    return ({name: counts[name] for name in ("fused_head_topk",) + trained},
+            base, loader_fn, corpus, refs)
+
+
+# ---------------------------------------------------------------------------
+# the device feature bank at the flagship's MSRVTT size
+# ---------------------------------------------------------------------------
+
+BANK_VIDEOS, BANK_FRAMES = 10000, 60
+
+
+class _RowStore:
+    """A feature store that answers video ``i`` with the window at offset
+    ``i`` of one seeded-noise vector, shaped [rows, dim]: a distinct array
+    for every video at the memory of one, what ``_load_feats`` and
+    ``load_r_feats`` read from an HDF5 file at the full scale without the
+    host memory of 10 000 arrays."""
+
+    def __init__(self, rows, dim, seed):
+        self.shape = (rows, dim)
+        self.noise = np.random.default_rng(seed).standard_normal(
+            rows * dim + BANK_VIDEOS, dtype=np.float32)
+
+    def __contains__(self, vid):
+        return vid.startswith("video")
+
+    def __getitem__(self, vid):
+        i = int(vid[len("video"):])
+        return self.noise[i:i + self.shape[0] * self.shape[1]].reshape(
+            self.shape)
+
+
+def phase_bank(opt) -> None:
+    """The device feature bank of the flagship's MSRVTT size: 10 000 videos
+    x 60 frames x (128 + 2048 + 512) plus 20 retrieval rows x 512, 6.9 GB in
+    f32, read from the stores, stacked one modality at a time and copied to
+    the card; its resident bytes, build seconds and gather ms at batch 64,
+    for ``feature_cache_dtype`` None and ``bfloat16``."""
+    from care_tpu_torch.data.datasets import VideoOnlyDataset
+    from care_tpu_torch.data.feature_bank import build_feature_bank
+
+    class Stores(VideoOnlyDataset):
+        def __init__(self, opt):       # the stores, no corpus
+            self.opt = opt
+            self.ids_set = list(range(BANK_VIDEOS))
+            self.vid2id = None
+            self._databases = [
+                [c, [_RowStore(opt["retrieval_topk"] if c == "r"
+                               else BANK_FRAMES, opt[f"dim_{c}"], i)],
+                 opt[f"dim_{c}"]] for i, c in enumerate(opt["modality"])]
+
+    cfg = dict(opt, n_total_frames=BANK_FRAMES)
+    assert cfg["modality"] == "amir" and cfg["load_feats_type"] == 0, cfg
+    rs = np.random.RandomState(SEED)
+    vids = [f"video{v}" for v in rs.randint(0, BANK_VIDEOS, BATCH)]
+    frames = np.stack([np.sort(rs.choice(BANK_FRAMES, cfg["n_frames"],
+                                         replace=False))
+                       for _ in range(BATCH)])
+    for dtype in (None, "bfloat16"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        stores = Stores(cfg)
+        bank = build_feature_bank(stores, dict(
+            cfg, feature_cache_dtype=dtype), "cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert bank is not None, "the full-scale bank was not built"
+        resident = torch.cuda.memory_allocated() - before
+        assert resident >= bank.nbytes(), (resident, bank.nbytes())
+        out = bank.lookup(vids, frames)
+        assert [tuple(t.shape) for t in out] == [
+            (BATCH, cfg["n_frames"], cfg[f"dim_{c}"]) for c in "ami"] + [
+            (BATCH, cfg["retrieval_topk"], cfg["dim_r"])]
+        assert all(t.dtype == torch.float32 for t in out)
+        # every video's rows are its own: a few gathered rows against the
+        # stores' values, rounded as the bank stores them
+        for b in range(0, BATCH, 9):
+            for (c, (store,), _), got in zip(stores.databases, out):
+                want = torch.as_tensor(
+                    store[vids[b]] if c == "r" else store[vids[b]][frames[b]])
+                if dtype is not None:
+                    want = want.to(torch.bfloat16).float()
+                assert torch.equal(got[b].cpu(), want), (dtype, c, b)
+        gather_ms = _time_ms(lambda: bank.lookup(vids, frames), n=50)
+        print(f"bank feature_cache_dtype={dtype}: {bank.describe()}; "
+              f"{resident} bytes resident on the card; built (stores read, "
+              f"stacked and copied) in {seconds:.3f} s, "
+              f"{bank.nbytes() / seconds / 1e9:.2f} GB/s of table; gather "
+              f"{gather_ms:.4f} ms per batch of {BATCH}")
+        del bank, out
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# the serving entry points on the pipeline's checkpoint
+# ---------------------------------------------------------------------------
+
+def phase_entry(opt, loader_fn, corpus, refs, scratch) -> dict:
+    """``python -m care_tpu_torch.translate`` (``main``) on the pipeline's
+    best checkpoint through ``load_model``, on the test split: with
+    ``--fused_k 4`` and pipelined (equal predictions JSON and COCO dicts),
+    then
+    ``--latency`` at batch 1 in a temporary directory (a ``latency.txt``
+    line), then ``care_tpu_torch.eval_json`` on the written predictions
+    (the scores of ``run_eval``). K1 launches == beam steps."""
+    import care_tpu_torch.data as data_pkg
+    import care_tpu_torch.decoding as decoding_pkg
+    from care_tpu_torch import eval_json, translate
+    root = os.path.join(scratch, "pipeline")
+    ckpt = os.path.join(opt["checkpoint_path"], "best.ckpt")
+    out = os.path.join(scratch, "entry")
+    translators = []
+    inner_get = decoding_pkg.get_translator
+
+    def get_translator_counted(*args, **kwargs):
+        translators.append(inner_get(*args, **kwargs))
+        return translators[-1]
+
+    common = ["-cp", ckpt, "--base_data_path", root, "--batch_size",
+              str(BATCH), "--json_path", out]
+    # the entry points read the dataset through care_tpu_torch.data's
+    # get_loader: stand in the pipeline's (the in-memory store where h5py
+    # is absent)
+    inner_loader = data_pkg.get_loader
+    data_pkg.get_loader = loader_fn
+    decoding_pkg.get_translator = get_translator_counted
+    cwd = os.getcwd()
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        (fused,) = translate.main(common + ["--fused_k", "4", "--json_name",
+                                            "fused.json"])
+        torch.cuda.synchronize()
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (piped,) = translate.main(common + ["--json_name", "piped.json"])
+        torch.cuda.synchronize()
+        piped_s = time.perf_counter() - t0
+        os.makedirs(os.path.join(scratch, "latency"))
+        os.chdir(os.path.join(scratch, "latency"))
+        translate.main(["-cp", ckpt, "--base_data_path", root, "--latency"])
+        counts = _launch_counts()
+    finally:
+        os.chdir(cwd)
+        data_pkg.get_loader = inner_loader
+        decoding_pkg.get_translator = inner_get
+    steps = sum(t.beam_steps for t in translators)
+    assert len(translators) == 3 and steps > 0, (len(translators), steps)
+    assert counts["fused_head_topk"] == steps, (counts, steps)
+    assert fused == piped, (fused, piped)
+    with open(os.path.join(out, "fused.json")) as f:
+        fused_preds = json.load(f)
+    with open(os.path.join(out, "piped.json")) as f:
+        piped_preds = json.load(f)
+    assert fused_preds == piped_preds
+    n_test = len(corpus["info"]["split"]["test"])
+    assert len(piped_preds) == n_test
+    with open(os.path.join(scratch, "latency", "latency.txt")) as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 1, lines
+    method, task, total, n, avg = lines[0].split("\t")
+    assert int(n) == n_test and float(avg) > 0, lines
+    scores = eval_json.main(["-json", os.path.join(out, "piped.json"),
+                             "-ref", opt["reference"]])
+    assert scores == piped, (scores, piped)
+    print(f"entry: translate --fused_k 4 == pipelined on {n_test} test "
+          f"videos (predictions JSON and COCO dict equal, CIDEr "
+          f"{piped['CIDEr']:.6f}); "
+          f"{fused_s:.3f} / {piped_s:.3f} s a run "
+          f"(load_model, loader and scoring included); --latency at batch "
+          f"1: {1e3 * float(avg):.3f} ms a video over {n} videos "
+          f"(latency.txt: {method} {task}); eval_json == run_eval's scores;"
+          f" launches { {k: v for k, v in counts.items() if v} }: K1 == "
+          f"{steps} beam steps")
+    return {"fused_head_topk": counts["fused_head_topk"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1703,8 +2065,14 @@ def main() -> None:
         counts.update(phase_flash_gradient())
         counts.update(phase_train(opt, scratch))
         # each path's launches, summed over the paths that run the kernel
-        for k, n in phase_pipeline(opt, scratch).items():
+        pipeline_counts, base, loader_fn, corpus, refs = phase_pipeline(
+            opt, scratch)
+        for k, n in pipeline_counts.items():
             counts[k] += n
+        for k, n in phase_entry(base, loader_fn, corpus, refs,
+                                scratch).items():
+            counts[k] += n
+        phase_bank(opt)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     kernels = phase_time(opt, errors, counts)

@@ -87,14 +87,16 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'care_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 41, mods\n"
+        "assert len(mods) >= 45, mods\n"
         "for m in ('ops.fused_xent', 'ops.flash_attention',\n"
         "          'training.losses', 'training.optim', 'training.trainer',\n"
         "          'training.checkpoints', 'data.text', 'data.samplers',\n"
         "          'data.corpus', 'data.datasets', 'data.loader',\n"
+        "          'data.feature_bank', 'models.loading',\n"
         "          'metrics.tokenizer', 'metrics.bleu', 'metrics.rouge',\n"
         "          'metrics.cider', 'metrics.meteor', 'metrics.cocoscorer',\n"
-        "          'native', 'utils.logger', 'config.cli', 'train'):\n"
+        "          'native', 'utils.logger', 'config.cli', 'train',\n"
+        "          'translate', 'eval_json'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -121,7 +123,7 @@ UNSUPPORTED = [
     ("compositional_intra", True), ("compositional_inter", True),
     ("compositional_ffn", True), ("pointer", "Pointer"),
     ("decoder", "SingleLayerRNNDecoder"),
-    ("fused_head_backend", "xla"), ("compute_dtype_decode", "bfloat16"),
+    ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
     ("decoding_type", "NARFormer"), ("encoder", "EncoderWithHighWayBN"),
     ("fusion", "channel_concat"), ("use_attr_type", "emb_att"),
 ]
@@ -163,11 +165,29 @@ def test_options_the_long_key_slice_implements_match_jax(key, value):
 
 
 def test_ensembles_and_fused_batches_raise():
+    """Ensembles still raise; fused batches, which used to raise, now
+    decode as the batches one by one do."""
     opt = flagship_small_opt()
     model = build_captioner(opt, device="cpu")
     translator = get_translator(opt, device="cpu")
-    batch = {"feats": []}
     with pytest.raises(NotImplementedError, match="ensembles"):
-        translator.translate_batch([model, model], batch)
-    with pytest.raises(NotImplementedError, match="translate_batches_fused"):
-        translator.translate_batches_fused([model], [batch])
+        translator.translate_batch([model, model], {"feats": []})
+    batches = [{"feats": synthetic_batch(opt, 2, seed=s)["feats"]}
+               for s in (1, 2)]
+    assert translator.translate_batches_fused([model], batches) == [
+        translator.translate_batch(model, b) for b in batches]
+
+
+def test_half_precision_decode_builds_and_serves():
+    """``compute_dtype_decode: bfloat16`` used to raise; now the
+    translator serves a bf16 copy of the model, and the caller's model
+    stays f32."""
+    opt = dict(flagship_small_opt(), compute_dtype_decode="bfloat16")
+    model = build_captioner(opt, device="cpu")
+    translator = get_translator(opt, device="cpu")
+    hyps, scores = translator.translate_batch(
+        model, {"feats": synthetic_batch(opt, 2, seed=3)["feats"]})
+    assert len(hyps) == 2 and all(np.isfinite(s[0]) for s in scores)
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    served = translator.serving_model(model)
+    assert all(p.dtype == torch.bfloat16 for p in served.parameters())
