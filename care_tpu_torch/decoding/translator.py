@@ -63,8 +63,9 @@ def _cast_variables(model: Captioner, compute_dtype: torch.dtype,
                     keep_head_f32: bool) -> Captioner:
     """A copy of ``model`` for serving whose floating parameters are in
     ``compute_dtype``; with ``keep_head_f32`` the vocab projection
-    (``cls_head``) keeps f32. Buffers (a fixed sinusoid table) keep their
-    dtype, as the JAX package casts only its variables."""
+    (``cls_head``) keeps f32. The BatchNorm running statistics are cast
+    too, as the JAX package casts its ``batch_stats`` with its other
+    variables; other buffers (a fixed sinusoid table) keep their dtype."""
     served = copy.deepcopy(model)
     with torch.no_grad():
         for name, p in served.named_parameters():
@@ -72,6 +73,11 @@ def _cast_variables(model: Captioner, compute_dtype: torch.dtype,
                 continue
             if p.is_floating_point():
                 p.data = p.data.to(compute_dtype)
+        for module in served.modules():
+            if isinstance(module, torch.nn.BatchNorm1d):
+                module.running_mean.data = module.running_mean.to(
+                    compute_dtype)
+                module.running_var.data = module.running_var.to(compute_dtype)
     return served
 
 
@@ -101,15 +107,19 @@ class TranslatorARFormer:
     def __init__(self, opt: dict, device=None):
         if opt.get("fused_head_backend", "auto") != "auto":
             raise unsupported("fused_head_backend", opt["fused_head_backend"])
-        if opt.get("pointer") or opt.get("cls_head") != "NaiveHead":
-            raise unsupported("a head other than the plain NaiveHead")
+        if opt.get("pointer"):
+            raise unsupported("pointer", opt["pointer"])
         self.opt = opt
         self.device = resolve_device(device)
         self.beam_size = opt.get("beam_size", 5)
         self.beam_alpha = opt.get("beam_alpha", 1.0)
         self.topk = opt.get("topk", 1)
         self.max_len = opt.get("max_len", 30)
-        self.fused_head = opt.get("fused_head_topk", True)
+        # the fused head streams a bias-free projection of the decoder's
+        # hidden state: the plain NaiveHead, as the JAX package rules; any
+        # other head decodes through its dense logits
+        self.fused_head = (opt.get("fused_head_topk", True)
+                           and opt.get("cls_head") == "NaiveHead")
         self.compute_dtype = decode_dtype(opt.get("compute_dtype_decode"))
         self.keep_head_f32 = bool(opt.get("decode_head_f32", False))
         # the cast copy of the last model served in half precision, with
@@ -155,6 +165,14 @@ class TranslatorARFormer:
                                 device=self.device).to(dtype)
                 for f in batch["feats"]]
 
+    def _batch_inputs(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The decoder inputs a batch carries besides its features (the
+        category ids of ``with_category``), on the device."""
+        return {k: torch.as_tensor(np.asarray(batch[k]) if not
+                                   torch.is_tensor(batch[k]) else batch[k],
+                                   device=self.device).long()
+                for k in ("category",) if k in batch}
+
     @torch.no_grad()
     def dispatch(self, models, batch: Dict[str, Any]):
         """Decode one batch on the device; returns the beam's output tensors
@@ -163,7 +181,8 @@ class TranslatorARFormer:
         feats = self._feats(batch)
         N = feats[0].shape[0]
         enc = model.encoding_phase(feats)
-        inputs = model.prepare_inputs_for_decoder(enc, batch)
+        inputs = model.prepare_inputs_for_decoder(enc,
+                                                  self._batch_inputs(batch))
         carry = model.init_decode_state(inputs, self.max_len, self.beam_size)
 
         def step_fn(tokens, position, state):

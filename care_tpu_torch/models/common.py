@@ -1,4 +1,5 @@
-"""Shared building blocks: the Dense convention, its init, activations.
+"""Shared building blocks: the Dense convention, its init, activations,
+the semantic-conditioned ``CompositionalLinear``.
 
 Weight-init parity with the reference (``models/Framework.py:115-134``) and
 the JAX package: xavier-uniform for every Linear weight and embedding
@@ -53,6 +54,29 @@ def dense(dim_in: int, dim_out: int, generator: torch.Generator,
     return layer
 
 
+class CompositionalLinear(nn.Module):
+    """Low-rank semantic-conditioned linear map ``A(B(sem) * C(x)) + b``
+    (reference ``models/components/basic.py:4-19``), the "semantic
+    composition" GSG ablation's projection: ``linear_b`` takes the concept
+    distribution [B, dim_semantic], ``linear_c`` the input, ``linear_a``
+    their product, all bias-free; ``bias`` [dim_hidden] is added last."""
+
+    def __init__(self, dim_hidden: int, dim_factor: int, dim_semantic: int,
+                 dim_input: int, generator: torch.Generator):
+        super().__init__()
+        self.linear_b = dense(dim_semantic, dim_factor, generator, bias=False)
+        self.linear_c = dense(dim_input, dim_factor, generator, bias=False)
+        self.linear_a = dense(dim_factor, dim_hidden, generator, bias=False)
+        self.bias = nn.Parameter(torch.zeros(dim_hidden))
+
+    def forward(self, x, semantic_input):
+        out_b = self.linear_b(semantic_input)
+        if x.dim() == 3 and out_b.dim() == 2:
+            out_b = out_b[:, None, :]
+        out = self.linear_a(out_b * self.linear_c(x))
+        return out + self.bias
+
+
 def xavier_param(shape, generator: torch.Generator,
                  zero_pad_row: bool = False) -> nn.Parameter:
     """A xavier-uniform table, optionally with the PAD row zeroed."""
@@ -90,10 +114,13 @@ class Dropout(nn.Module):
 
 
 def set_dropout_generator(model: nn.Module, generator) -> None:
-    """Every ``Dropout`` of ``model`` draws from ``generator`` from now on
-    (a ``torch.Generator`` on the model's device, or None)."""
+    """Every ``Dropout`` of ``model``, and every other module that draws in
+    training (its ``draws_in_training`` is True: the concept detector's
+    sparse frame sampling), draws from ``generator`` from now on (a
+    ``torch.Generator`` on the model's device, or None)."""
     for module in model.modules():
-        if isinstance(module, Dropout):
+        if isinstance(module, Dropout) or getattr(module,
+                                                  "draws_in_training", False):
             module.generator = generator
 
 

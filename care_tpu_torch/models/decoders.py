@@ -1,10 +1,16 @@
 """The Transformer decoder: full forward and KV-cached incremental decode.
 
 Port of ``care_tpu/models/decoders.py:TransformerDecoder`` (reference
-``models/Decoder/Transformer.py``) for AR decoding without concepts or in
-the flagship's G-LSG modes (GSG ``emb`` per-token add, LSG ``concat`` keys),
-post- or pre-LN, with or without relative-position biases. Masks are
-additive 0/-1e9 biases computed from the token ids.
+``models/Decoder/Transformer.py``) for AR decoding in every G-LSG mode:
+the GSG vector added to every token (``emb``) or prepended as one prefix
+token (``pp_emb``), the LSG concept slots as cross-attention keys
+(``concat``), as a concept-attention sublayer (``att``) or as a prefix of
+the sequence (``prefix``, with the prefix-mask surgery), category
+embeddings, the compositional projections conditioned on ``preds_attr``,
+post- or pre-LN, with or without relative-position biases, and the
+``TAP_pos`` / ``TAP_ln`` text post-processing of the embeddings the
+decoder-side concept losses read. Masks are additive 0/-1e9 biases
+computed from the token ids.
 """
 
 from typing import Any, Dict
@@ -16,6 +22,7 @@ from care_tpu_torch import constants
 from care_tpu_torch.models.common import Dropout, LayerNorm, unsupported
 from care_tpu_torch.models.embeddings import Embeddings
 from care_tpu_torch.models.layers import DecoderLayer
+from care_tpu_torch.models.predictors import TextPostProcesser
 from care_tpu_torch.ops.attention import NEG_INF
 
 
@@ -65,9 +72,9 @@ class TransformerDecoder(nn.Module):
             raise unsupported("decoder", opt["decoder"])
         if opt["decoding_type"] != "ARFormer":
             raise unsupported("decoding_type", opt["decoding_type"])
-        if opt.get("TAP_pos") or opt.get("TAP_ln"):
-            raise unsupported("TAP_pos/TAP_ln")
         self.opt = opt
+        self.TPP = (TextPostProcesser(opt, generator)
+                    if opt.get("TAP_pos") or opt.get("TAP_ln") else None)
         self.embedding = Embeddings(opt, generator)
         self.num_layers = opt["num_hidden_layers_decoder"]
         for i in range(self.num_layers):
@@ -79,83 +86,207 @@ class TransformerDecoder(nn.Module):
             self.LayerNorm = LayerNorm(opt["dim_hidden"],
                                        eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
+        t = opt.get("use_attr_type") or ""
+        self.concept_prefix = bool(opt.get("use_attr")) and "prefix" in t
+        self.prefix_len = 0
+        if self.concept_prefix:
+            self.prefix_len = opt["use_attr_topk"]
+        elif opt.get("use_attr") and "pp" in t:
+            self.prefix_len = 1
 
     @property
     def layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.num_layers)]
 
-    def forward(self, input_ids, encoder_hidden_states,
-                semantic_hidden_states=None) -> Dict[str, Any]:
+    # ----- embedding helpers -------------------------------------------------
+    def get_sentence_embeddings(self, input_ids, average_pooling: bool = True):
+        embs = self.embedding.embed_tokens(input_ids)
+        if average_pooling:
+            # the JAX package's mask compares the embeddings with PAD
+            mask = (embs != constants.PAD).float()
+            n_words = mask.sum(dim=1, keepdim=True)
+            embs = (embs * mask).sum(dim=1) / n_words.squeeze(1)
+        return embs if self.TPP is None else self.TPP(embs)
+
+    def get_attr_embeddings(self, attr_input_ids):
+        embs = self.embedding.embed_tokens(attr_input_ids)
+        return embs if self.TPP is None else self.TPP(embs)
+
+    def _self_attention_bias(self, input_ids):
+        bias = (key_pad_bias(input_ids, input_ids.shape[1])
+                + causal_bias(input_ids.shape[1], self.opt.get("watch", 0),
+                              input_ids.device))
+        if self.prefix_len:
+            bias = prefix_mask_surgery(bias, self.prefix_len)
+        return bias
+
+    def forward(self, input_ids, encoder_hidden_states, semantic_embs=None,
+                semantic_hidden_states=None, preds_attr=None, category=None,
+                attr_input_ids=None, collect_aux: bool = True,
+                **unused) -> Dict[str, Any]:
         """Full forward over ``input_ids`` [B, L]. Returns
-        {"hidden_states": [B, L, D]}."""
-        attention_bias = (key_pad_bias(input_ids, input_ids.shape[1])
-                          + causal_bias(input_ids.shape[1],
-                                        self.opt.get("watch", 0),
-                                        input_ids.device))
-        hidden_states = self.embedding(
-            input_ids, semantic_hidden_states=semantic_hidden_states)
+        {"hidden_states": [B, L', D]} (L' counts the prefix slots of the
+        prefix modes) and, with ``collect_aux``, the JAX package's aux
+        entries: every layer's hidden states and attention probabilities,
+        the last layer's contexts and sublayer outputs, the input and
+        sentence embeddings, the concept-attention probabilities (with
+        ``use_attr``) and the ``attr_input_ids`` embeddings."""
+        opt = self.opt
+        if isinstance(encoder_hidden_states, (list, tuple)):
+            if len(encoder_hidden_states) != 1:
+                raise ValueError("the decoder takes one fused stream")
+            encoder_hidden_states = encoder_hidden_states[0]
+        attention_bias = self._self_attention_bias(input_ids)
+        input_embs = self.embedding(
+            input_ids, semantic_hidden_states=semantic_hidden_states,
+            category=category)
+        original_input_embs = input_embs
+        if self.concept_prefix:
+            input_embs = torch.cat([semantic_embs, input_embs], dim=1)
         # every encoder position is visible (the reference builds an
         # all-ones source mask), so the cross attention needs no mask
+        all_hidden_states = [input_embs]
+        all_intra, all_inter, all_attr = (), (), ()
         for layer in self.layers:
-            hidden_states, _ = layer(
-                hidden_states, encoder_hidden_states,
-                attention_mask=attention_bias,
-                decoding_type=self.opt["decoding_type"],
-                n_frames=self.opt["n_frames"])
+            hidden_states, probs, contexts, embs = layer(
+                all_hidden_states[-1], encoder_hidden_states,
+                attention_mask=attention_bias, semantic_embs=semantic_embs,
+                preds_attr=preds_attr, decoding_type=opt["decoding_type"],
+                n_frames=opt["n_frames"])
+            # unpacked as the JAX package unpacks them: with attr2cross the
+            # second entry is the concept attention's
+            intra_probs, inter_probs, *rest = probs
+            text_context, context, *_ = contexts
+            self_embs, cross_embs, *_ = embs
+            all_hidden_states.append(hidden_states)
+            all_intra += (intra_probs,)
+            all_inter += (inter_probs,)
+            if rest:
+                all_attr += (rest[0],)
+        hidden_states = all_hidden_states[-1]
         if self.LayerNorm is not None:
             hidden_states = self.LayerNorm(hidden_states)
-        return {"hidden_states": self.dropout(hidden_states)}
+        outputs: Dict[str, Any] = {"hidden_states": self.dropout(hidden_states)}
+        if collect_aux:
+            outputs.update({
+                "all_hidden_states": all_hidden_states,
+                "all_intra_attentions": all_intra,
+                "all_inter_attentions": all_inter,
+                "attention_probs": all_inter[-1].mean(dim=1),
+                "context": context,
+                "text_context": text_context,
+                "self_embs": self_embs,
+                "cross_embs": cross_embs,
+                "input_embs": original_input_embs,
+                "input_embs_exclude_bos": original_input_embs[:, 1:, :],
+                "sentence_embs": self.get_sentence_embeddings(
+                    input_ids, average_pooling=False),
+            })
+            if opt.get("use_attr"):
+                outputs["attr_attention_probs"] = all_attr
+            if attr_input_ids is not None:
+                outputs["attr_embs"] = self.get_attr_embeddings(
+                    attr_input_ids)
+        return outputs
 
     # ----- KV-cached incremental decoding ------------------------------------
     def init_decode_state(self, batch_size: int, max_len: int,
-                          encoder_hidden_states, semantic_hidden_states=None,
-                          beam_size: int = 1) -> Dict[str, Any]:
-        """The decode cache: cross-attention K/V per layer + an empty
-        self-attention K/V cache.
+                          encoder_hidden_states, semantic_embs=None,
+                          semantic_hidden_states=None, preds_attr=None,
+                          category=None, beam_size: int = 1
+                          ) -> Dict[str, Any]:
+        """The decode cache: cross-attention (and concept-attention) K/V
+        per layer + an empty self-attention K/V cache, with the concept
+        prefix of the ``prefix`` / ``pp_emb`` modes prefilled.
 
         With ``beam_size`` > 1 the encoder-side inputs arrive un-enlarged
-        ([B, ...]); only the per-row state (the self K/V cache and the GSG
-        vector the step embedding adds) is laid out at ``batch_size``
-        (= B*beam) rows, instance-major. Cross-attention K/V stay at [B]:
-        ``attend`` folds the beam into the query rows.
+        ([B, ...]). Only the per-row state (the self K/V cache, and the GSG
+        vector, category and ``preds_attr`` the step's embedding and
+        projections take) is laid out at ``batch_size`` (= B*beam) rows,
+        instance-major. Cross and concept K/V stay at [B]: ``attend`` folds
+        the beam into the query rows. The prefix slots see only themselves,
+        so each layer's prefix K/V come from running the layer over the
+        prefix block at [B] with a diagonal mask; an instance's beams get
+        the same rows.
         """
-        h = self.opt["num_attention_heads"]
-        dh = self.opt["dim_hidden"] // h
+        if isinstance(encoder_hidden_states, (list, tuple)):
+            encoder_hidden_states = encoder_hidden_states[0]
+        opt = self.opt
+        h = opt["num_attention_heads"]
+        dh = opt["dim_hidden"] // h
+        cache_len = max_len + self.prefix_len
+
+        def rep(x):
+            if x is None or beam_size == 1:
+                return x
+            return x.repeat_interleave(beam_size, dim=0)
+
         layers_state = []
         for layer in self.layers:
-            shape = (batch_size, h, max_len, dh)
+            inter_kv, attr_kv = layer.init_step(
+                encoder_hidden_states, semantic_embs=semantic_embs,
+                preds_attr=preds_attr)
+            shape = (batch_size, h, cache_len, dh)
             layers_state.append({
-                "inter_kv": layer.init_step(encoder_hidden_states),
+                "inter_kv": inter_kv, "attr_kv": attr_kv,
                 "self_k": encoder_hidden_states.new_zeros(shape),
                 "self_v": encoder_hidden_states.new_zeros(shape)})
-        if semantic_hidden_states is not None and beam_size > 1:
-            semantic_hidden_states = semantic_hidden_states.repeat_interleave(
-                beam_size, dim=0)
-        return {"layers": layers_state,
-                "semantic_hidden_states": semantic_hidden_states}
+        state = {"layers": layers_state,
+                 "aux": {"category": rep(category),
+                         "semantic_hidden_states": rep(semantic_hidden_states),
+                         "preds_attr": rep(preds_attr)}}
+        if self.prefix_len:
+            if self.concept_prefix:
+                x = semantic_embs
+            else:
+                x = self.embedding.embed_pp_prefix(semantic_hidden_states,
+                                                   category=category)
+            p = self.prefix_len
+            eye = torch.eye(p, dtype=torch.bool, device=x.device)
+            diag = torch.full((p, p), NEG_INF, device=x.device).masked_fill(
+                eye, 0.0)[None, None]
+            for layer, st in zip(self.layers, layers_state):
+                k, v = layer.prefill_self_kv(x, preds_attr)
+                st["self_k"][:, :, :p] = rep(k).to(st["self_k"].dtype)
+                st["self_v"][:, :, :p] = rep(v).to(st["self_v"].dtype)
+                x, _, _, _ = layer(
+                    x, encoder_hidden_states, attention_mask=diag,
+                    semantic_embs=semantic_embs, preds_attr=preds_attr,
+                    n_frames=opt["n_frames"])
+        return state
 
     def decode_step(self, token_ids, position: int, state):
         """One AR step. token_ids: [B] int; position: the 0-based word
         position. Writes this step's self-attention K/V into the cache in
         place and returns (hidden [B, D], state)."""
+        aux = state["aux"]
         cache_len = state["layers"][0]["self_k"].shape[2]
+        dev = token_ids.device
+        # the words of the prefix modes are embedded without the semantic
+        # term: the prefix carries it and sits in the cache already
         x = self.embedding(
             token_ids[:, None],
-            semantic_hidden_states=state["semantic_hidden_states"],
+            semantic_hidden_states=(None if self.prefix_len
+                                    else aux["semantic_hidden_states"]),
             position_ids=torch.full((token_ids.shape[0], 1), position,
-                                    device=token_ids.device))
-        visible = torch.arange(cache_len, device=token_ids.device) <= position
-        self_bias = torch.zeros(cache_len, device=token_ids.device)
+                                    device=dev),
+            category=aux["category"])
+        cache_pos = position + self.prefix_len
+        # visible: the prefix slots and the words up to this one
+        visible = torch.arange(cache_len, device=dev) <= cache_pos
+        self_bias = torch.zeros(cache_len, device=dev)
         self_bias = self_bias.masked_fill(~visible, NEG_INF)[None, None, None]
+        preds_attr = aux["preds_attr"]
         h = x
         for layer, st in zip(self.layers, state["layers"]):
-            q, (k, v) = layer.self_qkv(h)
-            st["self_k"][:, :, position:position + 1] = k
-            st["self_v"][:, :, position:position + 1] = v
+            q, (k, v) = layer.self_qkv(h, preds_attr)
+            st["self_k"][:, :, cache_pos:cache_pos + 1] = k
+            st["self_v"][:, :, cache_pos:cache_pos + 1] = v
             # the relative-position rows select by the position in the
-            # full sequence
-            h = layer.step(h, position, (st["self_k"], st["self_v"]),
-                           st["inter_kv"], self_bias=self_bias,
+            # full (prefix + words) sequence
+            h = layer.step(h, cache_pos, (st["self_k"], st["self_v"]),
+                           st["inter_kv"], attr_kv=st["attr_kv"],
+                           self_bias=self_bias, preds_attr=preds_attr,
                            n_frames=self.opt["n_frames"], q=q)
         if self.LayerNorm is not None:
             h = self.LayerNorm(h)

@@ -11,8 +11,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from care_tpu_torch.models.common import (Dropout, LayerNorm, unsupported,
-                                          xavier_param)
+from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
+                                          unsupported, xavier_param)
 from care_tpu_torch.ops.attention import relative_position_index
 
 
@@ -79,13 +79,17 @@ class RelativePositionBias(nn.Module):
 
 class NaiveEmbeddings(nn.Module):
     """Word + learned position + LN + dropout: the concept-slot embeddings
-    of the SemanticContainer (reference ``Embeddings.py:30-87``)."""
+    of the SemanticContainer and the retrieved captions' own embeddings
+    (reference ``Embeddings.py:30-87``); ``zero_pad_row`` zeroes the PAD
+    row of the word table at init."""
 
     def __init__(self, n_words: int, n_positions: int, dim_hidden: int,
                  layer_norm_eps: float, hidden_dropout_prob: float,
-                 generator: torch.Generator, has_dropout: bool = True):
+                 generator: torch.Generator, has_dropout: bool = True,
+                 zero_pad_row: bool = False):
         super().__init__()
-        self.word_embeddings = xavier_param((n_words, dim_hidden), generator)
+        self.word_embeddings = xavier_param((n_words, dim_hidden), generator,
+                                            zero_pad_row=zero_pad_row)
         self.position_embeddings = xavier_param((n_positions, dim_hidden),
                                                 generator)
         self.LayerNorm = LayerNorm(dim_hidden, eps=layer_norm_eps)
@@ -99,45 +103,93 @@ class NaiveEmbeddings(nn.Module):
 
 class Embeddings(nn.Module):
     """Decoder input embeddings (reference ``Embeddings.py:90-188``):
-    word + position (+ the GSG ``semantic_hidden_states`` added to every
-    token in ``emb`` mode) -> LN -> dropout. With ``RPE`` the absolute
-    position term goes unless ``RPE_keep_abs_pos``; with
-    ``transformer_pre_ln`` the LN goes (the layers normalise their own
-    inputs)."""
+    word + position (+ category) (+ the GSG ``semantic_hidden_states``,
+    added to every token in ``emb`` mode or prepended as one prefix token in
+    ``pp_emb`` mode) -> LN -> dropout. With ``RPE`` the absolute position
+    term goes unless ``RPE_keep_abs_pos``; with ``transformer_pre_ln`` the
+    LN goes (the layers normalise their own inputs).
+
+    ``pretrained_embs_path`` reads the word table from a local ``.npy``
+    file (projected by the bias-free ``w2h`` when its width is not
+    ``dim_hidden``); ``with_category`` adds a row of the learned
+    ``category_embeddings`` table [num_category, D] to every token.
+    """
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        for key in ("pretrained_embs_path", "with_category"):
-            if opt.get(key):
-                raise unsupported(key, opt[key])
+        if opt.get("with_category") and opt.get("use_category_embs"):
+            raise unsupported("use_category_embs", opt["use_category_embs"])
+        dim = opt["dim_hidden"]
+        self.w2h = None
+        if opt.get("pretrained_embs_path"):
+            table = np.load(opt["pretrained_embs_path"]).astype(np.float32)
+            if table.shape[0] != opt["vocab_size"]:
+                raise ValueError(f"pretrained embeddings {table.shape} for "
+                                 f"a vocabulary of {opt['vocab_size']}")
+            self.word_embeddings = nn.Parameter(torch.from_numpy(table))
+            if table.shape[1] != dim:
+                self.w2h = dense(table.shape[1], dim, generator, bias=False)
+        else:
+            self.word_embeddings = xavier_param(
+                (opt["vocab_size"], dim), generator, zero_pad_row=True)
         use_attr_type = opt.get("use_attr_type", "") or ""
-        if "pp_emb" in use_attr_type:
-            raise unsupported("use_attr_type", use_attr_type)
         self.semantic_flag = "emb" in use_attr_type
-        self.word_embeddings = xavier_param(
-            (opt["vocab_size"], opt["dim_hidden"]), generator,
-            zero_pad_row=True)
+        self.prefix_flag = "pp_emb" in use_attr_type
         self.position_embeddings = None
         if not opt.get("RPE", False) or opt.get("RPE_keep_abs_pos", False):
             self.position_embeddings = PositionalEmbedding(
-                opt["max_len"], opt["dim_hidden"],
-                opt.get("trainable_pe", False), generator)
+                opt["max_len"], dim, opt.get("trainable_pe", False),
+                generator)
+        self.category_embeddings = None
+        if opt.get("with_category"):
+            self.category_embeddings = xavier_param(
+                (opt["num_category"], dim), generator)
         self.LayerNorm = None
         if not opt.get("transformer_pre_ln", False):
-            self.LayerNorm = LayerNorm(opt["dim_hidden"],
-                                       eps=opt["layer_norm_eps"])
+            self.LayerNorm = LayerNorm(dim, eps=opt["layer_norm_eps"])
         self.dropout = Dropout(opt["hidden_dropout_prob"])
 
+    def embed_tokens(self, input_ids):
+        embs = F.embedding(input_ids, self.word_embeddings)
+        return embs if self.w2h is None else self.w2h(embs)
+
+    def _category(self, category):
+        return self.category_embeddings[category.reshape(-1)][:, None, :]
+
+    def embed_pp_prefix(self, semantic_hidden_states, category=None):
+        """The single GSG prefix token of ``pp_emb`` mode as the full
+        forward embeds it (reference ``Embeddings.py:156-168``): no
+        position term, + category, the shared LN; no dropout (decode
+        time). Returns [B, 1, D]."""
+        embeddings = semantic_hidden_states[:, None, :]
+        if self.category_embeddings is not None:
+            embeddings = embeddings + self._category(category)
+        if self.LayerNorm is not None:
+            embeddings = self.LayerNorm(embeddings)
+        return embeddings
+
     def forward(self, input_ids, semantic_hidden_states=None,
-                position_ids=None):
-        embeddings = F.embedding(input_ids, self.word_embeddings)
+                position_ids=None, category=None,
+                only_word_and_position: bool = False):
+        embeddings = self.embed_tokens(input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:
                 position_ids = torch.arange(input_ids.shape[-1],
                                             device=input_ids.device)[None, :]
             embeddings = embeddings + self.position_embeddings(position_ids)
-        if self.semantic_flag and semantic_hidden_states is not None:
-            embeddings = embeddings + semantic_hidden_states[:, None, :]
+        if not only_word_and_position:
+            # the semantic terms apply only where the tensor is given: the
+            # decode step embeds the words of the prefix modes without it
+            # (the prefix sits in the self-attention cache already)
+            if (self.semantic_flag and self.prefix_flag
+                    and semantic_hidden_states is not None):
+                embeddings = torch.cat([semantic_hidden_states[:, None, :],
+                                        embeddings], dim=1)
+            if self.category_embeddings is not None:
+                embeddings = embeddings + self._category(category)
+            if (self.semantic_flag and not self.prefix_flag
+                    and semantic_hidden_states is not None):
+                embeddings = embeddings + semantic_hidden_states[:, None, :]
         if self.LayerNorm is not None:
             embeddings = self.LayerNorm(embeddings)
         return self.dropout(embeddings)

@@ -1,19 +1,112 @@
-"""Multi-stream feature encoder.
+"""Multi-stream feature encoders.
 
 Port of ``care_tpu/models/encoders.py:MultipleStreams`` (reference
-``models/Encoder.py``) with the ``Embedder`` streams the flagship uses: one
-Linear + LN + Dropout per modality character, ``temporal_concat`` fusion,
-and the per-component modality views (the decoder and the concept predictor
-may each see a subset of the streams).
+``models/Encoder.py``): one ``Encoder_<C>`` stream per dense modality
+character, of the kind the ``encoder`` option names (``Embedder``: Linear +
+LN + Dropout; ``ReLUEmbedder``: Linear + ReLU + Dropout; ``Identity``;
+``EncoderWithHighWayBN``, ARB's encoder: Linear + HighWay + BatchNorm +
+Dropout; ``MultiTransformerEncoder``: Linear + a Transformer encoder per
+stream; ``TransformerEncoder``: Linear per stream, then one Transformer
+encoder over all of them), the fusion of the streams (``temporal_concat``,
+``addition``, ``channel_concat`` or ``none``) and the per-component modality
+views (the decoder and the concept predictor may each see a subset of the
+streams). The retrieved-text stream ``t`` is embedded by the framework.
+
+The BatchNorm is ``torch.nn.BatchNorm1d``'s: in training it normalises with
+the biased batch variance and moves the running mean and the unbiased
+running variance by momentum 0.1, which the JAX package's
+``_TorchBatchNorm`` was written to reproduce; in evaluation it uses the
+running statistics.
 """
 
 from typing import Any, Dict, List
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
                                           unsupported)
+from care_tpu_torch.models.embeddings import PositionalEmbedding
+from care_tpu_torch.models.layers import EncoderLayer
+
+
+class HighWay(nn.Module):
+    """Gated highway block (reference ``Encoder.py:210-226``):
+    ``g * x + (1 - g) * tanh(w1 x)``, g = sigmoid(w2 x)."""
+
+    def __init__(self, hidden_size: int, generator: torch.Generator):
+        super().__init__()
+        self.w1 = dense(hidden_size, hidden_size, generator)
+        self.w2 = dense(hidden_size, hidden_size, generator)
+
+    def forward(self, x):
+        y = torch.tanh(self.w1(x))
+        gate = torch.sigmoid(self.w2(x))
+        return gate * x + (1 - gate) * y
+
+
+class BN1d(nn.Module):
+    """BatchNorm over the channel axis with statistics across batch x time
+    (reference ``Encoder.py:229-241``): ``bn`` is a ``BatchNorm1d``
+    (momentum 0.1, eps 1e-5). Evaluation normalises with the running
+    statistics as the JAX package writes it, in the promoted dtype of the
+    input and the module's tensors."""
+
+    def __init__(self, hidden_size: int):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.bn = nn.BatchNorm1d(hidden_size, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        flat = x.reshape(-1, self.hidden_size)
+        bn = self.bn
+        if self.training:
+            out = F.batch_norm(flat, bn.running_mean, bn.running_var,
+                               bn.weight, bn.bias, training=True,
+                               momentum=bn.momentum, eps=bn.eps)
+        else:
+            inv = torch.rsqrt(bn.running_var + bn.eps)
+            out = (flat - bn.running_mean) * inv * bn.weight + bn.bias
+        return out.reshape(x.shape)
+
+
+class TransformerEncoderBase(nn.Module):
+    """Position embedding + LN + dropout + ``num_hidden_layers_encoder``
+    self-attention encoder layers over the concatenated streams (reference
+    ``Encoder.py:244-298``)."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        self.position_embeddings = PositionalEmbedding(
+            opt["n_frames"], opt["dim_hidden"],
+            opt.get("trainable_pe", False), generator)
+        self.LayerNorm = LayerNorm(opt["dim_hidden"],
+                                   eps=opt["layer_norm_eps"])
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
+        self.num_layers = opt["num_hidden_layers_encoder"]
+        for i in range(self.num_layers):
+            self.add_module(f"layer_{i}", EncoderLayer(opt, generator))
+
+    def forward(self, input_feats, only_return_encoder_hidden_states=True):
+        if not isinstance(input_feats, (list, tuple)):
+            input_feats = [input_feats]
+        n_frames = input_feats[0].shape[1]
+        pos = self.position_embeddings(
+            torch.arange(n_frames, device=input_feats[0].device)[None, :])
+        hidden_states = torch.cat([f + pos for f in input_feats], dim=1)
+        hidden_states = self.dropout(self.LayerNorm(hidden_states))
+        all_states, all_attn = [hidden_states], ()
+        for i in range(self.num_layers):
+            hidden_states, probs, _ = getattr(self, f"layer_{i}")(
+                all_states[-1])
+            all_states.append(hidden_states)
+            all_attn += (probs,)
+        if only_return_encoder_hidden_states:
+            return all_states[-1]
+        return {"encoder_hidden_states": all_states[-1],
+                "all_encoder_hidden_states": all_states,
+                "all_encoder_intra_attentions": all_attn}
 
 
 class LinearLNDrop(nn.Module):
@@ -28,9 +121,78 @@ class LinearLNDrop(nn.Module):
         return self.dropout(self.ln(self.linear(x)))
 
 
-def fuse(encoder_hidden_states: List[torch.Tensor]) -> torch.Tensor:
-    """``temporal_concat`` fusion (reference ``Encoder.py:140-153``)."""
-    return torch.cat(encoder_hidden_states, dim=1)
+class LinearReLUDrop(nn.Module):
+    def __init__(self, dim_in: int, dim_out: int, dropout: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self.linear = dense(dim_in, dim_out, generator)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x):
+        return self.dropout(torch.relu(self.linear(x)))
+
+
+class IdentityStream(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class HighWayBNStream(nn.Module):
+    """ARB's stream: Linear -> HighWay -> BN1d -> Dropout."""
+
+    def __init__(self, dim_in: int, dim_out: int, dropout: float,
+                 generator: torch.Generator):
+        super().__init__()
+        self.linear = dense(dim_in, dim_out, generator)
+        self.highway = HighWay(dim_out, generator)
+        self.bn = BN1d(dim_out)
+        self.dropout = Dropout(dropout)
+
+    def forward(self, x):
+        return self.dropout(self.bn(self.highway(self.linear(x))))
+
+
+class LinearStream(nn.Module):
+    """Linear, optionally followed by a Transformer encoder of its own
+    (``backbone``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, generator: torch.Generator,
+                 backbone_opt: dict = None):
+        super().__init__()
+        self.linear = dense(dim_in, dim_out, generator)
+        self.backbone = (None if backbone_opt is None else
+                         TransformerEncoderBase(backbone_opt, generator))
+
+    def forward(self, x):
+        x = self.linear(x)
+        return x if self.backbone is None else self.backbone(x)
+
+
+STREAM_KINDS = {
+    "Embedder": "embedder",
+    "ReLUEmbedder": "relu",
+    "Identity": "identity",
+    "EncoderWithHighWayBN": "highwaybn",
+    "MultiTransformerEncoder": "multitransformer",
+    "TransformerEncoder": "transformer",
+}
+FUSIONS = ("temporal_concat", "addition", "channel_concat", "none")
+
+
+def fuse(encoder_hidden_states, fusion_type: str):
+    """Fuse the per-modality states (reference ``Encoder.py:140-153``);
+    ``none`` keeps the list."""
+    if fusion_type == "none":
+        return encoder_hidden_states
+    if not isinstance(encoder_hidden_states, (list, tuple)):
+        encoder_hidden_states = [encoder_hidden_states]
+    if fusion_type == "addition":
+        return torch.stack(list(encoder_hidden_states), dim=0).mean(dim=0)
+    if fusion_type == "temporal_concat":
+        return torch.cat(list(encoder_hidden_states), dim=1)
+    if fusion_type == "channel_concat":
+        return torch.cat(list(encoder_hidden_states), dim=2)
+    raise ValueError(f"unsupported fusion `{fusion_type}`")
 
 
 class MultipleStreams(nn.Module):
@@ -39,29 +201,55 @@ class MultipleStreams(nn.Module):
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        if opt["encoder"] != "Embedder":
-            raise unsupported("encoder", opt["encoder"])
-        if opt.get("fusion", "temporal_concat") != "temporal_concat":
-            raise unsupported("fusion", opt["fusion"])
-        if "t" in opt["modality"]:
-            raise unsupported("modality", opt["modality"])
+        if opt["encoder"] not in STREAM_KINDS:
+            if opt["encoder"] in ("VOE", "SingleStreamEmbedder", "CNN1",
+                                  "CNN2", "CNN3"):
+                raise unsupported("encoder", opt["encoder"])
+            raise ValueError(f"unknown encoder `{opt['encoder']}`")
+        self.kind = STREAM_KINDS[opt["encoder"]]
+        self.fusion_type = opt.get("fusion", "temporal_concat")
+        if self.fusion_type not in FUSIONS:
+            raise ValueError(f"unsupported fusion `{self.fusion_type}`")
         self.opt = opt
-        self.dense_modality = opt["modality"].lower()
+        self.dense_modality = "".join(c for c in opt["modality"].lower()
+                                      if c != "t")
+        dim_out = opt.get("dim_hidden", 512)
+        dropout = opt.get("encoder_dropout_prob", 0.5)
         self.stream_names = []
         for char in self.dense_modality:
+            dim_in = opt["dim_" + char]
+            if self.kind == "embedder":
+                stream = LinearLNDrop(dim_in, dim_out, dropout,
+                                      opt["layer_norm_eps"], generator)
+            elif self.kind == "relu":
+                stream = LinearReLUDrop(dim_in, dim_out, dropout, generator)
+            elif self.kind == "identity":
+                stream = IdentityStream()
+            elif self.kind == "highwaybn":
+                stream = HighWayBNStream(dim_in, dim_out, dropout, generator)
+            else:
+                stream = LinearStream(
+                    dim_in, dim_out, generator,
+                    opt if self.kind == "multitransformer" else None)
             name = f"Encoder_{char.upper()}"
-            self.add_module(name, LinearLNDrop(
-                opt["dim_" + char], opt.get("dim_hidden", 512),
-                opt.get("encoder_dropout_prob", 0.5), opt["layer_norm_eps"],
-                generator))
+            self.add_module(name, stream)
             self.stream_names.append(name)
+        self.backbone = (TransformerEncoderBase(opt, generator)
+                         if self.kind == "transformer" else None)
+
+    def post_processing(self, encoder_hidden_states) -> Dict[str, Any]:
+        if self.backbone is not None:
+            return self.backbone(encoder_hidden_states,
+                                 only_return_encoder_hidden_states=False)
+        return {"encoder_hidden_states": fuse(encoder_hidden_states,
+                                              self.fusion_type)}
 
     def _component_view(self, per_modality: Dict[str, list],
                         component_modality: str) -> Dict[str, Any]:
         keep = [i for i, c in enumerate(self.dense_modality)
                 if c in component_modality]
         view = {k: [v[i] for i in keep] for k, v in per_modality.items()}
-        view["encoder_hidden_states"] = fuse(view["encoder_hidden_states"])
+        view.update(self.post_processing(view["encoder_hidden_states"]))
         return view
 
     def forward(self, input_feats: List[torch.Tensor]) -> Dict[str, Any]:
@@ -80,5 +268,9 @@ class MultipleStreams(nn.Module):
             comp_mod = (comp_mod or "").replace("t", "")
             if comp_mod and comp_mod != self.dense_modality:
                 data[key_name] = self._component_view(per_modality, comp_mod)
-        data["encoder_hidden_states"] = fuse(states)
+        data.update(self.post_processing(states))
         return data
+
+
+def get_encoder(opt: dict, generator: torch.Generator) -> nn.Module:
+    return MultipleStreams(opt, generator)

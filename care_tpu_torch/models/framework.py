@@ -5,9 +5,11 @@ Port of ``care_tpu/models/framework.py`` (reference ``models/Framework.py``):
 predictor's outputs into the decoder inputs (the LSG ``concat`` mode appends
 the concept-slot embeddings to the encoder states); ``decoding_phase`` runs
 the decoder and the head; ``init_decode_state`` / ``decode_step`` drive the
-KV-cached decode. Submodules are named after the JAX package's parameter
-tree (``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``,
-...), which ``models/weights.py`` relies on.
+KV-cached decode. The retrieved-text stream ``t`` is embedded by
+``TextEmbedder`` (its own embeddings, or the decoder's word and position
+embeddings). Submodules are named after the JAX package's parameter tree
+(``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``, ...),
+which ``models/weights.py`` relies on.
 """
 
 from typing import Any, Dict, List
@@ -17,25 +19,65 @@ from torch import nn
 
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.decoders import get_decoder
-from care_tpu_torch.models.encoders import MultipleStreams
+from care_tpu_torch.models.embeddings import NaiveEmbeddings
+from care_tpu_torch.models.encoders import get_encoder
 from care_tpu_torch.models.heads import get_cls_head
 from care_tpu_torch.models.predictors import Predictor, has_predictor
 from care_tpu_torch.utils.device import resolve_device
 
 
 def input_keys_for_decoder(opt: dict) -> List[str]:
-    """Which encoding-phase outputs are static decoder inputs
-    (reference ``Framework.py:20-40``), for the modes this port runs."""
+    """Which encoding-phase outputs (or batch entries) are static decoder
+    inputs (reference ``Framework.py:20-40``)."""
     keys = ["encoder_hidden_states"]
-    if "emb" in (opt.get("use_attr_type") or ""):
+    if opt.get("with_category", False):
+        keys.append("category")
+    t = opt.get("use_attr_type") or ""
+    if opt.get("use_attr", False) and ("prefix" in t or "att" in t.lower()):
+        keys.append("semantic_embs")
+    if "emb" in t:
         keys.append("semantic_hidden_states")
+    if (opt.get("compositional_intra") or opt.get("compositional_inter")
+            or opt.get("compositional_ffn")):
+        keys.append("preds_attr")
     return keys
 
 
 def _check_opt(opt: dict) -> None:
-    for key in ("with_backbones", "pointer", "retrieval", "with_category"):
+    for key in ("with_backbones", "pointer", "retrieval",
+                "has_retrieval_rnn"):
         if opt.get(key):
             raise unsupported(key, opt[key])
+
+
+class TextEmbedder(nn.Module):
+    """Embeds the retrieved-caption token ids of the ``t`` stream
+    [B, n_retrieval, L] (reference ``models/Encoder.py:341-376``): with
+    ``has_retrieval_embs`` its own ``embs``, else the decoder's word and
+    position embeddings."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        self.embs = None
+        if opt.get("has_retrieval_embs", False):
+            self.embs = NaiveEmbeddings(
+                n_words=opt["vocab_size"], n_positions=opt["max_len"],
+                dim_hidden=opt["dim_hidden"],
+                layer_norm_eps=opt["layer_norm_eps"],
+                hidden_dropout_prob=opt["hidden_dropout_prob"],
+                generator=generator, zero_pad_row=True)
+
+    def forward(self, input_ids, embeddings_module=None):
+        if input_ids.dim() != 3:
+            raise ValueError(f"text ids {tuple(input_ids.shape)} are not "
+                             f"[B, n_retrieval, L]")
+        bsz, n_retrieval, max_len = input_ids.shape
+        flat = input_ids.reshape(bsz * n_retrieval, max_len)
+        if self.embs is not None:
+            embs = self.embs(flat)
+        else:
+            embs = embeddings_module(flat, only_word_and_position=True)
+        return embs.reshape(bsz, n_retrieval, max_len, -1)
 
 
 class Captioner(nn.Module):
@@ -45,23 +87,44 @@ class Captioner(nn.Module):
         super().__init__()
         _check_opt(opt)
         self.opt = opt
-        self.encoder = MultipleStreams(opt, generator)
+        self.encoder = get_encoder(opt, generator)
         self.predictor = (Predictor(opt, generator) if has_predictor(opt)
                           else None)
         self.decoder = get_decoder(opt, generator)
         self.cls_head = get_cls_head(opt, generator)
+        self.text_embedder = (TextEmbedder(opt, generator)
+                              if "t" in opt["modality"] else None)
         self.decoder_input_keys = input_keys_for_decoder(opt)
 
     # ------------------------------------------------------------------
     def encoding_phase(self, feats: List[torch.Tensor]) -> Dict[str, Any]:
-        data = self.encoder(list(feats[:len(self.opt["modality"])]))
+        """``feats``: one entry per modality character; an entry after
+        them is the ``semantic_logits`` list when ``logits`` is set."""
+        modality = self.opt["modality"]
+        feats, other_feats = list(feats[:len(modality)]), feats[len(modality):]
+        semantic_logits = (other_feats[0] if other_feats
+                           and self.opt.get("logits") else None)
+        ret_input_ids = ret_text_embs = None
+        dense_feats = []
+        for char, f in zip(modality, feats):
+            if char == "t":
+                ret_input_ids = f
+                ret_text_embs = self.text_embedder(
+                    f, embeddings_module=self.decoder.embedding)
+            else:
+                dense_feats.append(f)
+        data = self.encoder(dense_feats)
         inputs_for_predictor = data.pop("inputs_for_predictor", data)
         inputs_for_decoder = data.pop("inputs_for_decoder", data)
+        if ret_input_ids is not None:
+            inputs_for_decoder["ret_input_ids"] = ret_input_ids
+            inputs_for_decoder["ret_text_embs"] = ret_text_embs
         if self.predictor is not None:
             inputs_for_decoder.update(self.predictor(
                 inputs_for_predictor["encoder_hidden_states"],
-                mean_encoder_hidden_states=inputs_for_predictor[
-                    "mean_encoder_hidden_states"]))
+                mean_encoder_hidden_states=inputs_for_predictor.get(
+                    "mean_encoder_hidden_states"),
+                semantic_logits=semantic_logits))
             if "concat" in (self.opt.get("use_attr_type") or ""):
                 inputs_for_decoder["encoder_hidden_states"] = torch.cat(
                     [inputs_for_decoder["encoder_hidden_states"],
@@ -82,12 +145,18 @@ class Captioner(nn.Module):
 
     def decoding_phase(self, input_ids, inputs_for_decoder: Dict[str, Any],
                        last_time_step_logits: bool = False,
-                       compute_logits: bool = True) -> Dict[str, Any]:
+                       compute_logits: bool = True,
+                       collect_aux: bool = True,
+                       attr_input_ids=None) -> Dict[str, Any]:
         """``compute_logits=False`` (the fused-xent training path,
         ``ops/fused_xent.py``) skips the vocab projection: the criterion
         takes its statistics from ``hidden_states`` and the head's weight,
-        so the ``[B, L, V]`` logits never exist."""
-        outputs = self.decoder(input_ids, **inputs_for_decoder)
+        so the ``[B, L, V]`` logits never exist. ``collect_aux`` adds the
+        decoder's aux entries (attention probabilities, contexts,
+        embeddings) that the decoder-side concept losses read."""
+        outputs = self.decoder(input_ids, collect_aux=collect_aux,
+                               attr_input_ids=attr_input_ids,
+                               **inputs_for_decoder)
         if not compute_logits and not last_time_step_logits:
             return outputs
         hidden_states = outputs["hidden_states"]
@@ -96,17 +165,21 @@ class Captioner(nn.Module):
         outputs["logits"] = self.cls_head(hidden_states)
         return outputs
 
-    def forward(self, batch: Dict[str, Any],
-                compute_logits: bool = True) -> Dict[str, Any]:
+    def forward(self, batch: Dict[str, Any], compute_logits: bool = True,
+                collect_aux: bool = True) -> Dict[str, Any]:
         """feedforward_step (reference ``Framework.py:215-234``). In
         training mode (``model.train()``) every dropout is active and draws
-        from the generator given to ``set_dropout_generator``."""
+        from the generator given to ``set_dropout_generator``, and the
+        encoder's BatchNorm moves its running statistics."""
         encoding_phase_outputs = self.encoding_phase(batch["feats"])
         inputs_for_decoder = self.prepare_inputs_for_decoder(
             encoding_phase_outputs, batch)
         return {**encoding_phase_outputs,
                 **self.decoding_phase(batch["input_ids"], inputs_for_decoder,
-                                      compute_logits=compute_logits)}
+                                      compute_logits=compute_logits,
+                                      collect_aux=collect_aux,
+                                      attr_input_ids=batch.get(
+                                          "attr_input_ids"))}
 
     # ------------------------------------------------------------------
     # KV-cached incremental decoding
@@ -114,13 +187,16 @@ class Captioner(nn.Module):
     def init_decode_state(self, inputs_for_decoder: Dict[str, Any],
                           max_len: int, beam_size: int = 1) -> Dict[str, Any]:
         """``beam_size`` > 1 expects un-enlarged inputs: the self-KV cache is
-        laid out at B*beam rows while cross K/V stay at B."""
+        laid out at B*beam rows while cross and concept K/V stay at B."""
         enc = inputs_for_decoder["encoder_hidden_states"]
+        enc0 = enc[0] if isinstance(enc, (list, tuple)) else enc
+        get = inputs_for_decoder.get
         return self.decoder.init_decode_state(
-            batch_size=enc.shape[0] * beam_size, max_len=max_len,
+            batch_size=enc0.shape[0] * beam_size, max_len=max_len,
             beam_size=beam_size, encoder_hidden_states=enc,
-            semantic_hidden_states=inputs_for_decoder.get(
-                "semantic_hidden_states"))
+            semantic_embs=get("semantic_embs"),
+            semantic_hidden_states=get("semantic_hidden_states"),
+            preds_attr=get("preds_attr"), category=get("category"))
 
     def decode_step_hidden(self, token_ids, position: int, state):
         """One AR step returning the decoder hidden states [B, H] before the
@@ -132,6 +208,11 @@ class Captioner(nn.Module):
         """One AR step: returns (logits [B, V], state)."""
         h, state = self.decoder.decode_step(token_ids, position, state)
         return self.cls_head(h), state
+
+    def project_attribute(self, feats, flag: str):
+        """The concept projection of ``flag``, shared with the loss layer
+        (the decoder-side concept flags)."""
+        return self.predictor.project_attribute(feats, flag)
 
 
 def build_captioner(opt: dict, device=None, seed: int = 0) -> Captioner:

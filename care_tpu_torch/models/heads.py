@@ -1,9 +1,9 @@
-"""Classification head (reference ``models/Head.py``)."""
+"""Classification heads (reference ``models/Head.py``)."""
 
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import dense, unsupported
+from care_tpu_torch.models.common import Dropout, dense
 
 
 class NaiveHead(nn.Module):
@@ -19,7 +19,28 @@ class NaiveHead(nn.Module):
         return self.tgt_word_prj(hidden_states)
 
 
+class MLPHead(nn.Module):
+    """Dense + tanh + dropout + a biased projection to the vocab
+    (reference ``Head.py:35-49``). Neither the fused beam head nor the
+    fused cross-entropy takes it: both stream a bias-free projection of the
+    decoder's hidden state, as the JAX package rules."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        self.dense = dense(opt["dim_hidden"], opt["dim_hidden"], generator)
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
+        self.tgt_word_prj = dense(opt["dim_hidden"], opt["vocab_size"],
+                                  generator)
+
+    def forward(self, hidden_states):
+        return self.tgt_word_prj(self.dropout(torch.tanh(
+            self.dense(hidden_states))))
+
+
+HEADS = {"NaiveHead": NaiveHead, "MLPHead": MLPHead}
+
+
 def get_cls_head(opt: dict, generator: torch.Generator) -> nn.Module:
-    if opt["cls_head"] != "NaiveHead":
-        raise unsupported("cls_head", opt["cls_head"])
-    return NaiveHead(opt, generator)
+    if opt["cls_head"] not in HEADS:
+        raise ValueError(f"unknown cls_head `{opt['cls_head']}`")
+    return HEADS[opt["cls_head"]](opt, generator)

@@ -16,7 +16,7 @@ from typing import List, Optional
 from care_tpu_torch import constants
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.framework import build_captioner
-from care_tpu_torch.models.weights import params_from_jax
+from care_tpu_torch.models.weights import variables_from_jax
 from care_tpu_torch.training.checkpoints import load_checkpoint
 
 
@@ -91,7 +91,7 @@ def load_model(checkpoint_path, new_opt_used_to_override: dict = None,
     if do_replace_paths and opt.get("info_corpus"):
         opt = replace_paths(opt, base_data_path)
     model = build_captioner(opt, device=device)
-    params_from_jax(model, variables["params"])
+    variables_from_jax(model, variables)
     models = [model]
     if return_spec:
         return models, opt, None

@@ -8,6 +8,11 @@ mechanical: a ``Linear``'s ``weight`` is the flax ``kernel`` transposed
 and every other parameter (embedding tables, the hybrid bias) keeps its
 name and shape. Arrays are copied, never aliased.
 
+``variables_from_jax(model, variables)`` takes the whole variables: the
+``params`` and the BatchNorm running statistics ``batch_stats`` (``mean``
+and ``var`` under the flax path of each ``BatchNorm1d``, whose ``weight``
+is the flax ``scale``); ``variables_to_jax(model)`` is its inverse.
+
 ``params_to_jax(model)`` and ``grads_to_jax(model)`` go the other way: the
 port's parameters, or their ``.grad``s, as a nested dict of numpy arrays
 under the flax tree's names and layouts, so that gradients and updated
@@ -35,7 +40,8 @@ def jax_leaf_key(model: nn.Module, name: str):
     module = model.get_submodule(".".join(mod_path))
     if isinstance(module, nn.Linear) and attr == "weight":
         return tuple(mod_path) + ("kernel",), True
-    if isinstance(module, nn.LayerNorm) and attr == "weight":
+    if (isinstance(module, (nn.LayerNorm, nn.BatchNorm1d))
+            and attr == "weight"):
         return tuple(mod_path) + ("scale",), False
     return tuple(mod_path) + (attr,), False
 
@@ -96,3 +102,56 @@ def grads_to_jax(model: nn.Module) -> dict:
             raise ValueError(f"{name} has no gradient")
         return param.grad
     return _to_jax_tree(model, pick)
+
+
+def _batch_norms(model: nn.Module):
+    for name, module in model.named_modules():
+        if isinstance(module, nn.BatchNorm1d):
+            yield tuple(name.split(".")), module
+
+
+def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
+    """``params_from_jax`` of ``variables["params"]``, then the running
+    mean and variance of every ``BatchNorm1d`` from
+    ``variables["batch_stats"]``. Raises, as ``params_from_jax`` does, on
+    a shape mismatch, a running statistic with no JAX leaf, a JAX leaf no
+    module takes, and a collection other than these two."""
+    other = sorted(set(variables) - {"params", "batch_stats"})
+    if other:
+        raise KeyError(f"JAX collections the port does not take: {other}")
+    params_from_jax(model, variables["params"])
+    leaves = dict(_flat(variables.get("batch_stats", {})))
+    used = set()
+    with torch.no_grad():
+        for path, module in _batch_norms(model):
+            for leaf, buf in (("mean", module.running_mean),
+                              ("var", module.running_var)):
+                key = path + (leaf,)
+                if key not in leaves:
+                    raise KeyError(f"no JAX batch_stats {'/'.join(key)}")
+                value = np.array(leaves[key], dtype=np.float32)
+                if tuple(value.shape) != tuple(buf.shape):
+                    raise ValueError(f"{'/'.join(key)}: port shape "
+                                     f"{tuple(buf.shape)} != JAX shape "
+                                     f"{tuple(value.shape)}")
+                buf.copy_(torch.from_numpy(value))
+                used.add(key)
+    unused = sorted("/".join(k) for k in leaves if k not in used)
+    if unused:
+        raise KeyError(f"JAX batch_stats the port does not take: {unused}")
+    return model
+
+
+def variables_to_jax(model: nn.Module) -> dict:
+    """The port's parameters and BatchNorm running statistics as the flax
+    variables tree ``{"params": ..., "batch_stats": ...}`` (no
+    ``batch_stats`` without a BatchNorm)."""
+    out = {"params": params_to_jax(model)}
+    for path, module in _batch_norms(model):
+        node = out.setdefault("batch_stats", {})
+        for part in path:
+            node = node.setdefault(part, {})
+        for leaf, buf in (("mean", module.running_mean),
+                          ("var", module.running_var)):
+            node[leaf] = buf.detach().to("cpu", torch.float32).numpy().copy()
+    return out

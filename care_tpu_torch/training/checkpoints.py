@@ -9,9 +9,9 @@ persisted beside the weights so reloading rebuilds the exact model).
 
 Format: ``torch.save`` of the variables tree, a nested dict of CPU tensors
 under the flax tree's names and layouts (``models/weights.py``:
-``{"params": params_to_jax(model)}``), plus the same side-car JSON as the
-JAX package (``{"opt", "metadata"}``). Loading the JAX package's msgpack
-checkpoints is not ported.
+``variables_to_jax(model)``, the ``params`` and any ``batch_stats``), plus
+the same side-car JSON as the JAX package (``{"opt", "metadata"}``).
+Loading the JAX package's msgpack checkpoints is not ported.
 """
 
 import json

@@ -9,13 +9,17 @@ crits the flagship trains with:
   ``ops/fused_xent.py`` (``_lang_step_fused``);
 * the noisy-OR MIL concept loss, BCE on the merged concept probabilities
   normalised by the number of positives (clamped to [0.01, 0.99]), the
-  sparse-sampling L1 regulariser, and the F1@{5..50} and mAP recorders;
+  sparse-sampling L1 regulariser, and the F1@{5..50} and mAP recorders,
+  for the encoder-side flag ``V`` and the decoder-side flags (``I``, ``S``,
+  ... : a decoder output projected by the flag's head through
+  ``project_fn``, merged over the non-PAD positions);
+* the auxiliary ``attn`` (concept-attention mass hinge) and ``gate``
+  (gate BCE against the non-stop-word mask) losses;
 * the ``Criterion`` aggregator with named scales.
 
 Every value is a tensor on the model's device; the trainer fetches them
-once per epoch. The ``length``, ``attn`` and ``gate`` crits, decoder-side
-concept flags, visual-word generation and pointer ``probs`` are not ported
-yet and raise ``NotImplementedError``.
+once per epoch. The ``length`` crit, visual-word generation and pointer
+``probs`` are not ported yet and raise ``NotImplementedError``.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -25,7 +29,19 @@ import torch
 from care_tpu_torch import constants
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.ops.fused_xent import vocab_xent_stats
+from care_tpu_torch.models.predictors import prepare_merged_probs
 from care_tpu_torch.ops.topk import top_k
+
+# the decoder output each decoder-side concept flag projects
+ATTR_FLAG_TO_KEY = {
+    "P": "input_embs_exclude_bos",
+    "I": "input_embs",
+    "C": "context",
+    "H": "hidden_states",
+    "T": "text_context",
+    "S": "sentence_embs",
+    "A": "attr_embs",
+}
 
 
 def _as_list(x):
@@ -189,9 +205,12 @@ def _noisy_or_mil(opt, preds_attr, avg_prob_attr, labels_attr,
     return loss.sum(), metrics
 
 
-def attribute_losses(opt, results, with_metrics: bool = False):
-    """The concept losses for ``attribute_prediction_flags``; only the
-    encoder-side flag ``V`` is ported."""
+def attribute_losses(opt, results, project_fn=None,
+                     with_metrics: bool = False):
+    """The concept losses for ``attribute_prediction_flags``: ``V`` on the
+    detector's ``preds_attr``; every other flag on the decoder output
+    ``ATTR_FLAG_TO_KEY`` names, projected by ``project_fn(feats, flag)``
+    and merged over its non-PAD positions."""
     flags = opt["attribute_prediction_flags"]
     scales = opt.get("attribute_prediction_scales", [1.0])
     if not isinstance(scales, list):
@@ -206,11 +225,23 @@ def attribute_losses(opt, results, with_metrics: bool = False):
     metrics: Dict[str, torch.Tensor] = {}
     total = 0.0
     for flag, scale in zip(flags, scales):
-        if flag != "V":
-            raise unsupported("attribute_prediction_flags", flags)
-        s, m = _noisy_or_mil(opt, results["preds_attr"],
-                             results["avg_prob_attr"], labels_attr,
-                             with_metrics=with_metrics)
+        if flag == "V":
+            s, m = _noisy_or_mil(opt, results["preds_attr"],
+                                 results["avg_prob_attr"], labels_attr,
+                                 with_metrics=with_metrics)
+        else:
+            feats = results[ATTR_FLAG_TO_KEY[flag]]
+            if isinstance(feats, list):
+                feats = feats[-1]
+            scores = project_fn(feats, flag)
+            labels = _as_list(results["labels"])[-1]
+            if scores.shape[1] == labels.shape[1] + 1:
+                # embeddings may carry the BOS / prefix position
+                scores = scores[:, :labels.shape[1], :]
+            preds, avg_prob = prepare_merged_probs(
+                scores, labels == constants.PAD)
+            s, m = _noisy_or_mil(opt, preds, avg_prob, labels_attr,
+                                 with_metrics=with_metrics)
         loss = s / denom
         out[f"{flag}-Attr"] = loss * scale
         total = total + loss * scale
@@ -220,10 +251,54 @@ def attribute_losses(opt, results, with_metrics: bool = False):
 
 
 # ---------------------------------------------------------------------------
+# auxiliary attention losses (the reference's ``crit_attn.py``; no shipped
+# configuration reaches them, the JAX package keeps them under the crits
+# ``attn`` and ``gate``)
+# ---------------------------------------------------------------------------
+
+def attn_sparse_loss(opt, results):
+    """L1 hinge pushing each word's concept-attention mass toward a
+    threshold (reference ``crit_attn.py:7-38``)."""
+    probs = results["attr_attention_probs"]
+    if isinstance(probs, (list, tuple)):
+        probs = probs[-1]
+    labels = _as_list(results["labels"])[-1]
+    threshold = float(opt.get("use_attr_attn_loss_threshold", 1))
+    mass = probs.sum(-1).mean(1)                 # (bsz, seq_len)
+    pad = labels == constants.PAD
+    mass = torch.where(pad, threshold, mass)
+    target = torch.full(labels.shape, threshold, device=mass.device)
+    if opt.get("use_attr_attn_loss_mask", False):
+        target = torch.where(results["attribute_mask"] == 0, 0.0, target)
+    mass = torch.where(mass < target, threshold, mass)
+    loss = torch.abs(mass - target)
+    keep = (~pad).float()
+    loss = (loss * keep).sum(dim=1) / torch.clamp_min(keep.sum(dim=1), 1.0)
+    return loss.sum() / labels.shape[0], {}
+
+
+def gate_loss(opt, results):
+    """BCE of the gate probabilities against the non-stop-word mask
+    (reference ``crit_attn.py:41-66``)."""
+    labels = _as_list(results["labels"])[-1]
+    target = results["non_stop_words_mask"].reshape(-1).float()
+    valid = (labels != constants.PAD).reshape(-1).float()
+    loss = 0.0
+    for probs in _as_list(results["gate_probs"]):
+        p = probs.mean(2).reshape(-1)
+        loss = loss - (target * torch.log(p + 1e-12)
+                       + (1 - target) * torch.log(1 - p + 1e-12))
+    loss = (loss * valid).sum()
+    if opt.get("attentive_loss_wise", False):
+        return loss / torch.clamp_min(valid.sum(), 1.0), {}
+    return loss / labels.shape[0], {}
+
+
+# ---------------------------------------------------------------------------
 # criterion aggregator
 # ---------------------------------------------------------------------------
 
-PORTED_CRITS = ("lang", "attribute")
+PORTED_CRITS = ("lang", "attribute", "attn", "gate")
 
 
 class Criterion:
@@ -239,7 +314,7 @@ class Criterion:
         self.opt = o
         self.crits = [c for c in o["crits"] if c not in skip_crit_list]
         for crit in self.crits:
-            if crit in ("length", "attn", "gate"):
+            if crit == "length":
                 raise unsupported("crits", crit)
             if crit not in PORTED_CRITS:
                 raise ValueError(f"unknown crit `{crit}`")
@@ -251,8 +326,10 @@ class Criterion:
     def set_scales(self, new_scales: Dict[str, float]):
         self.scales.update(new_scales)
 
-    def __call__(self, results: Dict[str, Any]):
-        """Returns (total_loss, loss_dict, metrics_dict), all tensors."""
+    def __call__(self, results: Dict[str, Any], project_fn=None):
+        """Returns (total_loss, loss_dict, metrics_dict), all tensors;
+        ``project_fn(feats, flag)`` is the model's concept projection, for
+        the decoder-side concept flags."""
         total = 0.0
         losses: Dict[str, torch.Tensor] = {}
         metrics: Dict[str, torch.Tensor] = {}
@@ -262,10 +339,18 @@ class Criterion:
                 losses["Lang Loss"] = l
                 metrics.update(m)
                 total = total + l * self.scales["lang"]
-            else:
-                l, per, m = attribute_losses(self.opt, results,
+            elif crit == "attribute":
+                l, per, m = attribute_losses(self.opt, results, project_fn,
                                              with_metrics=self.with_metrics)
                 losses.update(per)
                 metrics.update(m)
                 total = total + l * self.scales.get("attribute", 1.0)
+            elif crit == "attn":
+                l, _ = attn_sparse_loss(self.opt, results)
+                losses["Attn Loss"] = l
+                total = total + l * self.scales.get("attn", 1.0)
+            else:
+                l, _ = gate_loss(self.opt, results)
+                losses["Gate Loss"] = l
+                total = total + l * self.scales.get("gate", 1.0)
         return total, losses, metrics

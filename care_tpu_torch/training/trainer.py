@@ -49,7 +49,8 @@ from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.metrics import COCOScorer
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.models.common import set_dropout_generator, unsupported
-from care_tpu_torch.models.weights import params_from_jax, params_to_jax
+from care_tpu_torch.models.weights import (variables_from_jax,
+                                           variables_to_jax)
 from care_tpu_torch.training import optim as optim_lib
 from care_tpu_torch.training.checkpoints import (CheckpointManager,
                                                  TrainStateCheckpointer,
@@ -170,6 +171,10 @@ class Trainer:
         self._train_step_fn = None
         self._feature_bank = None
         self._val_banks: Dict[int, Any] = {}
+        # the decoder-side concept flags read the decoder's aux outputs
+        self._needs_aux = any(
+            f != "V" for f in (opt.get("attribute_prediction_flags") or "V")
+        ) and "attribute" in opt["crits"]
 
     # ------------------------------------------------------------------
     def init_model(self, seed: int = None):
@@ -191,9 +196,10 @@ class Trainer:
         return self._translator
 
     def variables(self) -> Dict[str, Any]:
-        """The model's parameters as the flax ``{"params": ...}`` tree, the
-        layout of the checkpoints."""
-        return {"params": params_to_jax(self.model)}
+        """The model's parameters (and BatchNorm running statistics) as the
+        flax ``{"params": ..., "batch_stats": ...}`` tree, the layout of the
+        checkpoints."""
+        return variables_to_jax(self.model)
 
     # ------------------------------------------------------------------
     # the device feature bank
@@ -338,12 +344,17 @@ class Trainer:
                       and "rnn" not in opt.get("decoder", "").lower())
         self._fused_xent = fused_xent
 
+        collect_aux = self._needs_aux
+
         def train_step(batch):
-            outputs = model(batch, compute_logits=not fused_xent)
+            # training mode: the BatchNorm running statistics move here
+            outputs = model(batch, compute_logits=not fused_xent,
+                            collect_aux=collect_aux)
             results = {**outputs, **batch}
             if fused_xent and "logits" not in outputs:
                 results["cls_head_kernel"] = model.cls_head.tgt_word_prj.weight
-            total, losses, metrics = criterion(results)
+            total, losses, metrics = criterion(results,
+                                               model.project_attribute)
             tx.zero_grad()
             total.backward()
             tx.step()
@@ -659,9 +670,10 @@ class Trainer:
             for (batch, db), (hyps, scores) in stream:
                 preds.update(self._collect_preds(batch, hyps, scores))
                 if run_concept_metrics and "labels_attr" in batch:
-                    outputs = self.model(db, compute_logits=False)
-                    batch_metrics.append(
-                        self.eval_criterion({**outputs, **db})[2])
+                    outputs = self.model(db, compute_logits=False,
+                                         collect_aux=self._needs_aux)
+                    batch_metrics.append(self.eval_criterion(
+                        {**outputs, **db}, self.model.project_attribute)[2])
         finally:
             self.model.train(was_training)
 
@@ -767,5 +779,5 @@ class Trainer:
         path = self.ckpt_manager.best_path
         if path:
             variables, _, _ = load_checkpoint(path, self.variables())
-            params_from_jax(self.model, variables["params"])
+            variables_from_jax(self.model, variables)
         return self.model

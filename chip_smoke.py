@@ -82,6 +82,18 @@ before the last line:
    videos x 60 frames x (128 + 2048 + 512) plus 20 x 512 retrieval rows),
    in f32 and bf16 storage: resident bytes, build seconds, gather ms at
    batch 64.
+7d. family: the rest of the CARE Transformer family at full width
+   (``--arch base``, V 11 000, batch 64, beam 5): CABase
+   (``scripts/exp_main_MSRVTT.sh:34``), the concept-attention sublayer
+   ``G1L1`` in the ``parallel`` and ``attr2cross`` placements, semantic
+   composition ``G0Lc --compositional_intra --compositional_ffn
+   --add_hybrid_attention_bias``, ``--method ARB --task CARE`` (the
+   HighWay / BatchNorm encoder) and ``G1L1 parallel`` at ``--feats
+   SwinBERTDense``. Each trains 4 steps with ``fused_xent: True`` (K2, K3a
+   and K3b once per step; ARB's running statistics must move) and serves
+   one batch of 64 (K1 once per beam step, K4a once per beam step and layer
+   at long keys, every score re-checked by teacher forcing, caps/s and ms
+   per beam step); the CABase batch and the long-key one are profiled.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -1072,6 +1084,117 @@ def phase_train(opt, scratch) -> dict:
              ms / 1e3, trained)
     _xent_scratch(opt)
     return {name: counts[name] for name in trained}
+
+
+# ---------------------------------------------------------------------------
+# the rest of the CARE family
+# ---------------------------------------------------------------------------
+
+FAMILY_STEPS = 4
+MSRVTT_GLSG = {"task": "Concept", "feats": "ViT",
+               "decoder_modality_flags": "VA",
+               "predictor_modality_flags": "VAT"}
+# (label, the command's flags, where the paper's scripts run it)
+FAMILY = [
+    ("CABase", {"task": "CABase", "feats": "ViT",
+                "decoder_modality_flags": "VA"},
+     "scripts/exp_main_MSRVTT.sh:34"),
+    ("G1L1 parallel", dict(MSRVTT_GLSG, use_attr_flags="G1L1",
+                           attr_layer_pos="parallel"),
+     "scripts/exp_ablation_GLSG.sh:65"),
+    ("G1L1 attr2cross", dict(MSRVTT_GLSG, use_attr_flags="G1L1",
+                             attr_layer_pos="attr2cross"),
+     "scripts/exp_ablation_GLSG.sh:63"),
+    ("G0Lc SC bias", dict(MSRVTT_GLSG, use_attr_flags="G0Lc",
+                          compositional_intra=True, compositional_ffn=True,
+                          add_hybrid_attention_bias=True),
+     "scripts/exp_ablation_GLSG.sh:37"),
+    ("ARB CARE", {"method": "ARB", "task": "CARE", "feats": "ViT",
+                  "modality": "ami", "decoder_modality_flags": "VA",
+                  "predictor_modality_flags": "VAT"},
+     "scripts/exp_versatility_of_CARE.sh:60"),
+    ("G1L1 parallel, long keys",
+     dict(MSRVTT_GLSG, use_attr_flags="G1L1", attr_layer_pos="parallel",
+          feats="SwinBERTDense", modality="ami"),
+     "scripts/exp_ablation_GLSG.sh:65 at --feats SwinBERTDense"),
+]
+
+
+def family_opt(flags: dict) -> dict:
+    """A family configuration at full width (``--arch base``: H 512, FFN
+    2048, 8 heads; V 11 000; 28 frames; beam 5; ``max_len`` 30)."""
+    opt = get_opt(dict({"dataset": "MSRVTT", "method": "Transformer",
+                        "vocab_size": 11000, "arch": "base"}, **flags),
+                  read_vocab=False, resolve_paths=False)
+    if "r" in opt["modality"]:
+        opt["dim_r"] = 512
+    return opt
+
+
+def _bn_stats(model) -> list:
+    return [t.detach().clone() for m in model.modules()
+            if isinstance(m, torch.nn.BatchNorm1d)
+            for t in (m.running_mean, m.running_var)]
+
+
+def phase_family(scratch) -> dict:
+    """The rest of the CARE Transformer family at full width: for each
+    configuration of ``FAMILY`` (the concept-attention sublayer in CABase
+    and the ``parallel`` / ``attr2cross`` placements, semantic composition
+    with the hybrid bias, ARB's HighWay / BatchNorm encoder, and the
+    ``parallel`` placement at long keys), ``Trainer.fit`` for
+    ``FAMILY_STEPS`` steps of batch 64 with ``fused_xent: True`` (K2, K3a
+    and K3b once per step; ARB's running statistics must move), then
+    ``_serve`` of one batch of 64 (K1 once per beam step; K4a once per beam
+    step and layer at long keys; every score re-checked by teacher
+    forcing; caps/s and ms per beam step). One CABase batch is profiled.
+    Returns the launch counts summed over the configurations."""
+    totals = dict.fromkeys(_launch_counts(), 0)
+    trained = ("vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    for i, (label, flags, where) in enumerate(FAMILY):
+        opt = family_opt(flags)
+        flash = opt["feats"] == "SwinBERTDense"
+        print(f"family {label} ({where}): encoder {opt['encoder']}, "
+              f"use_attr_type {opt.get('use_attr_type')!r}, attr_layer_pos "
+              f"{opt['attr_layer_pos']}, modality {opt['modality']}")
+        loader = SyntheticLoader(opt, FAMILY_STEPS, BATCH, SEED + 50 + i)
+        trainer = Trainer(dict(opt, epochs=1, fused_xent=True,
+                               checkpoint_path=os.path.join(
+                                   scratch, f"family{i}")), loader)
+        trainer.init_model()
+        stats = _bn_stats(trainer.model)
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        losses = _step_losses(trainer)
+        assert trainer._fused_xent and len(losses) == FAMILY_STEPS, losses
+        assert all(np.isfinite(losses)), losses
+        for name, n in counts.items():
+            assert n == (FAMILY_STEPS if name in trained else 0), \
+                (label, name, counts)
+        moved = [float((a - b).abs().max())
+                 for a, b in zip(_bn_stats(trainer.model), stats)]
+        assert (opt["encoder"] == "EncoderWithHighWayBN") == bool(stats)
+        assert all(m > 0 for m in moved), moved
+        print(f"family {label}: train {FAMILY_STEPS} steps of batch {BATCH},"
+              f" fused_xent on, in {seconds:.2f} s with model build and "
+              f"first-launch costs; losses {[round(l, 4) for l in losses]};"
+              f" launches { {k: v for k, v in counts.items() if v} }"
+              + (f"; BatchNorm running statistics moved by up to "
+                 f"{max(moved):.3e} ({len(stats)} buffers)" if stats else ""))
+        del trainer, loader
+        for k, n in counts.items():
+            totals[k] += n
+        run = _serve(f"family {label}", opt, [BATCH], flash,
+                     ["fused_head_topk"] + ["flash_attention_fwd"] * flash
+                     if i == 0 or flash else [])
+        for k, n in run["counts"].items():
+            totals[k] += n
+    return totals
 
 
 def _xent_scratch(opt) -> None:
@@ -2073,6 +2196,8 @@ def main() -> None:
                                 scratch).items():
             counts[k] += n
         phase_bank(opt)
+        for k, n in phase_family(scratch).items():
+            counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     kernels = phase_time(opt, errors, counts)

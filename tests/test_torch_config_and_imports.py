@@ -96,7 +96,10 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "          'metrics.tokenizer', 'metrics.bleu', 'metrics.rouge',\n"
         "          'metrics.cider', 'metrics.meteor', 'metrics.cocoscorer',\n"
         "          'native', 'utils.logger', 'config.cli', 'train',\n"
-        "          'translate', 'eval_json'):\n"
+        "          'translate', 'eval_json', 'models.layers',\n"
+        "          'models.encoders', 'models.predictors', 'models.heads',\n"
+        "          'models.embeddings', 'models.decoders',\n"
+        "          'models.framework', 'models.weights'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -120,12 +123,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 UNSUPPORTED = [
-    ("compositional_intra", True), ("compositional_inter", True),
-    ("compositional_ffn", True), ("pointer", "Pointer"),
+    ("decoder", "TopDownAttentionRNNDecoder"), ("encoder", "VOE"),
+    ("encoder", "CNN1"), ("pointer", "Pointer"),
     ("decoder", "SingleLayerRNNDecoder"),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
-    ("decoding_type", "NARFormer"), ("encoder", "EncoderWithHighWayBN"),
-    ("fusion", "channel_concat"), ("use_attr_type", "emb_att"),
+    ("decoding_type", "NARFormer"), ("with_backbones", True),
+    ("encoder", "SingleStreamEmbedder"), ("crits", ["lang", "length"]),
 ]
 
 

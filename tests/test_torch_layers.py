@@ -365,8 +365,9 @@ def case_decoder_layer_forward(rs, **extra):
                                              attention_mask=jbias)
     tids = torch.as_tensor(ids)
     pbias = pdec.key_pad_bias(tids, L) + pdec.causal_bias(L)
-    ph, (pp_self, pp_cross) = pm(torch.as_tensor(x), torch.as_tensor(enc),
-                                 attention_mask=pbias)
+    ph, (pp_self, pp_cross), _, _ = pm(torch.as_tensor(x),
+                                       torch.as_tensor(enc),
+                                       attention_mask=pbias)
     return [jh, jp_self, jp_cross], [ph, pp_self, pp_cross]
 
 
@@ -395,7 +396,8 @@ def case_decoder_layer_step(rs, **extra):
     ck, cv = torch.as_tensor(cache_k), torch.as_tensor(cache_v)
     ck[:, :, position:position + 1] = k
     cv[:, :, position:position + 1] = v
-    got = pm.step(xt, position, (ck, cv), pm.init_step(torch.as_tensor(enc)),
+    inter_kv, _ = pm.init_step(torch.as_tensor(enc))
+    got = pm.step(xt, position, (ck, cv), inter_kv,
                   self_bias=torch.as_tensor(bias), q=q)
     return [want], [got]
 

@@ -113,11 +113,49 @@ def test_scales_and_sparse_sampling_term():
     assert not any(k.startswith("V_") for k in metrics)
 
 
-@pytest.mark.parametrize("crit", ["length", "attn", "gate"])
+@pytest.mark.parametrize("crit", ["length"])
 def test_unported_crits_raise_naming_themselves(crit):
     opt = dict(flagship_small_opt(), crits=["lang", crit])
     with pytest.raises(NotImplementedError, match=crit):
         Criterion(opt)
+
+
+@pytest.mark.parametrize("crit,extra", [
+    ("attn", {}), ("attn", {"use_attr_attn_loss_mask": True,
+                            "use_attr_attn_loss_threshold": 0.6}),
+    ("gate", {}), ("gate", {"attentive_loss_wise": True})])
+def test_auxiliary_crits_match_jax(crit, extra):
+    """The ``attn`` and ``gate`` crits, which no shipped configuration
+    reaches, on the same injected results: the concept-attention
+    probabilities of two layers, gate probabilities of two gated
+    sublayers, ragged labels, the attribute and non-stop-word masks."""
+    opt = dict(flagship_small_opt(), crits=[crit], **extra)
+    rs = np.random.RandomState(7)
+    B, L, H, K = 4, 6, 4, 5
+    labels = rs.randint(6, 40, (B, L)).astype(np.int32)
+    labels[1, 4:] = constants.PAD
+    labels[3, 2:] = constants.PAD
+    probs = rs.rand(B, H, L, K).astype(np.float32)
+    probs[0] *= 0.1                 # masses below the threshold
+    res = {"labels": labels,
+           "attr_attention_probs": [rs.rand(B, H, L, K).astype(np.float32),
+                                    probs],
+           "attribute_mask": (rs.rand(B, L) > 0.5).astype(np.float32),
+           "non_stop_words_mask": (rs.rand(B, L) > 0.5).astype(np.float32),
+           "gate_probs": [rs.uniform(0.05, 0.95, (B, L, 8)).astype(
+               np.float32) for _ in range(2)]}
+
+    def conv(x, f):
+        return [f(v) for v in x] if isinstance(x, list) else f(x)
+    want = JaxCriterion(opt)({k: conv(v, jnp.asarray)
+                              for k, v in res.items()})
+    got = Criterion(opt)({k: conv(v, torch.tensor) for k, v in res.items()})
+    name = "Attn Loss" if crit == "attn" else "Gate Loss"
+    assert set(got[1]) == set(want[1]) == {name}
+    np.testing.assert_allclose(got[0].item(), float(want[0]), **TOL)
+    np.testing.assert_allclose(got[1][name].item(), float(want[1][name]),
+                               **TOL)
+    assert got[0].item() > 0
 
 
 @pytest.mark.parametrize("key,value", [("visual_word_generation", True),
