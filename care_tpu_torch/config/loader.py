@@ -4,7 +4,8 @@ The same cascade as the JAX package's ``care_tpu/config/loader.py`` (and
 the reference's ``opts.py:260-266`` + ``misc/utils.py:12-59``), read from
 ``presets.PRESETS`` instead of YAML files:
 
-* overlay order: method -> task -> setup -> feats -> arch;
+* overlay order: method -> task -> setup -> feats -> arch, with a task's
+  ``weights_from_inherit`` resolved between method and task;
 * each entry may recursively ``inherit_from`` one or several siblings;
 * the task entry (or an inherited one) may carry a ``scope_format``
   ``[fmt, [key, ...]]`` pair that names the experiment folder;
@@ -78,9 +79,42 @@ def load_preset(opt: dict, key, group: str, modify_scope: bool = False,
                         else new_scope)
 
 
+def check_whether_to_load_weights(opt: dict) -> None:
+    """Task-level weight inheritance (reference ``misc/utils.py:62-98``):
+    a task preset with ``weights_from_inherit: true`` starts from the
+    ``best.ckpt`` of its parent task, whose folder the parent's
+    ``scope_format`` names from ``opt`` (the options before the task's own
+    overlay). No shipped task sets it."""
+    if not opt.get("task"):
+        return
+    tasks = PRESETS["tasks"]
+    entry = tasks.get(opt["task"], {})
+    if not entry.get("weights_from_inherit", False):
+        return
+    if "inherit_from" not in entry:
+        raise ValueError(f"task `{opt['task']}` inherits weights but no "
+                         f"parent task")
+
+    def get_scope_format(key):
+        if isinstance(key, list):
+            key = key[0]
+        if "scope_format" in tasks[key]:
+            return tasks[key]["scope_format"]
+        return get_scope_format(tasks[key]["inherit_from"])
+
+    parent = entry["inherit_from"]
+    if isinstance(parent, list):
+        parent = parent[0]
+    opt["load_model_weights_from"] = os.path.join(
+        constants.BASE_CHECKPOINT_PATH, opt["dataset"], opt.get("method", ""),
+        parent, _format_scope(opt, get_scope_format(entry["inherit_from"])),
+        "best.ckpt")
+
+
 def apply_presets(opt: dict) -> None:
     """Apply the five-level overlay: method, task, setup, feats, arch."""
     load_preset(opt, opt.get("method"), "methods")
+    check_whether_to_load_weights(opt)
     load_preset(opt, opt.get("task"), "tasks", modify_scope=True,
                 name_to_path=True)
     load_preset(opt, opt.get("setup"), "setups")

@@ -1,13 +1,27 @@
-"""Translators: batch caption generation by AR beam search.
+"""Translators: batch caption generation by AR beam search or by NAR
+refinement.
 
-Port of ``care_tpu/decoding/translator.py:TranslatorARFormer`` (API parity
-with the reference ``models/Translator.py``): ``get_translator(opt)``
-returns an object whose ``translate_batch(model, batch)`` yields per-instance
-hypothesis token lists and scores. One decode encodes the batch once, builds
-the KV cache with cross-attention K/V at [B] rows and the self-attention
-cache at [B*beam] rows, and runs the beam loop. With the default
-``fused_head_topk`` each step's vocab expansion goes through the fused
-head + top-k kernel, so the [B*beam, V] logits never exist.
+Port of ``care_tpu/decoding/translator.py`` (API parity with the reference
+``models/Translator.py``): ``get_translator(opt)`` returns an object whose
+``translate_batch(model, batch)`` yields per-instance hypothesis token lists
+and scores.
+
+``TranslatorARFormer`` encodes the batch once, builds the KV cache with
+cross-attention K/V at [B] rows and the self-attention cache at [B*beam]
+rows, and runs the beam loop. With the default ``fused_head_topk`` each
+step's vocab expansion goes through the fused head + top-k kernel, so the
+[B*beam, V] logits never exist.
+
+``TranslatorNARFormer`` decodes a length beam: the ``length_beam_size``
+most likely lengths of each instance (from ``preds_length``), each a canvas
+of MASK tokens refined by ``decoding/nar.py``'s algorithm (``paradigm``
+``mp`` / ``l2r`` / ``ef``), and keeps the candidate of best length-
+normalised log-probability. Each refinement pass is a full decoder forward
+whose statistics (argmax and its probability) come from the argmax/lse
+kernel of ``ops/fused_head_topk.py`` on a plain ``NaiveHead``; an AR
+``teacher`` rescores the candidates through the same kernel
+(``exp(token logit - lse)``), its vocabulary reached through
+``vocab_mapping``.
 
 Three ways through a stream of batches, all giving what
 :meth:`translate_batch` gives batch by batch: ``translate_batches`` keeps a
@@ -31,9 +45,13 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from care_tpu_torch import constants
+from care_tpu_torch.decoding import nar
 from care_tpu_torch.decoding.beam_search import beam_search
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.framework import Captioner
+from care_tpu_torch.models.heads import NaiveHead
+from care_tpu_torch.ops.fused_head_topk import vocab_argmax_lse
 from care_tpu_torch.utils.device import resolve_device
 
 # what ``compute_dtype_decode`` may say: argparse delivers the string
@@ -44,9 +62,11 @@ _DECODE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 def get_translator(opt: dict, device=None):
     """The translator for ``opt`` on ``device`` (``None`` = the CUDA card;
     raises without one unless ``"cpu"``)."""
-    if opt["decoding_type"] != "ARFormer":
-        raise unsupported("decoding_type", opt["decoding_type"])
-    return TranslatorARFormer(opt, device)
+    if opt["decoding_type"] == "ARFormer":
+        return TranslatorARFormer(opt, device)
+    if opt["decoding_type"] == "NARFormer":
+        return TranslatorNARFormer(opt, device)
+    raise ValueError(opt["decoding_type"])
 
 
 def decode_dtype(value) -> Optional[torch.dtype]:
@@ -101,8 +121,14 @@ def _gather_self_kv(state, row_idx):
     return state
 
 
-class TranslatorARFormer:
-    """Batched beam search over a KV cache."""
+class Translator:
+    """What both translators share: the model checks, the half-precision
+    serving copies, the batch's tensors on the device, and the three ways
+    through a stream of batches. A subclass gives ``dispatch(models,
+    batch, **kwargs)`` (the decode's output tensors on the device) and
+    ``collect(out)`` (the host's hypotheses and scores); the keyword
+    arguments of every method (the NAR translator's ``teacher`` and
+    ``vocab_mapping``) reach ``dispatch``."""
 
     def __init__(self, opt: dict, device=None):
         if opt.get("fused_head_backend", "auto") != "auto":
@@ -111,10 +137,8 @@ class TranslatorARFormer:
             raise unsupported("pointer", opt["pointer"])
         self.opt = opt
         self.device = resolve_device(device)
-        self.beam_size = opt.get("beam_size", 5)
-        self.beam_alpha = opt.get("beam_alpha", 1.0)
-        self.topk = opt.get("topk", 1)
         self.max_len = opt.get("max_len", 30)
+        self.beam_alpha = opt.get("beam_alpha", 1.0)
         # the fused head streams a bias-free projection of the decoder's
         # hidden state: the plain NaiveHead, as the JAX package rules; any
         # other head decodes through its dense logits
@@ -122,11 +146,10 @@ class TranslatorARFormer:
                            and opt.get("cls_head") == "NaiveHead")
         self.compute_dtype = decode_dtype(opt.get("compute_dtype_decode"))
         self.keep_head_f32 = bool(opt.get("decode_head_f32", False))
-        # the cast copy of the last model served in half precision, with
-        # the source model and the version counters of its parameters
-        self._served = None
-        # beam steps run by this translator, all batches together
-        self.beam_steps = 0
+        # the cast copies of the models served in half precision, by the
+        # id of the source model: (source model, the version counters of
+        # its parameters, cast copy)
+        self._served = {}
 
     def _model(self, models) -> Captioner:
         if isinstance(models, (list, tuple)):
@@ -152,11 +175,12 @@ class TranslatorARFormer:
         if self.compute_dtype is None:
             return model
         stamp = tuple(p._version for p in model.parameters())
-        if (self._served is None or self._served[0] is not model
-                or self._served[1] != stamp):
-            self._served = (model, stamp, _cast_variables(
+        served = self._served.get(id(model))
+        if served is None or served[0] is not model or served[1] != stamp:
+            served = (model, stamp, _cast_variables(
                 model, self.compute_dtype, self.keep_head_f32))
-        return self._served[2]
+            self._served[id(model)] = served
+        return served[2]
 
     def _feats(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
         dtype = self.compute_dtype or torch.float32
@@ -173,10 +197,68 @@ class TranslatorARFormer:
                                    device=self.device).long()
                 for k in ("category",) if k in batch}
 
+    def translate_batch(self, models, batch: Dict[str, Any], **kwargs):
+        """models: a Captioner (or a one-element list of it); batch:
+        {"feats": [per-modality [B, T, dim] arrays]}. Returns (hyps, scores)
+        shaped like the reference: hyps[n] = list of topk token-id lists."""
+        return self.collect(self.dispatch(models, batch, **kwargs))
+
+    def translate_batches(self, models, batches, depth: int = 2, **kwargs):
+        """Decode an iterable of batches, keeping up to ``depth`` decodes'
+        outputs on the device before fetching them, so the host's collection
+        of one batch overlaps the device's work on the next. Yields
+        ``(batch, (hyps, scores))`` in input order, identical to
+        :meth:`translate_batch` per batch."""
+        yield from self._pipelined(models, ((b, b) for b in batches), depth,
+                                   kwargs)
+
+    def _pipelined(self, models, tagged_batches, depth: int, kwargs):
+        pending = deque()
+        for tag, batch in tagged_batches:
+            pending.append((tag, self.dispatch(models, batch, **kwargs)))
+            while len(pending) > depth:
+                t, out = pending.popleft()
+                yield t, self.collect(out)
+        while pending:
+            t, out = pending.popleft()
+            yield t, self.collect(out)
+
+    def translate_batches_fused(self, models, batches: List[Dict[str, Any]],
+                                **kwargs):
+        """Decode K batches back to back on the card's stream, then fetch
+        and collect their outputs; returns a list of per-batch (hyps,
+        scores), identical to per-batch :meth:`translate_batch`."""
+        outs = [self.dispatch(models, b, **kwargs) for b in batches]
+        return [self.collect(out) for out in outs]
+
+    def translate_batches_grouped(self, models, tagged_batches,
+                                  fused_k: int, **kwargs):
+        """Decode an iterable of ``(tag, batch)`` pairs with up to
+        ``fused_k`` decodes in flight on the card before their outputs are
+        fetched. Yields ``(tag, (hyps, scores))`` in input order, the
+        results of per-batch :meth:`translate_batch`. The JAX package pads
+        short batches and partial groups to the shapes of one compiled
+        ``lax.map`` program; eager decodes need no padding, so every batch
+        decodes at its own rows and none is decoded twice."""
+        yield from self._pipelined(models, tagged_batches, max(1, fused_k),
+                                   kwargs)
+
+
+class TranslatorARFormer(Translator):
+    """Batched beam search over a KV cache."""
+
+    def __init__(self, opt: dict, device=None):
+        super().__init__(opt, device)
+        self.beam_size = opt.get("beam_size", 5)
+        self.topk = opt.get("topk", 1)
+        # beam steps run by this translator, all batches together
+        self.beam_steps = 0
+
     @torch.no_grad()
-    def dispatch(self, models, batch: Dict[str, Any]):
+    def dispatch(self, models, batch: Dict[str, Any], **unused):
         """Decode one batch on the device; returns the beam's output tensors
-        on the device (pair with :meth:`collect`)."""
+        on the device (pair with :meth:`collect`). A teacher given with the
+        batch is not used, as in the JAX package."""
         model = self.serving_model(models)
         feats = self._feats(batch)
         N = feats[0].shape[0]
@@ -226,45 +308,168 @@ class TranslatorARFormer:
             all_scores.append(scores[:n_best])
         return all_hyp, all_scores
 
-    def translate_batch(self, models, batch: Dict[str, Any]):
-        """models: a Captioner (or a one-element list of it); batch:
-        {"feats": [per-modality [B, T, dim] arrays]}. Returns (hyps, scores)
-        shaped like the reference: hyps[n] = list of topk token-id lists."""
-        return self.collect(self.dispatch(models, batch))
 
-    def translate_batches(self, models, batches, depth: int = 2):
-        """Decode an iterable of batches, keeping up to ``depth`` decodes'
-        outputs on the device before fetching them, so the host's collection
-        of one batch overlaps the device's work on the next. Yields
-        ``(batch, (hyps, scores))`` in input order, identical to
-        :meth:`translate_batch` per batch."""
-        yield from self._pipelined(models, ((b, b) for b in batches), depth)
+def _last(x):
+    """The last pass of the two-stage decoder's outputs (a list)."""
+    return x[-1] if isinstance(x, list) else x
 
-    def _pipelined(self, models, tagged_batches, depth: int):
-        pending = deque()
-        for tag, batch in tagged_batches:
-            pending.append((tag, self.dispatch(models, batch)))
-            while len(pending) > depth:
-                t, out = pending.popleft()
-                yield t, self.collect(out)
-        while pending:
-            t, out = pending.popleft()
-            yield t, self.collect(out)
 
-    def translate_batches_fused(self, models, batches: List[Dict[str, Any]]):
-        """Decode K batches back to back on the card's stream, then fetch
-        and collect their outputs; returns a list of per-batch (hyps,
-        scores), identical to per-batch :meth:`translate_batch`."""
-        outs = [self.dispatch(models, b) for b in batches]
-        return [self.collect(out) for out in outs]
+class TranslatorNARFormer(Translator):
+    """Length-beam NAR refinement (replaces the reference's
+    ``Translator_NARFormer``), with optional AR-teacher rescoring."""
 
-    def translate_batches_grouped(self, models, tagged_batches,
-                                  fused_k: int):
-        """Decode an iterable of ``(tag, batch)`` pairs with up to
-        ``fused_k`` decodes in flight on the card before their outputs are
-        fetched. Yields ``(tag, (hyps, scores))`` in input order, the
-        results of per-batch :meth:`translate_batch`. The JAX package pads
-        short batches and partial groups to the shapes of one compiled
-        ``lax.map`` program; eager decodes need no padding, so every batch
-        decodes at its own rows and none is decoded twice."""
-        yield from self._pipelined(models, tagged_batches, max(1, fused_k))
+    def __init__(self, opt: dict, device=None):
+        super().__init__(opt, device)
+        self.paradigm = opt.get("paradigm", "mp")
+        if self.paradigm not in nar.ALGORITHMS:
+            raise ValueError(f"unknown NAR paradigm `{self.paradigm}`")
+        self.length_beam_size = opt["length_beam_size"]
+        self.length_bias = opt.get("length_bias", 0)
+        self.fused_chunk = int(opt.get("fused_head_chunk", 1024))
+        # full decoder forwards run by this translator, all batches
+        # together: the student's refinement passes and the teacher's
+        # rescoring passes
+        self.decoder_passes = 0
+        self.teacher_passes = 0
+
+    def _length_beam(self, enc, N: int):
+        """(lbs, lengths [N, lbs]) of the reference's length beam
+        (``Translator.py:307-318``)."""
+        if "preds_length" in enc:
+            lbs = self.length_beam_size
+            # lax.top_k's order: descending, ties to the lowest length
+            beam = torch.argsort(enc["preds_length"], dim=-1,
+                                 descending=True, stable=True)[:, :lbs]
+            beam = torch.clamp(beam + self.length_bias, 4, self.max_len)
+            return lbs, beam
+        lo, hi = self.opt.get("na_length_range", [5, 11])
+        # the reference adapts the beam to the range (Translator.py:272)
+        beam = torch.arange(lo, hi, device=self.device)[None, :]
+        return hi - lo, beam.expand(N, hi - lo)
+
+    def _student_fns(self, model, inputs):
+        """(forward_logits, forward_stats) of the refinement passes: the
+        dense logits, and with the fused head the argmax/lse kernel's
+        (argmax, exp(max - lse)) from the hidden states (None without)."""
+        def forward_logits(tokens):
+            self.decoder_passes += 1
+            out = model.decoding_phase(tokens, inputs, collect_aux=False)
+            # softmax, argmax and the probabilities stay f32 under
+            # half-precision decode
+            return _last(out["logits"]).float()
+
+        if not self.fused_head:
+            return forward_logits, None
+        W = model.cls_head.tgt_word_prj.weight
+
+        def forward_stats(tokens):
+            self.decoder_passes += 1
+            out = model.decoding_phase(tokens, inputs, collect_aux=False,
+                                       compute_logits=False)
+            idx, mx, lse = vocab_argmax_lse(_last(out["hidden_states"]), W,
+                                            None, chunk_size=self.fused_chunk)
+            return idx, torch.exp(mx - lse)
+
+        return forward_logits, forward_stats
+
+    def _teacher_fn(self, teacher, feats, batch_aux, lbs, canvas,
+                    vocab_mapping):
+        """``teacher_score(tokens, is_last)``: the AR teacher's probability
+        of each token given the ones before it (BOS first), the canvas's
+        PAD positions (and EOS, before the last call) at 1.0. The
+        ``masking_decision`` / ``no_candidate_decision`` gates leave a call
+        at all-ones."""
+        opt = self.opt
+        t_inputs = auto_enlarge(teacher.prepare_inputs_for_decoder(
+            teacher.encoding_phase(feats), batch_aux), lbs)
+        pad_mask = canvas == constants.PAD
+        eos_mask = canvas == constants.EOS
+        fused = (opt.get("fused_head_topk", True)
+                 and isinstance(teacher.cls_head, NaiveHead))
+
+        def teacher_score(tokens, is_last):
+            if (is_last and opt.get("no_candidate_decision", False)) or (
+                    not is_last and not opt.get("masking_decision", False)):
+                return torch.ones(tokens.shape, dtype=torch.float32,
+                                  device=tokens.device)
+            self.teacher_passes += 1
+            toks = tokens if vocab_mapping is None else vocab_mapping[tokens]
+            bos = torch.full((toks.shape[0], 1), constants.BOS,
+                             dtype=toks.dtype, device=toks.device)
+            prev = torch.cat([bos, toks], dim=1)[:, :-1]
+            out = teacher.decoding_phase(prev, t_inputs, collect_aux=False,
+                                         compute_logits=not fused)
+            if fused:
+                _, _, lse, tok = vocab_argmax_lse(
+                    _last(out["hidden_states"]),
+                    teacher.cls_head.tgt_word_prj.weight, None,
+                    token_ids=toks, chunk_size=self.fused_chunk)
+                p = torch.exp(tok - lse)
+            else:
+                probs = torch.softmax(out["logits"].float(), dim=-1)
+                p = torch.gather(probs, 2, toks[:, :, None])[:, :, 0]
+            p = torch.where(pad_mask, 1.0, p)
+            if not is_last:
+                p = torch.where(eos_mask, 1.0, p)
+            return p
+
+        return teacher_score
+
+    @torch.no_grad()
+    def dispatch(self, models, batch: Dict[str, Any], teacher=None,
+                 vocab_mapping=None):
+        """Decode one batch on the device; returns (hypotheses, log-probs),
+        each [N, 1, max_len] on the device (pair with :meth:`collect`).
+        ``teacher``: an AR Captioner in eval mode on the same device, which
+        rescores the candidates; ``vocab_mapping``: the student-id ->
+        teacher-id array when their vocabularies differ."""
+        model = self.serving_model(models)
+        feats = self._feats(batch)
+        batch_aux = self._batch_inputs(batch)
+        N = feats[0].shape[0]
+        enc = model.encoding_phase(feats)
+        lbs, beam = self._length_beam(enc, N)
+        inputs = auto_enlarge(model.prepare_inputs_for_decoder(enc,
+                                                               batch_aux),
+                              lbs)
+        lengths = beam.reshape(N * lbs)
+        pos = torch.arange(self.max_len, device=self.device)[None, :]
+        canvas = torch.where(pos < lengths[:, None], constants.MASK,
+                             constants.PAD)
+
+        forward_logits, forward_stats = self._student_fns(model, inputs)
+        teacher_score = None
+        if teacher is not None:
+            if vocab_mapping is not None:
+                vocab_mapping = torch.as_tensor(
+                    np.asarray(vocab_mapping), device=self.device).long()
+            teacher_score = self._teacher_fn(
+                self.serving_model(teacher), feats, batch_aux, lbs, canvas,
+                vocab_mapping)
+
+        opt = self.opt
+        if self.paradigm == "mp":
+            algo_kwargs = dict(iterations=opt.get("iterations", 5),
+                               use_ct=opt.get("use_ct", False))
+        else:
+            algo_kwargs = dict(q=opt.get("q", 1),
+                               q_iterations=opt.get("q_iterations", 1),
+                               use_ct=opt.get("use_ct", False))
+        hypotheses, lprobs = nar.ALGORITHMS[self.paradigm](
+            canvas, forward_logits, teacher_score=teacher_score,
+            forward_stats=forward_stats, **algo_kwargs)
+
+        hypotheses = hypotheses.reshape(N, lbs, self.max_len)
+        lprobs = lprobs.reshape(N, lbs, self.max_len)
+        tgt_lengths = lengths.reshape(N, lbs).to(torch.float32)
+        avg_log_prob = lprobs.sum(-1) / (tgt_lengths ** self.beam_alpha)
+        best = avg_log_prob.argmax(dim=-1)[:, None, None]
+        # [N, 1, max_len], the reference's output layout
+        return (torch.gather(hypotheses, 1,
+                             best.expand(N, 1, self.max_len)),
+                torch.gather(lprobs, 1, best.expand(N, 1, self.max_len)))
+
+    def collect(self, out):
+        """(hypotheses, log-probs) as nested lists [N][1][max_len]."""
+        hyp, lp = out
+        return hyp.cpu().numpy().tolist(), lp.cpu().numpy().tolist()

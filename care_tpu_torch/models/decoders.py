@@ -1,15 +1,19 @@
 """The Transformer decoder: full forward and KV-cached incremental decode.
 
 Port of ``care_tpu/models/decoders.py:TransformerDecoder`` (reference
-``models/Decoder/Transformer.py``) for AR decoding in every G-LSG mode:
-the GSG vector added to every token (``emb``) or prepended as one prefix
-token (``pp_emb``), the LSG concept slots as cross-attention keys
-(``concat``), as a concept-attention sublayer (``att``) or as a prefix of
-the sequence (``prefix``, with the prefix-mask surgery), category
-embeddings, the compositional projections conditioned on ``preds_attr``,
-post- or pre-LN, with or without relative-position biases, and the
-``TAP_pos`` / ``TAP_ln`` text post-processing of the embeddings the
-decoder-side concept losses read. Masks are additive 0/-1e9 biases
+``models/Decoder/Transformer.py``) and of its two-stage NACF subclass
+``TwoStageTransformerDecoder``. Under ``decoding_type: NARFormer`` the
+self-attention sees every non-PAD token (no causal term) and the token
+embeddings take the NAR input enhancement (``enhance_input``: 1 resamples
+the encoder states to each row's length, 2 adds their mean). In every
+G-LSG mode: the GSG vector added to every token (``emb``) or prepended as
+one prefix token (``pp_emb``), the LSG concept slots as cross-attention
+keys (``concat``), as a concept-attention sublayer (``att``) or as a
+prefix of the sequence (``prefix``, with the prefix-mask surgery),
+category embeddings, the compositional projections conditioned on
+``preds_attr``, post- or pre-LN, with or without relative-position biases,
+and the ``TAP_pos`` / ``TAP_ln`` text post-processing of the embeddings
+the decoder-side concept losses read. Masks are additive 0/-1e9 biases
 computed from the token ids.
 """
 
@@ -47,6 +51,28 @@ def causal_bias(len_s: int, watch: int = 0, device=None):
     return bias[None, None]
 
 
+def nar_resample(source, tgt_tokens):
+    """Resample the encoder states [B, T, D] to each row's target length
+    (vectorised reference ``Transformer.py:50-63``): position j of a row
+    of n tokens takes frame ``int(j * T / n)``. The scale is an f32
+    quotient, as in the JAX package: an f64 scale, or torch's ``T / n``
+    of a Python number (the reciprocal of n times T), can land one frame
+    off."""
+    pad = tgt_tokens == constants.PAD
+    length = (~pad).sum(dim=-1)
+    seq_len = tgt_tokens.shape[1]
+    src_len = source.shape[1]
+    scale = torch.div(torch.full(length.shape, float(src_len),
+                                 device=length.device),
+                      torch.clamp_min(length, 1).to(torch.float32))
+    pos = torch.arange(seq_len, device=tgt_tokens.device,
+                       dtype=torch.int32)[None, :]
+    idx = (pos * scale[:, None]).to(torch.int64)
+    idx = torch.clamp_max(idx, src_len - 1)
+    return torch.gather(source, 1,
+                        idx[:, :, None].expand(-1, -1, source.shape[-1]))
+
+
 def prefix_mask_surgery(bias, prefix_len: int):
     """Prepend concept-prefix rows/cols to a self-attention bias
     (reference ``Transformer.py:131-152``): every word position may attend
@@ -68,11 +94,11 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        if opt["decoder"] != "TransformerDecoder":
-            raise unsupported("decoder", opt["decoder"])
-        if opt["decoding_type"] != "ARFormer":
-            raise unsupported("decoding_type", opt["decoding_type"])
+        if opt.get("enhance_input", 2) not in (0, 1, 2):
+            raise ValueError("enhance_input should be 0, 1 or 2")
         self.opt = opt
+        self.decoding_type = opt["decoding_type"]
+        self.enhance_input = opt.get("enhance_input", 2)
         self.TPP = (TextPostProcesser(opt, generator)
                     if opt.get("TAP_pos") or opt.get("TAP_ln") else None)
         self.embedding = Embeddings(opt, generator)
@@ -113,9 +139,11 @@ class TransformerDecoder(nn.Module):
         return embs if self.TPP is None else self.TPP(embs)
 
     def _self_attention_bias(self, input_ids):
-        bias = (key_pad_bias(input_ids, input_ids.shape[1])
-                + causal_bias(input_ids.shape[1], self.opt.get("watch", 0),
-                              input_ids.device))
+        bias = key_pad_bias(input_ids, input_ids.shape[1])
+        if self.decoding_type != "NARFormer":
+            bias = bias + causal_bias(input_ids.shape[1],
+                                      self.opt.get("watch", 0),
+                                      input_ids.device)
         if self.prefix_len:
             bias = prefix_mask_surgery(bias, self.prefix_len)
         return bias
@@ -123,6 +151,7 @@ class TransformerDecoder(nn.Module):
     def forward(self, input_ids, encoder_hidden_states, semantic_embs=None,
                 semantic_hidden_states=None, preds_attr=None, category=None,
                 attr_input_ids=None, collect_aux: bool = True,
+                return_input_embs: bool = False,
                 **unused) -> Dict[str, Any]:
         """Full forward over ``input_ids`` [B, L]. Returns
         {"hidden_states": [B, L', D]} (L' counts the prefix slots of the
@@ -130,19 +159,33 @@ class TransformerDecoder(nn.Module):
         entries: every layer's hidden states and attention probabilities,
         the last layer's contexts and sublayer outputs, the input and
         sentence embeddings, the concept-attention probabilities (with
-        ``use_attr``) and the ``attr_input_ids`` embeddings."""
+        ``use_attr``) and the ``attr_input_ids`` embeddings.
+        ``return_input_embs`` returns the embedded input (with the concept
+        prefix) alone."""
         opt = self.opt
         if isinstance(encoder_hidden_states, (list, tuple)):
             if len(encoder_hidden_states) != 1:
                 raise ValueError("the decoder takes one fused stream")
             encoder_hidden_states = encoder_hidden_states[0]
         attention_bias = self._self_attention_bias(input_ids)
+        additional_feats = None
+        if self.decoding_type == "NARFormer":
+            if self.enhance_input == 1:
+                additional_feats = nar_resample(encoder_hidden_states,
+                                                input_ids)
+            elif self.enhance_input == 2:
+                additional_feats = encoder_hidden_states.mean(
+                    dim=1, keepdim=True).expand(
+                        input_ids.shape[0], input_ids.shape[1],
+                        encoder_hidden_states.shape[-1])
         input_embs = self.embedding(
             input_ids, semantic_hidden_states=semantic_hidden_states,
-            category=category)
+            category=category, additional_feats=additional_feats)
         original_input_embs = input_embs
         if self.concept_prefix:
             input_embs = torch.cat([semantic_embs, input_embs], dim=1)
+        if return_input_embs:
+            return input_embs
         # every encoder position is visible (the reference builds an
         # all-ones source mask), so the cross attention needs no mask
         all_hidden_states = [input_embs]
@@ -151,7 +194,7 @@ class TransformerDecoder(nn.Module):
             hidden_states, probs, contexts, embs = layer(
                 all_hidden_states[-1], encoder_hidden_states,
                 attention_mask=attention_bias, semantic_embs=semantic_embs,
-                preds_attr=preds_attr, decoding_type=opt["decoding_type"],
+                preds_attr=preds_attr, decoding_type=self.decoding_type,
                 n_frames=opt["n_frames"])
             # unpacked as the JAX package unpacks them: with attr2cross the
             # second entry is the concept attention's
@@ -293,5 +336,37 @@ class TransformerDecoder(nn.Module):
         return h[:, 0, :], state
 
 
+class TwoStageTransformerDecoder(TransformerDecoder):
+    """The NACF decoder (reference ``Transformer.py:271-287``): given a
+    list of 2 or 3 token sequences, a visual-word pass over the first (all
+    ``<vis>``) and a masked-language pass over the second, with
+    ``hidden_states`` the list of both passes' states; a third sequence
+    gives ``input_embs`` and ``sentence_embs``. A single sequence is one
+    plain forward."""
+
+    def forward(self, input_ids, *args, **kwargs):
+        if not isinstance(input_ids, (list, tuple)):
+            return super().forward(input_ids, *args, **kwargs)
+        if len(input_ids) not in (2, 3):
+            raise ValueError(f"{len(input_ids)} token sequences; the "
+                             f"two-stage decoder takes 2 or 3")
+        outputs1 = super().forward(input_ids[0], *args, **kwargs)
+        outputs2 = super().forward(input_ids[1], *args, **kwargs)
+        outputs2["hidden_states"] = [outputs1["hidden_states"],
+                                     outputs2["hidden_states"]]
+        if len(input_ids) == 3:
+            outputs2["input_embs"] = super().forward(
+                input_ids[2], *args, **dict(kwargs, return_input_embs=True))
+            outputs2["sentence_embs"] = self.get_sentence_embeddings(
+                input_ids[2], average_pooling=False)
+        return outputs2
+
+
+DECODERS = {"TransformerDecoder": TransformerDecoder,
+            "TwoStageTransformerDecoder": TwoStageTransformerDecoder}
+
+
 def get_decoder(opt: dict, generator: torch.Generator) -> nn.Module:
-    return TransformerDecoder(opt, generator)
+    if opt["decoder"] not in DECODERS:
+        raise unsupported("decoder", opt["decoder"])
+    return DECODERS[opt["decoder"]](opt, generator)

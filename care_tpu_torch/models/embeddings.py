@@ -103,11 +103,12 @@ class NaiveEmbeddings(nn.Module):
 
 class Embeddings(nn.Module):
     """Decoder input embeddings (reference ``Embeddings.py:90-188``):
-    word + position (+ category) (+ the GSG ``semantic_hidden_states``,
-    added to every token in ``emb`` mode or prepended as one prefix token in
-    ``pp_emb`` mode) -> LN -> dropout. With ``RPE`` the absolute position
-    term goes unless ``RPE_keep_abs_pos``; with ``transformer_pre_ln`` the
-    LN goes (the layers normalise their own inputs).
+    word + position (+ category) (+ the NAR decoder's ``additional_feats``)
+    (+ the GSG ``semantic_hidden_states``, added to every token in ``emb``
+    mode or prepended as one prefix token in ``pp_emb`` mode) -> LN ->
+    dropout. With ``RPE`` the absolute position term goes unless
+    ``RPE_keep_abs_pos``; with ``transformer_pre_ln`` the LN goes (the
+    layers normalise their own inputs).
 
     ``pretrained_embs_path`` reads the word table from a local ``.npy``
     file (projected by the bias-free ``w2h`` when its width is not
@@ -169,7 +170,7 @@ class Embeddings(nn.Module):
         return embeddings
 
     def forward(self, input_ids, semantic_hidden_states=None,
-                position_ids=None, category=None,
+                position_ids=None, category=None, additional_feats=None,
                 only_word_and_position: bool = False):
         embeddings = self.embed_tokens(input_ids)
         if self.position_embeddings is not None:
@@ -187,6 +188,8 @@ class Embeddings(nn.Module):
                                         embeddings], dim=1)
             if self.category_embeddings is not None:
                 embeddings = embeddings + self._category(category)
+            if additional_feats is not None:
+                embeddings = embeddings + additional_feats
             if (self.semantic_flag and not self.prefix_flag
                     and semantic_hidden_states is not None):
                 embeddings = embeddings + semantic_hidden_states[:, None, :]

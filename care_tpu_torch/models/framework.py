@@ -2,8 +2,9 @@
 
 Port of ``care_tpu/models/framework.py`` (reference ``models/Framework.py``):
 ``encoding_phase`` runs the encoder and the predictor and merges the
-predictor's outputs into the decoder inputs (the LSG ``concat`` mode appends
-the concept-slot embeddings to the encoder states); ``decoding_phase`` runs
+predictor's outputs (with the ``preds_length`` of NAR decoding) into the
+decoder inputs (the LSG ``concat`` mode appends the concept-slot
+embeddings to the encoder states); ``decoding_phase`` runs
 the decoder and the head; ``init_decode_state`` / ``decode_step`` drive the
 KV-cached decode. The retrieved-text stream ``t`` is embedded by
 ``TextEmbedder`` (its own embeddings, or the decoder's word and position
@@ -149,20 +150,30 @@ class Captioner(nn.Module):
                        collect_aux: bool = True,
                        attr_input_ids=None) -> Dict[str, Any]:
         """``compute_logits=False`` (the fused-xent training path,
-        ``ops/fused_xent.py``) skips the vocab projection: the criterion
-        takes its statistics from ``hidden_states`` and the head's weight,
-        so the ``[B, L, V]`` logits never exist. ``collect_aux`` adds the
-        decoder's aux entries (attention probabilities, contexts,
-        embeddings) that the decoder-side concept losses read."""
+        ``ops/fused_xent.py``, and the fused statistics of NAR decoding)
+        skips the vocab projection: the caller takes its statistics from
+        ``hidden_states`` and the head's weight, so the ``[B, L, V]``
+        logits never exist. Given the two-stage decoder's list of hidden
+        states, ``logits`` is the list of each pass's logits.
+        ``collect_aux`` adds the decoder's aux entries (attention
+        probabilities, contexts, embeddings) that the decoder-side concept
+        losses read."""
         outputs = self.decoder(input_ids, collect_aux=collect_aux,
                                attr_input_ids=attr_input_ids,
                                **inputs_for_decoder)
         if not compute_logits and not last_time_step_logits:
+            # the two-stage decoder's hidden_states is a list of passes;
+            # the callers take the last entry
             return outputs
         hidden_states = outputs["hidden_states"]
         if last_time_step_logits:
-            hidden_states = hidden_states[:, -1, :]
-        outputs["logits"] = self.cls_head(hidden_states)
+            if isinstance(hidden_states, list):
+                hidden_states = hidden_states[-1]
+            outputs["logits"] = self.cls_head(hidden_states[:, -1, :])
+        elif isinstance(hidden_states, list):
+            outputs["logits"] = [self.cls_head(h) for h in hidden_states]
+        else:
+            outputs["logits"] = self.cls_head(hidden_states)
         return outputs
 
     def forward(self, batch: Dict[str, Any], compute_logits: bool = True,

@@ -1,23 +1,52 @@
 """Model loading: a checkpoint of the port -> (models, opt), with the opt
-override and the rewrite of data paths to the local data root.
+override and the rewrite of data paths to the local data root, and the
+NACF teacher-weight surgery.
 
-Port of ``care_tpu/models/loading.py:43-131`` (reference
-``models/__init__.py``: ``load_model`` with its opt override and
-base-data-path rewrite ``:93-152``, the retrieval-database plug-in
-``:7-32``). It reads the port's own checkpoints
-(``training/checkpoints.py``: the variables under the flax tree's names and
-the ``.json`` side-car's opt). Ensembles of several checkpoints, teacher
-weight surgery and the vocabulary mapping are not ported yet and raise.
+Port of ``care_tpu/models/loading.py`` (reference ``models/__init__.py``:
+``load_model`` with its opt override and base-data-path rewrite
+``:93-152``, the retrieval-database plug-in ``:7-32``, and
+``manually_load_pretrained_teacher_model`` ``:155-190``, which copies the
+teacher's parameters of matching shape into a fresh student and remaps the
+vocabulary rows of the word embeddings and the head through the id
+mapping). It reads the port's own checkpoints (``training/checkpoints.py``:
+the variables under the flax tree's names and the ``.json`` side-car's
+opt). Ensembles of several checkpoints are not ported yet and raise.
 """
 
 import os
+import pickle
 from typing import List, Optional
+
+import numpy as np
+import torch
 
 from care_tpu_torch import constants
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.framework import build_captioner
-from care_tpu_torch.models.weights import variables_from_jax
+from care_tpu_torch.models.weights import (batch_norm_modules, flat_leaves,
+                                           jax_leaf_key, variables_from_jax,
+                                           variables_to_jax)
 from care_tpu_torch.training.checkpoints import load_checkpoint
+
+
+def get_vocab_mapping(opt: dict, teacher_opt: dict):
+    """Student-vocab-id -> teacher-vocab-id array (reference
+    ``Translator.py:321-339``); None when the vocabularies are the same."""
+    if teacher_opt is None:
+        return None
+    with open(opt["info_corpus"], "rb") as f:
+        vocab = pickle.load(f)["info"]["itow"]
+    with open(teacher_opt["info_corpus"], "rb") as f:
+        teacher_vocab = pickle.load(f)["info"]["itow"]
+    if vocab == teacher_vocab:
+        return None
+    teacher_w2i = {v: k for k, v in teacher_vocab.items()}
+    mapping = np.zeros(len(vocab), dtype=np.int64)
+    for k, v in vocab.items():
+        mapping[int(k)] = int(teacher_w2i[v])
+    if mapping[constants.PAD] != constants.PAD:
+        raise ValueError("the vocabularies disagree on PAD")
+    return mapping
 
 
 def replace_paths(opt: dict, base_data_path: Optional[str] = None) -> dict:
@@ -76,23 +105,140 @@ def load_model(checkpoint_path, new_opt_used_to_override: dict = None,
     Returns (models, opt): ``models`` is a one-element list of the
     ``Captioner`` in eval mode on ``device`` (None = the CUDA card; raises
     without one unless ``"cpu"``), what ``get_translator(opt)`` serves. With
-    ``return_spec`` a third value, the ensemble spec, is None. The weights
-    load strictly: a missing, unused or misshapen parameter raises.
+    ``return_spec`` a third value, the ensemble spec, is None. With
+    ``strict`` the weights load strictly: a missing, unused or misshapen
+    parameter raises; without it a parameter the checkpoint lacks keeps
+    its fresh init and a leaf the model does not take is dropped, both
+    named (``_restore_into_template``).
     """
     paths = (checkpoint_path if isinstance(checkpoint_path, (list, tuple))
              else [checkpoint_path])
     if len(paths) > 1:
         raise unsupported("ensembles of several models")
-    if not strict:
-        raise unsupported("strict", strict)
     variables, opt, _ = load_checkpoint(paths[0])
     if new_opt_used_to_override:
         opt = {**opt, **new_opt_used_to_override}
     if do_replace_paths and opt.get("info_corpus"):
         opt = replace_paths(opt, base_data_path)
     model = build_captioner(opt, device=device)
+    if not strict:
+        variables = _restore_into_template(model, opt, variables,
+                                           strict=False)
     variables_from_jax(model, variables)
     models = [model]
     if return_spec:
         return models, opt, None
     return models, opt
+
+
+def init_variables_template(model, opt: dict = None) -> dict:
+    """The model's variables as the flax tree (``variables_to_jax``): the
+    template a checkpoint is restored into. The port builds its modules
+    eagerly, so no synthetic batch is needed (``opt`` is accepted for the
+    JAX package's signature)."""
+    return variables_to_jax(model)
+
+
+def _unflat(flat: dict) -> dict:
+    tree: dict = {}
+    for key, value in flat.items():
+        node = tree
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = value
+    return tree
+
+
+def _restore_into_template(model, opt, raw_state, strict: bool = True,
+                           verbose: bool = True) -> dict:
+    """The template's tree with each leaf the checkpoint ``raw_state``
+    holds taken from it (shapes must match). ``strict`` raises when the
+    checkpoint lacks any leaf of the template (a renamed module or a cut
+    checkpoint must not evaluate with fresh weights, reference
+    ``models/__init__.py:97``); without it such leaves keep the model's
+    own values. Leaves the template lacks are dropped; both are named when
+    ``verbose``."""
+    flat_t = dict(flat_leaves(init_variables_template(model, opt)))
+    flat_r = dict(flat_leaves(raw_state))
+    missing = sorted("/".join(k) for k in set(flat_t) - set(flat_r))
+    extra = sorted("/".join(k) for k in set(flat_r) - set(flat_t))
+    if missing and strict:
+        raise KeyError(
+            f"checkpoint is missing {len(missing)} parameter(s) present in "
+            f"the model: {missing[:10]}{'…' if len(missing) > 10 else ''}")
+    if verbose and missing:
+        print("- Missing Keys (kept at fresh init):", missing[:10])
+    if verbose and extra:
+        print("- Extra Keys in the Checkpoint:", extra[:10])
+    out = {}
+    for k, v in flat_t.items():
+        if k in flat_r:
+            rv = np.asarray(flat_r[k])
+            if rv.shape != v.shape:
+                raise ValueError(f"{'/'.join(k)}: checkpoint shape "
+                                 f"{rv.shape} != model shape {v.shape}")
+            out[k] = rv
+        else:
+            out[k] = v
+    return _unflat(out)
+
+
+def _student_leaves(model):
+    """(flax path, transpose?, port tensor, name) of every parameter and
+    BatchNorm running statistic of ``model``."""
+    for name, param in model.named_parameters():
+        key, transpose = jax_leaf_key(model, name)
+        yield ("params",) + key, transpose, param, name
+    for path, module in batch_norm_modules(model):
+        for leaf, buf in (("mean", module.running_mean),
+                          ("var", module.running_var)):
+            yield (("batch_stats",) + path + (leaf,), False, buf,
+                   ".".join(path + (leaf,)))
+
+
+@torch.no_grad()
+def load_teacher_weights_into_student(model, teacher_ckpt_path: str,
+                                      vocab_mapping=None,
+                                      verbose: bool = True) -> int:
+    """NACF teacher init (reference ``models/__init__.py:155-190``): every
+    parameter (and BatchNorm statistic) of ``model`` whose flax path the
+    teacher's checkpoint holds at the same shape takes the teacher's
+    value, in place. A word table or vocab head of another shape takes
+    the teacher's rows through ``vocab_mapping`` (student id -> teacher
+    id). The port's head weight is ``[V, H]``, so its vocabulary is the
+    rows, where the JAX package remaps the columns of its ``[H, V]``
+    kernel. Anything else keeps the student's value. Returns the number
+    of leaves the teacher filled."""
+    raw, _, _ = load_checkpoint(teacher_ckpt_path)
+    flat_t = dict(flat_leaves(raw))
+    leaves = list(_student_leaves(model))
+    if verbose:
+        keys = {k for k, _, _, _ in leaves}
+        missing = sorted("/".join(k) for k in keys - set(flat_t))
+        extra = sorted("/".join(k) for k in set(flat_t) - keys)
+        if missing:
+            print("- Unexpected Keys:", missing[:10])
+        if extra:
+            print("- Extra Keys in the Checkpoint:", extra[:10])
+    filled = 0
+    for key, transpose, tensor, name in leaves:
+        if key not in flat_t:
+            continue
+        value = np.asarray(flat_t[key], dtype=np.float32)
+        if transpose:
+            value = value.T
+        if value.shape != tuple(tensor.shape):
+            if verbose:
+                print(f"- Incompatible Shape of `{'/'.join(key)}`: Student "
+                      f"{tuple(tensor.shape)}; Teacher {value.shape}")
+            if vocab_mapping is None or not (
+                    "word_embeddings" in name or "tgt_word_prj" in name):
+                continue
+            value = value[np.asarray(vocab_mapping)]
+            if value.shape != tuple(tensor.shape):
+                raise ValueError(f"{name}: the vocabulary-mapped teacher "
+                                 f"rows {value.shape} do not fit "
+                                 f"{tuple(tensor.shape)}")
+        tensor.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        filled += 1
+    return filled

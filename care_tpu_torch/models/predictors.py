@@ -6,8 +6,9 @@ Port of ``care_tpu/models/predictors.py`` (reference
 concept head with one projection per flag (or one shared), the train-time
 sparse frame sampling, the SemanticContainer that turns the concept
 distribution (or given ``semantic_logits``) into the LSG concept-slot
-embeddings (top-k concepts) and the GSG latent-topic vector, and the
-``TAP_pos`` / ``TAP_ln`` post-processing of text embeddings.
+embeddings (top-k concepts) and the GSG latent-topic vector, the
+``TAP_pos`` / ``TAP_ln`` post-processing of text embeddings, and the
+length predictor of NAR decoding.
 """
 
 from typing import Any, Dict
@@ -15,8 +16,7 @@ from typing import Any, Dict
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
-                                          unsupported)
+from care_tpu_torch.models.common import Dropout, LayerNorm, dense
 from care_tpu_torch.models.embeddings import NaiveEmbeddings
 from care_tpu_torch.ops.topk import top_k
 
@@ -225,18 +225,40 @@ class SemanticContainer(nn.Module):
                 "semantic_hidden_states": semantic_hidden_states}
 
 
+class PredictorLength(nn.Module):
+    """The length distribution of NAR decoding (reference
+    ``pred_length.py:5-22``): the mean over the encoder positions through
+    ``net1``, ReLU, dropout and ``net2`` to ``max_len`` classes, as
+    log-probabilities ``preds_length`` [B, max_len]."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        dim = opt["dim_hidden"]
+        self.net1 = dense(dim, dim, generator)
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
+        self.net2 = dense(dim, opt["max_len"], generator)
+
+    def forward(self, encoder_hidden_states, **kwargs) -> Dict[str, Any]:
+        if isinstance(encoder_hidden_states, (list, tuple)):
+            if len(encoder_hidden_states) != 1:
+                raise ValueError("the length predictor takes one stream")
+            encoder_hidden_states = encoder_hidden_states[0]
+        x = torch.relu(self.net1(encoder_hidden_states.mean(dim=1)))
+        out = self.net2(self.dropout(x))
+        return {"preds_length": torch.log_softmax(out, dim=-1)}
+
+
 class Predictor(nn.Module):
     """Chained container: each net's outputs feed the next
-    (reference ``Predictor/base.py:6-15``)."""
+    (reference ``Predictor/base.py:6-15``); the length predictor comes
+    last, as in the JAX package."""
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
         self.net_names = []
         for crit in opt["crits"]:
-            if crit == "lang":
+            if crit in ("lang", "length"):
                 continue
-            if crit == "length":
-                raise unsupported("crits", crit)
             if crit != "attribute":
                 raise ValueError(f"no predictor for crit `{crit}`")
             self.add_module("Predictor_attribute",
@@ -247,6 +269,10 @@ class Predictor(nn.Module):
                 raise ValueError(f"unknown predictor `{name}`")
             self.add_module(name, SemanticContainer(opt, generator))
             self.net_names.append(name)
+        if "length" in opt["crits"]:
+            self.add_module("Predictor_length",
+                            PredictorLength(opt, generator))
+            self.net_names.append("Predictor_length")
 
     def forward(self, encoder_hidden_states, **kwargs) -> Dict[str, Any]:
         results: Dict[str, Any] = {}

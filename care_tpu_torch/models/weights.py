@@ -25,10 +25,11 @@ import torch
 from torch import nn
 
 
-def _flat(tree, prefix=()):
+def flat_leaves(tree, prefix=()):
+    """(path tuple, leaf) of every leaf of a nested dict."""
     for k, v in tree.items():
         if isinstance(v, dict):
-            yield from _flat(v, prefix + (k,))
+            yield from flat_leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
@@ -50,7 +51,7 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
     """Copy ``params`` into ``model`` in place and return it. Raises on a
     shape mismatch, on a port parameter with no JAX leaf, and on a JAX leaf
     that no port parameter takes."""
-    leaves = dict(_flat(params))
+    leaves = dict(flat_leaves(params))
     used = set()
     with torch.no_grad():
         for name, param in model.named_parameters():
@@ -104,7 +105,8 @@ def grads_to_jax(model: nn.Module) -> dict:
     return _to_jax_tree(model, pick)
 
 
-def _batch_norms(model: nn.Module):
+def batch_norm_modules(model: nn.Module):
+    """(flax path tuple, module) of every ``BatchNorm1d`` of ``model``."""
     for name, module in model.named_modules():
         if isinstance(module, nn.BatchNorm1d):
             yield tuple(name.split(".")), module
@@ -120,10 +122,10 @@ def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
     if other:
         raise KeyError(f"JAX collections the port does not take: {other}")
     params_from_jax(model, variables["params"])
-    leaves = dict(_flat(variables.get("batch_stats", {})))
+    leaves = dict(flat_leaves(variables.get("batch_stats", {})))
     used = set()
     with torch.no_grad():
-        for path, module in _batch_norms(model):
+        for path, module in batch_norm_modules(model):
             for leaf, buf in (("mean", module.running_mean),
                               ("var", module.running_var)):
                 key = path + (leaf,)
@@ -147,7 +149,7 @@ def variables_to_jax(model: nn.Module) -> dict:
     variables tree ``{"params": ..., "batch_stats": ...}`` (no
     ``batch_stats`` without a BatchNorm)."""
     out = {"params": params_to_jax(model)}
-    for path, module in _batch_norms(model):
+    for path, module in batch_norm_modules(model):
         node = out.setdefault("batch_stats", {})
         for part in path:
             node = node.setdefault(part, {})

@@ -358,8 +358,16 @@ def vocab_argmax_lse(h, W, b, token_ids=None, chunk_size: int = 1024):
 
     h: [..., H]; W: [V, H]; b: [V] or None; token_ids: [...] int or None.
     Each output is shaped like ``h.shape[:-1]``; argmax is int64 and ties
-    go to the lowest id, as ``argmax`` over the full row would give.
+    go to the lowest id, as ``argmax`` over the full row would give. Mixed
+    operands (bf16 hidden states on the f32 head of ``decode_head_f32``)
+    compute in their promoted dtype, as the JAX package's do.
     """
+    if h.dtype != W.dtype or (b is not None and b.dtype != W.dtype):
+        dtype = torch.promote_types(h.dtype, W.dtype)
+        if b is not None:
+            dtype = torch.promote_types(dtype, b.dtype)
+        h, W = h.to(dtype), W.to(dtype)
+        b = None if b is None else b.to(dtype)
     lead = h.shape[:-1]
     hf = h.reshape(-1, h.shape[-1]).contiguous()
     tf = None if token_ids is None else token_ids.reshape(-1)

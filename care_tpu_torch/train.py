@@ -7,8 +7,11 @@ top-k checkpoints, reloads the best checkpoint and runs the test pass.
     python -m care_tpu_torch.train --dataset MSRVTT --method Transformer \\
         --task CARE --feats ViT -dm_flags VA -pm_flags VAT
 
-runs on the CUDA card; ``--device cpu`` runs on the host. ``--mesh`` and
-``--load_model_weights_from`` are not ported yet and raise.
+runs on the CUDA card; ``--device cpu`` runs on the host. With
+``load_model_weights_from`` (which the NACF commands get from their
+``teacher_path``) the model starts from that checkpoint's weights where
+their shapes fit (``models/loading.py:load_teacher_weights_into_student``).
+``--mesh`` is not ported yet and raises.
 """
 
 import argparse
@@ -60,6 +63,20 @@ def seed_everything(seed: int):
     np.random.seed(seed)
 
 
+def load_weights_from(trainer, path: str) -> int:
+    """Build the trainer's model and fill it from the checkpoint at
+    ``path`` (root ``train.py:104-113``), through the vocabulary mapping
+    when the checkpoint's corpus differs; returns the leaves filled."""
+    from care_tpu_torch.models.loading import (
+        get_vocab_mapping, load_teacher_weights_into_student)
+    from care_tpu_torch.training.checkpoints import load_checkpoint
+
+    trainer.init_model()
+    _, teacher_opt, _ = load_checkpoint(path)
+    vm = get_vocab_mapping(trainer.opt, teacher_opt) if teacher_opt else None
+    return load_teacher_weights_into_student(trainer.model, path, vm)
+
+
 def run(opt, device=None):
     """The reference's ``run``: loaders, ``Trainer.fit`` (validation and
     checkpoints every epoch), ``load_best``, ``test``. ``device`` None
@@ -70,8 +87,6 @@ def run(opt, device=None):
     from care_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    if opt.get("load_model_weights_from"):
-        raise unsupported("load_model_weights_from")
     if opt.get("wrapper") == "InterplayModel":
         raise unsupported("wrapper", opt["wrapper"])
     seed_everything(opt["seed"])
@@ -96,6 +111,8 @@ def run(opt, device=None):
         opt, train_loader=train_loader, val_loader=val_loader,
         test_loader=test_loader, references=references, vocab=vocab,
         log_dir=os.path.join(opt["checkpoint_path"], "tb"), device=device)
+    if opt.get("load_model_weights_from"):
+        load_weights_from(trainer, opt["load_model_weights_from"])
     trainer.fit()
     trainer.load_best()
     scores = trainer.test(info_corpus=info_corpus)

@@ -1,7 +1,6 @@
 """Loss / criterion system.
 
-Port of ``care_tpu/training/losses.py`` (reference ``misc/Crit/``) for the
-crits the flagship trains with:
+Port of ``care_tpu/training/losses.py`` (reference ``misc/Crit/``):
 
 * the language NLL with label smoothing on log-softmax, the stripping of
   the G-LSG concept-prefix positions, and the word-accuracy and perplexity
@@ -15,11 +14,14 @@ crits the flagship trains with:
   ``project_fn``, merged over the non-PAD positions);
 * the auxiliary ``attn`` (concept-attention mass hinge) and ``gate``
   (gate BCE against the non-stop-word mask) losses;
+* NACF's multi-pass language loss (``visual_word_generation``: the
+  ``nv_weights``, perplexity over the caption passes, the MASK-aware
+  ``word_acc0``) and the ``length`` KL of NAR decoding;
 * the ``Criterion`` aggregator with named scales.
 
 Every value is a tensor on the model's device; the trainer fetches them
-once per epoch. The ``length`` crit, visual-word generation and pointer
-``probs`` are not ported yet and raise ``NotImplementedError``.
+once per epoch. Pointer ``probs`` are not ported yet and raise
+``NotImplementedError``.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -110,8 +112,11 @@ def _lang_step_fused(opt, hidden, weight, labels):
 
 
 def lang_loss(opt, results) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    if opt.get("visual_word_generation", False):
-        raise unsupported("visual_word_generation")
+    """The language loss over every (logits, labels) pass. Under NACF's
+    ``visual_word_generation`` the passes weigh by ``nv_weights``, the
+    perplexity counts the caption passes only, and ``word_acc0`` (the
+    visual-word pass) leaves the MASK targets out (reference
+    ``crit_lang.py:75-78``)."""
     if results.get("probs") is not None:
         raise unsupported("probs (pointer copy probabilities)")
     labels = _as_list(results["labels"])
@@ -133,14 +138,28 @@ def lang_loss(opt, results) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     logits = _as_list(results["logits"])
     if len(labels) != len(logits):
         labels = labels * len(logits)
+    visual_words = opt.get("visual_word_generation", False)
+    weights = (opt.get("nv_weights", [0.8, 1.0]) if visual_words
+               else [1.0] * len(logits))
     denom = logits[0].shape[0]
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
-    for i, (lg, lb) in enumerate(zip(logits, labels)):
+    for i, (w, lg, lb) in enumerate(zip(weights, logits, labels)):
         s, m = _lang_step(opt, lg, lb)
-        total = total + s / denom
+        total = total + w * s / denom
         metrics[f"word_acc_num{i}"] = m["word_acc_num"]
         metrics[f"word_acc_den{i}"] = m["word_acc_den"]
+        if i == 0 and visual_words:
+            # the visual-word pass: no perplexity, and an accuracy that
+            # leaves the MASK targets out (its prediction is not aligned
+            # by _strip_positions, as in the JAX package)
+            preds = torch.log_softmax(
+                (lg if lg.shape[1] == lb.shape[1] else lg[:, :-1]).float(),
+                dim=-1).argmax(dim=-1)
+            keep = (lb != constants.PAD) & (lb != constants.MASK)
+            metrics["word_acc_num0"] = ((preds == lb) & keep).float().sum()
+            metrics["word_acc_den0"] = keep.float().sum()
+            continue
         # perplexity accumulates across the caption-generation passes
         metrics["xent_sum"] = metrics.get("xent_sum", 0.0) + m["xent_sum"]
         metrics["xent_count"] = (metrics.get("xent_count", 0.0)
@@ -251,6 +270,23 @@ def attribute_losses(opt, results, project_fn=None,
 
 
 # ---------------------------------------------------------------------------
+# length KL
+# ---------------------------------------------------------------------------
+
+def length_loss(opt, results):
+    """KL(target || preds), summed over the lengths and averaged over the
+    batch (reference ``crit_length.py``; ``preds_length`` is already a
+    log-softmax); lengths the target gives no mass add nothing."""
+    preds = results["preds_length"]
+    target = results["length_target"]
+    has_mass = target > 0
+    safe_log_t = torch.where(has_mass,
+                             torch.log(torch.clamp_min(target, 1e-20)), 0.0)
+    kl = torch.where(has_mass, target * (safe_log_t - preds), 0.0)
+    return kl.sum() / preds.shape[0], {}
+
+
+# ---------------------------------------------------------------------------
 # auxiliary attention losses (the reference's ``crit_attn.py``; no shipped
 # configuration reaches them, the JAX package keeps them under the crits
 # ``attn`` and ``gate``)
@@ -298,7 +334,7 @@ def gate_loss(opt, results):
 # criterion aggregator
 # ---------------------------------------------------------------------------
 
-PORTED_CRITS = ("lang", "attribute", "attn", "gate")
+PORTED_CRITS = ("lang", "attribute", "length", "attn", "gate")
 
 
 class Criterion:
@@ -314,14 +350,14 @@ class Criterion:
         self.opt = o
         self.crits = [c for c in o["crits"] if c not in skip_crit_list]
         for crit in self.crits:
-            if crit == "length":
-                raise unsupported("crits", crit)
             if crit not in PORTED_CRITS:
                 raise ValueError(f"unknown crit `{crit}`")
         self.with_metrics = with_metrics
         self.scales = {c: 1.0 for c in self.crits}
         if "lang" in self.scales:
             self.scales["lang"] = o.get("language_generation_scale", 1.0)
+        if "length" in self.scales:
+            self.scales["length"] = o.get("length_prediction_scale", 1.0)
 
     def set_scales(self, new_scales: Dict[str, float]):
         self.scales.update(new_scales)
@@ -345,6 +381,10 @@ class Criterion:
                 losses.update(per)
                 metrics.update(m)
                 total = total + l * self.scales.get("attribute", 1.0)
+            elif crit == "length":
+                l, _ = length_loss(self.opt, results)
+                losses["Length Loss"] = l
+                total = total + l * self.scales["length"]
             elif crit == "attn":
                 l, _ = attn_sparse_loss(self.opt, results)
                 losses["Attn Loss"] = l

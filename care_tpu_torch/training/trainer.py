@@ -31,8 +31,13 @@ features there from its video and frame ids; validation keeps a bank of its
 own dataset. Validation decodes in groups of ``eval_fused_k`` batches
 (``translate_batches_grouped``), or batch by batch when that is 1.
 
+A NAR model with a ``teacher_path`` decodes with its AR teacher
+(``_get_teacher``): loaded once from its checkpoint, with the vocabulary
+mapping between the two corpora, and handed to the translator with every
+validation and test batch, which rescores the candidates with it.
+
 Not ported yet, each rejected with ``NotImplementedError``: a ``mesh``, a
-``fused_xent_backend`` other than ``auto``, ``backbone_weights``, teachers.
+``fused_xent_backend`` other than ``auto``, ``backbone_weights``.
 """
 
 import json
@@ -94,10 +99,8 @@ def schedule_sampling_prob(opt: dict, epoch: int) -> float:
 
 
 def _check_opt(opt: dict) -> None:
-    for key in ("backbone_weights", "teacher_path",
-                "with_teacher_during_training"):
-        if opt.get(key):
-            raise unsupported(key, opt[key])
+    if opt.get("backbone_weights"):
+        raise unsupported("backbone_weights", opt["backbone_weights"])
     # the JAX package's "xla" forces its scan form and "pallas" its kernel;
     # the port has one rule per device (the kernels on a CUDA tensor)
     if opt.get("fused_xent_backend", "auto") != "auto":
@@ -163,6 +166,7 @@ class Trainer:
         self.model = None
         self.tx = None
         self._translator = None
+        self._teacher = None
         self._ts_ckpt = None
         self._plateau = None
         self.global_step = 0
@@ -581,10 +585,38 @@ class Trainer:
     # ------------------------------------------------------------------
     # caption generation and scoring
     # ------------------------------------------------------------------
+    def _get_teacher(self):
+        """(the AR teacher Captioner, the vocabulary mapping) for NAR
+        rescoring (reference ``Wrapper.py:287-294``), loaded once onto the
+        trainer's device; (None, None) for an AR model or without a
+        ``teacher_path``. The mapping is None where the corpora cannot be
+        read or have the same vocabulary, as in the JAX package."""
+        if (self.opt.get("decoding_type") != "NARFormer"
+                or not self.opt.get("teacher_path")):
+            return None, None
+        if self._teacher is None:
+            from care_tpu_torch.models.loading import (get_vocab_mapping,
+                                                       load_model)
+            models, t_opt = load_model(self.opt["teacher_path"],
+                                       device=self.device)
+            try:
+                vm = get_vocab_mapping(self.opt, t_opt)
+            except Exception:
+                vm = None
+            self._teacher = (models[0], vm)
+        return self._teacher
+
+    def _teacher_kwargs(self) -> Dict[str, Any]:
+        teacher, vocab_mapping = self._get_teacher()
+        if teacher is None:
+            return {}
+        return {"teacher": teacher, "vocab_mapping": vocab_mapping}
+
     def translate_step(self, batch) -> Dict[str, list]:
         """Generate captions for a batch; returns dict[vid] -> preds."""
         hyps, scores = self.translator.translate_batch(
-            self.model, device_batch(batch, self.device))
+            self.model, device_batch(batch, self.device),
+            **self._teacher_kwargs())
         return self._collect_preds(batch, hyps, scores)
 
     def _collect_preds(self, batch, hyps, scores) -> Dict[str, list]:
@@ -637,6 +669,7 @@ class Trainer:
         # reading host features (no skip_feats), so a batch the bank does
         # not cover ships them
         val_bank = self._maybe_val_bank(loader)
+        tkw = self._teacher_kwargs()
 
         def to_device(b):
             served = (self._bank_serve(val_bank, b) if "feats" in b
@@ -651,7 +684,7 @@ class Trainer:
                     yield (b, db), db
 
             stream = self.translator.translate_batches_grouped(
-                self.model, tagged(), fused_k)
+                self.model, tagged(), fused_k, **tkw)
         else:
             # host batches in decode order; the device batch rides through
             # translate_batches and is released per iteration
@@ -664,7 +697,7 @@ class Trainer:
 
             stream = (((originals.pop(0), db), out) for db, out in
                       self.translator.translate_batches(
-                          self.model, device_batches()))
+                          self.model, device_batches(), **tkw))
 
         try:
             for (batch, db), (hyps, scores) in stream:

@@ -9,9 +9,16 @@ per-sample detail-score JSON dumps, CSV rows, and the ``--loop_n_frames`` /
 
     python -m care_tpu_torch.translate -cp exps/run/best.ckpt --fused_k 4
 
-runs on the CUDA card; ``--device cpu`` runs on the host. Several
-checkpoints (an ensemble), ``--teacher_path`` and the NAR overrides are not
-ported yet and raise.
+runs on the CUDA card; ``--device cpu`` runs on the host. A NAR checkpoint
+(NAB, NACF) decodes by its ``paradigm`` with the NAR overrides
+(``-i``, ``-lbs``, ``-q``, ``-qi``, ``-paradigm``, ``-use_ct``, ``-md``,
+``-ncd``); ``--teacher_path`` names an AR checkpoint that rescores its
+candidates:
+
+    python -m care_tpu_torch.translate -cp exps/NACF/best.ckpt \
+        --teacher_path exps/ARB/best.ckpt -paradigm mp
+
+Several checkpoints (an ensemble) are not ported yet and raise.
 """
 
 import argparse
@@ -24,7 +31,7 @@ import torch
 
 from care_tpu_torch.models.common import unsupported
 
-# decode overrides of the NAR translator, which the port does not have yet
+# decode overrides of the NAR translator
 NAR_OVERRIDES = ("iterations", "length_beam_size", "q", "q_iterations",
                  "paradigm", "use_ct", "masking_decision",
                  "no_candidate_decision")
@@ -57,7 +64,7 @@ def parse_args(argv=None):
     p.add_argument("--save_csv", action="store_true")
     p.add_argument("--csv_path", type=str, default="")
     p.add_argument("--csv_name", type=str, default="test_result.csv")
-    # NAR decoding overrides (reference translate.py:150-160): not ported
+    # NAR decoding overrides (reference translate.py:150-160)
     p.add_argument("-i", "--iterations", type=int, default=None)
     p.add_argument("-lbs", "--length_beam_size", type=int, default=None)
     p.add_argument("-q", "--q", type=int, default=None)
@@ -84,9 +91,11 @@ def parse_args(argv=None):
 
 
 def run_eval(models, opt, loader, references, vocab, latency=False,
-             ensemble_spec=None, fused_k: int = 0, device=None):
+             ensemble_spec=None, fused_k: int = 0, device=None,
+             teacher_kwargs=None):
     """Caption ``loader`` and score it. Returns (scores, detail, preds,
-    decode seconds, videos)."""
+    decode seconds, videos). ``teacher_kwargs`` (``teacher``,
+    ``vocab_mapping``) go to the NAR translator with every batch."""
     from care_tpu_torch.decoding import get_translator
     from care_tpu_torch.metrics import COCOScorer
     from care_tpu_torch.utils.logger import to_sentence
@@ -94,6 +103,7 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
     if ensemble_spec is not None:
         raise unsupported("ensembles of several models")
     translator = get_translator(opt, device)
+    tkw = teacher_kwargs or {}
     preds = {}
     total_time, n_videos = 0.0, 0
     try:
@@ -118,7 +128,7 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
             for batch in loader:
                 b = to_device(batch)
                 t0 = time.perf_counter()
-                out = translator.translate_batch(models, b)
+                out = translator.translate_batch(models, b, **tkw)
                 total_time += time.perf_counter() - t0
                 yield batch, out
         elif fused_k > 1:
@@ -126,7 +136,7 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
             t0 = time.perf_counter()
             tagged = ((batch, to_device(batch)) for batch in loader)
             yield from translator.translate_batches_grouped(
-                models, tagged, fused_k)
+                models, tagged, fused_k, **tkw)
             total_time += time.perf_counter() - t0
         else:
             # throughput: pipelined decode (2 batches in flight), timed as
@@ -140,7 +150,7 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
 
             t0 = time.perf_counter()
             for i, (_, out) in enumerate(
-                    translator.translate_batches(models, gen())):
+                    translator.translate_batches(models, gen(), **tkw)):
                 yield originals[i], out
             total_time += time.perf_counter() - t0
 
@@ -165,7 +175,8 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
 def main(argv=None):
     from care_tpu_torch.data import get_loader
     from care_tpu_torch.data.corpus import load_info_corpus, load_references
-    from care_tpu_torch.models.loading import (load_model,
+    from care_tpu_torch.models.loading import (get_vocab_mapping,
+                                               load_model,
                                                modify_opt_if_necessary)
     from care_tpu_torch.utils.device import resolve_device
     from care_tpu_torch.utils.logger import save_dict_to_csv
@@ -175,11 +186,9 @@ def main(argv=None):
     paths = args.checkpoint_paths
     if len(paths) > 1:
         raise unsupported("ensembles of several models")
-    for key in NAR_OVERRIDES + ("teacher_path",):
-        if getattr(args, key) is not None:
-            raise unsupported(key, getattr(args, key))
     decode_overrides = {k: getattr(args, k) for k in
-                        ("beam_size", "beam_alpha", "topk")
+                        ("beam_size", "beam_alpha") + NAR_OVERRIDES
+                        + ("teacher_path", "topk")
                         if getattr(args, k) is not None}
     models, opt, ensemble_spec = load_model(
         paths[0], new_opt_used_to_override=decode_overrides,
@@ -187,6 +196,16 @@ def main(argv=None):
         device=device)
     opt = modify_opt_if_necessary(opt, args.retrieval_datasets,
                                   args.retrieval_db_ratio)
+    # the AR teacher named on the command line rescores a NAR model's
+    # candidates; the JAX package's CLI only records the path
+    teacher_kwargs = {}
+    if args.teacher_path and opt["decoding_type"] == "NARFormer":
+        teachers, teacher_opt = load_model(
+            args.teacher_path, base_data_path=args.base_data_path or None,
+            device=device)
+        teacher_kwargs = {"teacher": teachers[0],
+                          "vocab_mapping": get_vocab_mapping(opt,
+                                                             teacher_opt)}
 
     info_corpus = load_info_corpus(opt["info_corpus"])
     references = load_references(opt["reference"])
@@ -209,7 +228,8 @@ def main(argv=None):
             scores, detail, preds, total, n = run_eval(
                 models, opt, loader, references, vocab,
                 latency=args.latency, ensemble_spec=ensemble_spec,
-                fused_k=args.fused_k, device=device)
+                fused_k=args.fused_k, device=device,
+                teacher_kwargs=teacher_kwargs)
             results.append(scores)
             tag = f"n_frames={n_frames}" + (
                 f" category={specific}" if specific != -1 else "")

@@ -94,6 +94,20 @@ before the last line:
    one batch of 64 (K1 once per beam step, K4a once per beam step and layer
    at long keys, every score re-checked by teacher forcing, caps/s and ms
    per beam step); the CABase batch and the long-key one are profiled.
+7e. nar: non-autoregressive decoding at full width (``--arch base``,
+   MSRVTT ViT, V 11 000, batch 64, ``max_len`` 30): the ARB CARE teacher
+   (``scripts/exp_versatility_of_CARE.sh:60``) trains 4 steps and is
+   checkpointed; the NACF CARE student (``:64``,
+   ``--with_teacher_during_training``) takes the teacher's weights
+   (``load_teacher_weights_into_student``; the leaves filled are printed)
+   and trains 4 steps (no vocab-kernel launch: NACF's multi-pass loss
+   stays dense); one batch of 64 is served with teacher rescoring by
+   mask-predict with the template (``use_ct``, 5 iterations, length beam
+   6; K2 launches == 1 template pass + 5 iterations + 1 rescoring = 7),
+   then by ``l2r`` and ``ef`` (K2 == passes); the mask-predict batch again
+   with the plain version in K2's place (hypotheses identical, log-probs
+   within 1e-5); K2 against its plain version at the decode's shape
+   [11 520, 512] x [11 000, 512] with token ids, f32 and bf16.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -103,7 +117,10 @@ before the last line:
    backward of the unfused sequence for dh alone, of the dW kernel the same
    for dW alone; of the dq kernel SDPA's autograd backward for dq alone, of
    the dk/dv/dbias kernel the same for dk and dv alone (the joint ones
-   beside), event-timed and as device time.
+   beside), event-timed and as device time. K2 also at the NAR decode's
+   shape (11 520 rows, with and without token ids, f32 and bf16) beside
+   the unfused library sequence and its bound, under ``nar_`` keys of its
+   line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -1197,6 +1214,220 @@ def phase_family(scratch) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# non-autoregressive decoding: NACF with its ARB teacher
+# ---------------------------------------------------------------------------
+
+NAR_STEPS = 4
+# (flags, where the paper's scripts run it): the ARB CARE teacher, then the
+# NACF CARE student it initialises and rescores
+NAR_TEACHER = ({"method": "ARB", "task": "CARE", "feats": "ViT",
+                "modality": "ami", "decoder_modality_flags": "VA",
+                "predictor_modality_flags": "VAT"},
+               "scripts/exp_versatility_of_CARE.sh:60")
+NAR_STUDENT = (dict(NAR_TEACHER[0], method="NACF",
+                    with_teacher_during_training=True),
+               "scripts/exp_versatility_of_CARE.sh:64")
+# K2 launches of one batch of mask-predict with the template and the
+# teacher's final rescoring: 1 template pass + 5 iterations + 1 rescoring
+NAR_MP_LAUNCHES = 7
+
+
+class NarSyntheticLoader(SyntheticLoader):
+    """``SyntheticLoader``'s batches as NACF trains on them: the visual-word
+    pass (``<vis>`` over the caption, content words or MASK as targets) and
+    the masked-language pass (a random half of the words masked and
+    predicted), with the one-hot length target."""
+
+    def __init__(self, opt, n_batches, batch_size, seed):
+        super().__init__(opt, n_batches, batch_size, seed)
+        rs = np.random.RandomState(seed + 1)
+        L = opt["max_len"]
+        for b in self.batches:
+            words = np.pad(np.where(b["labels"] == constants.PAD, 0,
+                                    b["labels"]), ((0, 0), (0, 1)))
+            valid = words != constants.PAD
+            masked = valid & (rs.rand(*words.shape) < 0.5)
+            target = np.zeros(words.shape, np.float32)
+            # the length's own index, as the translator reads the beam
+            target[np.arange(len(words)), valid.sum(1)] = 1.0
+            b.update(
+                input_ids=[np.where(valid, constants.VIS, constants.PAD),
+                           np.where(masked, constants.MASK, words)],
+                labels=[np.where(valid & (rs.rand(*words.shape) < 0.5),
+                                 words, np.where(valid, constants.MASK,
+                                                 constants.PAD)),
+                        np.where(masked, words, constants.PAD)],
+                length_target=target)
+            assert words.shape[1] == L
+
+
+def _check_argmax_lse_nar(h, W, tokens):
+    """K2 against its plain version at the NAR decode's shape, with token
+    ids: max, lse and the token logit within 1e-5 relative, the argmax ids
+    wherever the top logit is separated from the next by more than 1e-4."""
+    got = fht._argmax_lse_cuda(h, W, None, tokens, False)
+    want = fht._argmax_lse_plain(h, W, None, tokens, 1024, False)
+    errs = [_max_err("NAR shape", what, g, w, 1e-5, 1e-5)
+            for what, g, w in zip(("max", "lse", "token logit"),
+                                  (got[1], got[2], got[3]),
+                                  (want[1], want[2], want[3]))]
+    top2 = torch.topk((h.float() @ W.float().t()), 2, dim=-1).values
+    sep = (top2[:, 0] - top2[:, 1]) > 1e-4
+    assert torch.equal(got[0].long()[sep], want[0][sep]), "NAR argmax"
+    print(f"check vocab_argmax_lse at the NAR shape [{h.shape[0]}, "
+          f"{h.shape[1]}] x [{W.shape[0]}, {W.shape[1]}] "
+          f"{str(h.dtype)[6:]} with token ids: max|d| max, lse, token logit "
+          f"{errs[0]:.2e}, {errs[1]:.2e}, {errs[2]:.2e} (1e-5 relative); "
+          f"argmax equal on the {int(sep.sum())} of {h.shape[0]} rows "
+          f"separated by > 1e-4")
+    return max(errs)
+
+
+def _nar_decode(label, student, opt, feats, teacher, vm):
+    """One batch through ``get_translator(opt).translate_batch`` with the
+    teacher, the launch counts set to 0 just before and read just after.
+    Returns (hypotheses, log-probs, counts, translator, seconds)."""
+    translator = get_translator(opt)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    hyps, lprobs = translator.translate_batch(
+        student, {"feats": feats}, teacher=teacher, vocab_mapping=vm)
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    passes = translator.decoder_passes + translator.teacher_passes
+    assert counts["vocab_argmax_lse"] == passes, (label, counts, passes)
+    assert all(n == 0 for k, n in counts.items()
+               if k != "vocab_argmax_lse"), (label, counts)
+    lp = np.asarray(lprobs)
+    assert np.shape(hyps) == (len(feats[0]), 1, opt["max_len"]), label
+    assert np.isfinite(lp).all() and (lp <= 0).all(), label
+    words = np.asarray(hyps)[:, 0]
+    print(f"nar {label}: batch {len(feats[0])} in {seconds:.4f} s "
+          f"({len(feats[0]) / seconds:.1f} caps/s), "
+          f"{translator.decoder_passes} student passes + "
+          f"{translator.teacher_passes} teacher rescoring, K2 launches "
+          f"{counts['vocab_argmax_lse']}, "
+          f"{1e3 * seconds / passes:.3f} ms per pass; mean length "
+          f"{(words != constants.PAD).sum(1).mean():.2f}, MASK tokens "
+          f"{(words == constants.MASK).mean():.3f} of the canvas; first "
+          f"caption ids {words[0][:12].tolist()}")
+    return hyps, lprobs, counts, translator, seconds
+
+
+def phase_nar(scratch) -> dict:
+    """NACF at full width (``--arch base``, MSRVTT ViT, V 11 000, batch 64,
+    ``max_len`` 30, random weights from a seed): the ARB CARE teacher
+    trained ``NAR_STEPS`` steps and checkpointed; the NACF CARE student
+    filled from that checkpoint (``load_teacher_weights_into_student``) and
+    trained
+    ``NAR_STEPS`` steps, which launch no vocab kernel (the multi-pass
+    loss stays dense, as in ``care_tpu``); one batch of 64 served with
+    teacher rescoring by mask-predict with the template (K2 launches ==
+    ``NAR_MP_LAUNCHES``), then by ``l2r`` and ``ef``; the mask-predict
+    batch profiled, and again with the plain version in K2's place
+    (hypotheses identical, log-probs within 1e-5); K2 against its plain
+    version at the decode's shape. Returns the launch counts of the four
+    decodes."""
+    from care_tpu_torch.models.loading import \
+        load_teacher_weights_into_student
+    from care_tpu_torch.training.checkpoints import save_checkpoint
+
+    (t_flags, t_where), (s_flags, s_where) = NAR_TEACHER, NAR_STUDENT
+    t_opt = family_opt(t_flags)
+    teacher = Trainer(dict(t_opt, epochs=1, checkpoint_path=os.path.join(
+        scratch, "nar_teacher")), SyntheticLoader(t_opt, NAR_STEPS, BATCH,
+                                                  SEED + 70))
+    teacher.fit()
+    teacher_ckpt = os.path.join(scratch, "nar_teacher", "best.ckpt")
+    save_checkpoint(teacher_ckpt, teacher.variables(), t_opt)
+    t_losses = _step_losses(teacher)
+    assert all(np.isfinite(t_losses)), t_losses
+    print(f"nar teacher ARB CARE ({t_where}): {NAR_STEPS} steps of batch "
+          f"{BATCH}, losses {[round(l, 4) for l in t_losses]}; checkpoint "
+          f"{os.path.getsize(teacher_ckpt)} bytes")
+    del teacher
+
+    s_opt = dict(family_opt(s_flags), teacher_path=teacher_ckpt,
+                 load_model_weights_from=teacher_ckpt)
+    assert s_opt["decoder"] == "TwoStageTransformerDecoder"
+    assert s_opt["use_ct"] and s_opt["visual_word_generation"]
+    student = Trainer(dict(s_opt, epochs=1, checkpoint_path=os.path.join(
+        scratch, "nar_student")), NarSyntheticLoader(s_opt, NAR_STEPS, BATCH,
+                                                     SEED + 80))
+    # the same corpus (none on disk here): no vocabulary mapping
+    student.init_model()
+    filled = load_teacher_weights_into_student(student.model, teacher_ckpt,
+                                               None, verbose=False)
+    n_leaves = sum(1 for _ in student.model.parameters()) + sum(
+        2 for m in student.model.modules()
+        if isinstance(m, torch.nn.BatchNorm1d))
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    student.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    losses = _step_losses(student)
+    log = student.history[-1]
+    assert all(n == 0 for n in counts.values()), counts
+    assert not student._fused_xent and len(losses) == NAR_STEPS
+    assert all(np.isfinite(losses)), losses
+    assert np.isfinite(log["Word Acc0"]) and np.isfinite(log["Length Loss"])
+    print(f"nar student NACF CARE ({s_where}): the teacher filled {filled} "
+          f"of its {n_leaves} leaves; {NAR_STEPS} steps of batch {BATCH} in "
+          f"{seconds:.2f} s, losses {[round(l, 4) for l in losses]}, Word "
+          f"Acc0 {log['Word Acc0']:.4f}, Length Loss "
+          f"{log['Length Loss']:.4f}; vocab-kernel launches {counts}")
+
+    model = student.model.eval()
+    teacher_model, vm = student._get_teacher()
+    feats = _synthetic_feats(s_opt, BATCH, SEED + 90)
+    totals = dict.fromkeys(_launch_counts(), 0)
+    runs = {}
+    for paradigm in ("mp", "mp", "l2r", "ef"):
+        label = paradigm + (" (warm)" if paradigm in runs else "")
+        runs[paradigm] = _nar_decode(label, model, dict(s_opt,
+                                                        paradigm=paradigm),
+                                     feats, teacher_model, vm)
+        for k, n in runs[paradigm][2].items():
+            totals[k] += n
+    assert runs["mp"][2]["vocab_argmax_lse"] == NAR_MP_LAUNCHES, runs["mp"][2]
+    mp = dict(s_opt, paradigm="mp")
+    _profile(f"nar mp, batch {BATCH}", lambda: get_translator(mp).
+             translate_batch(model, {"feats": feats}, teacher=teacher_model,
+                             vocab_mapping=vm),
+             runs["mp"][4], ["vocab_argmax_lse"])
+
+    # the kernel path against the plain version on the same batch
+    kernel = fht._argmax_lse_cuda
+    fht._argmax_lse_cuda = (lambda h, W, b, tokens, want_sum:
+                            fht._argmax_lse_plain(h, W, b, tokens, 1024,
+                                                  want_sum))
+    try:
+        hyps, lprobs = get_translator(mp).translate_batch(
+            model, {"feats": feats}, teacher=teacher_model, vocab_mapping=vm)
+    finally:
+        fht._argmax_lse_cuda = kernel
+    assert hyps == runs["mp"][0], "NAR hypotheses: kernel != plain"
+    err = float(np.abs(np.asarray(lprobs) - np.asarray(runs["mp"][1])).max())
+    assert err <= 1e-5, err
+    print(f"nar mp: the plain version in K2's place gives the same "
+          f"{BATCH} hypotheses, log-probs within {err:.2e} (1e-5)")
+
+    rows = BATCH * s_opt["length_beam_size"] * s_opt["max_len"]
+    H, V = s_opt["dim_hidden"], s_opt["vocab_size"]
+    h, W = _head_inputs(rows, H, V, torch.float32, False, 12)
+    tokens = torch.randint(0, V, (rows,), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(0))
+    _check_argmax_lse_nar(h, W, tokens)
+    _check_argmax_lse_nar(*_head_inputs(rows, H, V, torch.bfloat16, True, 13),
+                          tokens)
+    return totals
+
+
 def _xent_scratch(opt) -> None:
     """What the wrappers of K3a and K3b allocate beyond their outputs (dh;
     dW and db) at the training shape: the peak of allocated device memory
@@ -2060,7 +2291,7 @@ def _time_head(h, W, K):
                 (h @ W.t()).float(), dim=-1), K)))
 
 
-def phase_time(opt, errors, counts) -> list:
+def phase_time(opt, errors, counts, nar_opt, nar_counts) -> list:
     K, H, V = opt["beam_size"], opt["dim_hidden"], opt["vocab_size"]
     rows = BATCH * K
     flops = 2 * rows * H * V
@@ -2174,7 +2405,60 @@ def phase_time(opt, errors, counts) -> list:
         _entry_bf16(entry, *times, unfused_ms, flops, n_bytes)
         entry.update({"bf16_" + k: v for k, v in extra.items()})
     entries += xent
+    _time_argmax_lse_nar(xent[0], nar_opt, nar_counts)
     return entries + _time_flash(errors, counts)
+
+
+def _time_argmax_lse_nar(entry, opt, nar_counts) -> None:
+    """K2 at the NAR decode's shape (batch 64 x length beam 6 x ``max_len``
+    30 = 11 520 rows), without token ids (a refinement pass) and with them
+    (the teacher's rescoring), f32 and bf16: the kernel, its plain version
+    and the unfused library sequence (``h @ W.T``, then ``max`` and
+    ``logsumexp``, and ``gather`` of the token logit), beside its bound.
+    Added to K2's line under ``nar_`` keys, with the nar phase's launches."""
+    rows = BATCH * opt["length_beam_size"] * opt["max_len"]
+    H, V = opt["dim_hidden"], opt["vocab_size"]
+    shape = f"[{rows}, {H}] x [{V}, {H}]"
+    tokens = torch.randint(0, V, (rows,), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(1))
+
+    def library(h, W, tok):
+        logits = h @ W.t()
+        mx, am = logits.max(dim=-1)
+        lse = torch.logsumexp(logits.float(), dim=-1)
+        if tok is None:
+            return am, mx, lse
+        return am, mx, lse, logits.gather(1, tok[:, None])[:, 0]
+
+    readings = {"nar_shape": shape,
+                "nar_launches": nar_counts["vocab_argmax_lse"]}
+    for dtype, prefix in ((torch.float32, "nar_"), (torch.bfloat16,
+                                                    "nar_bf16_")):
+        h, W = _head_inputs(rows, H, V, dtype, False, 14)
+        size = h.element_size()
+        for tok, suffix in ((None, ""), (tokens, "tokens_")):
+            n_bytes = (size * (rows * H + V * H) + 4 * rows * 3
+                       + (8 * rows if tok is not None else 0))
+            flops = 2 * rows * H * V
+            bound_ms, bound_by = _bound(flops, n_bytes, dtype)
+            ms = _time_ms(lambda: fht._argmax_lse_cuda(h, W, None, tok,
+                                                       False), n=20)
+            plain_ms = _time_ms(lambda: fht._argmax_lse_plain(
+                h, W, None, tok, 1024, False), n=3, warm=1)
+            library_ms = _time_ms(lambda: library(h, W, tok), n=20)
+            readings.update({f"{prefix}{suffix}ms": ms,
+                             f"{prefix}{suffix}plain_ms": plain_ms,
+                             f"{prefix}{suffix}library_ms": library_ms,
+                             f"{prefix}{suffix}bound_ms": bound_ms,
+                             f"{prefix}{suffix}bound_by": bound_by})
+            what = "max, logsumexp" + (", gather" if suffix else "")
+            print(f"time vocab_argmax_lse at the NAR shape {shape} "
+                  f"{str(dtype)[6:]}{' with token ids' * bool(suffix)}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+                  f"library sequence (h @ W.T, {what}) {library_ms:.4f} ms, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}: {flops} flop, "
+                  f"{n_bytes} bytes)")
+    entry.update(readings)
 
 
 def main() -> None:
@@ -2198,9 +2482,13 @@ def main() -> None:
         phase_bank(opt)
         for k, n in phase_family(scratch).items():
             counts[k] += n
+        nar_counts = phase_nar(scratch)
+        for k, n in nar_counts.items():
+            counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
-    kernels = phase_time(opt, errors, counts)
+    kernels = phase_time(opt, errors, counts, family_opt(NAR_STUDENT[0]),
+                         nar_counts)
     # the card and its power limit once more, beside the numbers
     print(smi_line)
     print(json.dumps({"kernels": kernels}))

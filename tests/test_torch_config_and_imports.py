@@ -99,7 +99,9 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "          'translate', 'eval_json', 'models.layers',\n"
         "          'models.encoders', 'models.predictors', 'models.heads',\n"
         "          'models.embeddings', 'models.decoders',\n"
-        "          'models.framework', 'models.weights'):\n"
+        "          'models.framework', 'models.weights',\n"
+        "          'models.loading', 'decoding.nar', 'decoding.translator',\n"
+        "          'config.loader'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -127,8 +129,8 @@ UNSUPPORTED = [
     ("encoder", "CNN1"), ("pointer", "Pointer"),
     ("decoder", "SingleLayerRNNDecoder"),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
-    ("decoding_type", "NARFormer"), ("with_backbones", True),
-    ("encoder", "SingleStreamEmbedder"), ("crits", ["lang", "length"]),
+    ("has_retrieval_rnn", True), ("with_backbones", True),
+    ("encoder", "SingleStreamEmbedder"), ("decoder", "VOERNNDecoder"),
 ]
 
 
@@ -165,6 +167,27 @@ def test_options_the_long_key_slice_implements_match_jax(key, value):
     np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-4)
     # only the forced switch reaches the flash function at 16 keys
     assert (fa.plain_forward_calls > before) == (key == "use_pallas_attention")
+
+
+@pytest.mark.parametrize("method", ["NAB", "NACF"])
+def test_nar_methods_build_and_serve(method):
+    """``decoding_type: NARFormer``, the two-stage decoder and the
+    ``length`` crit used to raise; the NAR methods now build (a length
+    predictor last in the predictor chain) and decode through the NAR
+    translator (``tests/test_torch_nar*.py`` hold them to ``care_tpu``)."""
+    opt = port_get_opt({**TINY, "method": method}, read_vocab=False,
+                       resolve_paths=False)
+    opt.update(dim_m=24, dim_i=16)
+    assert opt["decoding_type"] == "NARFormer" and "length" in opt["crits"]
+    model = build_captioner(opt, device="cpu")
+    assert model.predictor.net_names[-1] == "Predictor_length"
+    assert type(model.decoder).__name__ == (
+        "TwoStageTransformerDecoder" if method == "NACF"
+        else "TransformerDecoder")
+    translator = get_translator(opt, device="cpu")
+    hyps, scores = translator.translate_batch(
+        model, {"feats": synthetic_batch(opt, 2, seed=1)["feats"]})
+    assert np.shape(hyps) == np.shape(scores) == (2, 1, opt["max_len"])
 
 
 def test_ensembles_and_fused_batches_raise():

@@ -183,3 +183,39 @@ def test_kernel_matches_plain(cuda_device, rows, V, K, ties, with_bias,
     before = port_fht.launches
     cs._check_head_case(f"rows {rows} V {V} K {K}", h, W, K, exact, b)
     assert port_fht.launches == before + 1
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_argmax_lse_plain_matches_jax_at_a_nar_shape(backend):
+    """The argmax/lse function's plain version where NAR decoding calls it:
+    the hidden states of a length beam [N, lbs, max_len, H] (ragged
+    lengths: PAD rows beside words), with the token ids of teacher
+    rescoring, against the JAX package's ``vocab_argmax_lse`` (the Pallas
+    kernel in interpret mode, and ``xla``): argmax and the exp(max - lse)
+    / exp(token - lse) probabilities the decode keeps."""
+    import jax.numpy as jnp
+    from care_tpu.ops.fused_head_topk import vocab_argmax_lse as jax_fn
+
+    rng = np.random.RandomState(9)
+    N, lbs, L, H, V = 2, 3, 10, 32, 1031
+    h = rng.randn(N, lbs, L, H).astype(np.float32)
+    h[:, :, 7:] = h[:, :, 6:7]                 # identical PAD rows
+    W = (rng.randn(H, V) * 0.3).astype(np.float32)
+    tokens = rng.randint(0, V, (N, lbs, L)).astype(np.int32)
+    want = jax_fn(jnp.asarray(h), jnp.asarray(W), None, jnp.asarray(tokens),
+                  chunk_size=256, backend=backend, block_rows=8,
+                  interpret=backend == "pallas")
+    got = port_fht.vocab_argmax_lse(
+        torch.as_tensor(h), torch.as_tensor(np.ascontiguousarray(W.T)), None,
+        torch.as_tensor(tokens).long(), chunk_size=256)
+    assert [tuple(g.shape) for g in got] == [(N, lbs, L)] * 4
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    for i in (1, 2, 3):
+        np.testing.assert_allclose(got[i].numpy(), np.asarray(want[i]),
+                                   rtol=0, atol=1e-5)
+    np.testing.assert_allclose(torch.exp(got[1] - got[2]).numpy(),
+                               np.exp(np.asarray(want[1] - want[2])),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(torch.exp(got[3] - got[2]).numpy(),
+                               np.exp(np.asarray(want[3] - want[2])),
+                               rtol=0, atol=1e-6)

@@ -113,13 +113,6 @@ def test_scales_and_sparse_sampling_term():
     assert not any(k.startswith("V_") for k in metrics)
 
 
-@pytest.mark.parametrize("crit", ["length"])
-def test_unported_crits_raise_naming_themselves(crit):
-    opt = dict(flagship_small_opt(), crits=["lang", crit])
-    with pytest.raises(NotImplementedError, match=crit):
-        Criterion(opt)
-
-
 @pytest.mark.parametrize("crit,extra", [
     ("attn", {}), ("attn", {"use_attr_attn_loss_mask": True,
                             "use_attr_attn_loss_threshold": 0.6}),
@@ -158,8 +151,7 @@ def test_auxiliary_crits_match_jax(crit, extra):
     assert got[0].item() > 0
 
 
-@pytest.mark.parametrize("key,value", [("visual_word_generation", True),
-                                       ("probs", 1.0)])
+@pytest.mark.parametrize("key,value", [("probs", 1.0)])
 def test_unported_lang_branches_raise(key, value):
     opt = dict(flagship_small_opt(), crits=["lang"])
     res = {"logits": torch.zeros(1, 11, opt["vocab_size"]),

@@ -310,9 +310,7 @@ def test_run_defaults_to_the_card(data, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,name", [
-    (["--mesh", "data=2"], "mesh"),
-    (["--load_model_weights_from", "teacher.ckpt"],
-     "load_model_weights_from")])
+    (["--mesh", "data=2"], "mesh")])
 def test_cli_refuses_what_is_not_ported(argv, name, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=name):

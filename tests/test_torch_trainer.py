@@ -318,13 +318,24 @@ def test_dropout_keeps_the_mean():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("key,value", [
-    ("backbone_weights", "resnet.pth"), ("teacher_path", "teacher.ckpt"),
-    ("with_teacher_during_training", True), ("fused_xent_backend", "xla"),
+    ("backbone_weights", "resnet.pth"), ("fused_xent_backend", "xla"),
     ("fused_xent_backend", "pallas")])
 def test_rejected_options_raise_naming_themselves(key, value):
     opt = _opt(**{key: value})
     with pytest.raises(NotImplementedError, match=key):
         Trainer(opt, ListLoader([]), device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("teacher_path", "teacher.ckpt"), ("with_teacher_during_training", True)])
+def test_teacher_options_are_accepted(key, value):
+    """The teacher options used to raise. An AR model takes no teacher, as
+    in the JAX package: the path is not even opened
+    (``tests/test_torch_nar_train.py`` trains and validates a NAR student
+    with one)."""
+    tr = Trainer(_opt(**{key: value}), ListLoader([]), device="cpu")
+    assert tr._get_teacher() == (None, None)
+    assert tr._teacher_kwargs() == {}
 
 
 @pytest.mark.parametrize("name", ["mesh"])

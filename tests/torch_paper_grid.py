@@ -11,6 +11,10 @@ hidden width is 4 per attention head of the command's arch, the feature
 widths 1/64 of the command's (at least 4), 4 frames, 8 tokens, a
 40-word vocabulary, 16 concepts of which 4 are used.
 
+``NAR_COMMANDS`` holds the NACF lines of ``exp_versatility_of_CARE.sh``
+and the ``NAB`` preset, ``teacher_overrides`` the ARB command that trains
+each one's teacher.
+
 ``held_against_jax`` builds a command's model in both packages, carries
 the weights (and BatchNorm running statistics) across with
 ``variables_from_jax``, and returns the largest logit difference of the
@@ -167,6 +171,35 @@ COMMANDS += [
     ("ARB-CARE-MSRVTT", "scripts/exp_versatility_of_CARE.sh:60",
      dict(VERS_MSRVTT, method="ARB", task="CARE")),
 ]
+
+# the non-autoregressive commands: the four NACF lines of
+# scripts/exp_versatility_of_CARE.sh, each trained after (and rescored by)
+# the ARB command of its dataset and task above, and the NAB preset; held
+# by tests/test_torch_paper_grid_nar.py
+NAR_COMMANDS = [
+    ("NACF-Base-MSVD", "scripts/exp_versatility_of_CARE.sh:52",
+     dict(VERS_MSVD, method="NACF", task="Base",
+          with_teacher_during_training=True)),
+    ("NACF-Base-MSRVTT", "scripts/exp_versatility_of_CARE.sh:54",
+     dict(VERS_MSRVTT, method="NACF", task="Base",
+          with_teacher_during_training=True)),
+    ("NACF-CARE-MSVD", "scripts/exp_versatility_of_CARE.sh:62",
+     dict(VERS_MSVD, method="NACF", task="CARE",
+          with_teacher_during_training=True)),
+    ("NACF-CARE-MSRVTT", "scripts/exp_versatility_of_CARE.sh:64",
+     dict(VERS_MSRVTT, method="NACF", task="CARE",
+          with_teacher_during_training=True)),
+    ("NAB-Base-MSRVTT", "care_tpu/config/yamls/methods.yaml:47",
+     dict(VERS_MSRVTT, method="NAB", task="Base")),
+]
+
+
+def teacher_overrides(overrides: dict) -> dict:
+    """The ARB command a NAR command's teacher is trained by."""
+    out = {k: v for k, v in overrides.items()
+           if k != "with_teacher_during_training"}
+    return dict(out, method="ARB")
+
 
 NO_DROPOUT = {"hidden_dropout_prob": 0.0, "encoder_dropout_prob": 0.0,
               "attention_probs_dropout_prob": 0.0}
