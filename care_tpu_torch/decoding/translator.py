@@ -10,7 +10,10 @@ and scores.
 cross-attention K/V at [B] rows and the self-attention cache at [B*beam]
 rows, and runs the beam loop. With the default ``fused_head_topk`` each
 step's vocab expansion goes through the fused head + top-k kernel, so the
-[B*beam, V] logits never exist.
+[B*beam, V] logits never exist. An RNN decoder decodes from its carry
+(``init_rnn_carry`` on the beam-enlarged inputs, ``rnn_decode_step``, the
+nested carry reordered with the beams) and its dense log-probabilities, as
+the JAX package keeps it off the fused head.
 
 ``TranslatorNARFormer`` decodes a length beam: the ``length_beam_size``
 most likely lengths of each instance (from ``preds_length``), each a canvas
@@ -49,6 +52,7 @@ from care_tpu_torch import constants
 from care_tpu_torch.decoding import nar
 from care_tpu_torch.decoding.beam_search import beam_search
 from care_tpu_torch.models.common import unsupported
+from care_tpu_torch.models.decoders import is_rnn_decoder
 from care_tpu_torch.models.framework import Captioner
 from care_tpu_torch.models.heads import NaiveHead
 from care_tpu_torch.ops.fused_head_topk import vocab_argmax_lse
@@ -111,6 +115,14 @@ def auto_enlarge(tree, beam_size: int):
     return None if tree is None else tree.repeat_interleave(beam_size, dim=0)
 
 
+def _gather_carry(carry, row_idx):
+    """Reorder every tensor of an RNN carry (an LSTM's (h, c), TopDown's
+    [bottom, top]) after a beam reshuffle."""
+    if isinstance(carry, (list, tuple)):
+        return type(carry)(_gather_carry(c, row_idx) for c in carry)
+    return carry.index_select(0, row_idx)
+
+
 def _gather_self_kv(state, row_idx):
     """Reorder the per-row self-attention cache after a beam reshuffle.
     Cross-attention K/V sit at [B] rows, shared by an instance's beams, and
@@ -140,10 +152,13 @@ class Translator:
         self.max_len = opt.get("max_len", 30)
         self.beam_alpha = opt.get("beam_alpha", 1.0)
         # the fused head streams a bias-free projection of the decoder's
-        # hidden state: the plain NaiveHead, as the JAX package rules; any
-        # other head decodes through its dense logits
+        # hidden state: the plain NaiveHead of a Transformer decoder, as the
+        # JAX package rules; any other head, and every RNN decoder, decodes
+        # through its dense logits
+        self.is_rnn = is_rnn_decoder(opt)
         self.fused_head = (opt.get("fused_head_topk", True)
-                           and opt.get("cls_head") == "NaiveHead")
+                           and opt.get("cls_head") == "NaiveHead"
+                           and not self.is_rnn)
         self.compute_dtype = decode_dtype(opt.get("compute_dtype_decode"))
         self.keep_head_f32 = bool(opt.get("decode_head_f32", False))
         # the cast copies of the models served in half precision, by the
@@ -191,11 +206,16 @@ class Translator:
 
     def _batch_inputs(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The decoder inputs a batch carries besides its features (the
-        category ids of ``with_category``), on the device."""
-        return {k: torch.as_tensor(np.asarray(batch[k]) if not
-                                   torch.is_tensor(batch[k]) else batch[k],
-                                   device=self.device).long()
-                for k in ("category",) if k in batch}
+        category of ``with_category``), on the device: the Transformer's
+        category ids as int64, the RNN decoders' one-hot rows as given."""
+        out = {}
+        for k in ("category",):
+            if k in batch:
+                t = torch.as_tensor(np.asarray(batch[k]) if not
+                                    torch.is_tensor(batch[k]) else batch[k],
+                                    device=self.device)
+                out[k] = t if t.is_floating_point() else t.long()
+        return out
 
     def translate_batch(self, models, batch: Dict[str, Any], **kwargs):
         """models: a Captioner (or a one-element list of it); batch:
@@ -265,6 +285,8 @@ class TranslatorARFormer(Translator):
         enc = model.encoding_phase(feats)
         inputs = model.prepare_inputs_for_decoder(enc,
                                                   self._batch_inputs(batch))
+        if self.is_rnn:
+            return self._dispatch_rnn(model, inputs, N)
         carry = model.init_decode_state(inputs, self.max_len, self.beam_size)
 
         def step_fn(tokens, position, state):
@@ -281,6 +303,25 @@ class TranslatorARFormer(Translator):
             gather_carry=_gather_self_kv, device=self.device,
             beam_size=self.beam_size, max_len=self.max_len,
             beam_alpha=self.beam_alpha, topk=self.topk, fused_head=fused)
+
+    def _dispatch_rnn(self, model, inputs, N: int):
+        """The RNN decode: the decoder inputs enlarged to B x beam rows, the
+        carry made from them, one ``rnn_decode_step`` and an f32
+        log-softmax a beam step, every tensor of the carry reordered with
+        the beams."""
+        inputs = auto_enlarge(inputs, self.beam_size)
+        carry = model.init_rnn_carry(inputs)
+
+        def step_fn(tokens, position, carry):
+            self.beam_steps += 1
+            logits, carry = model.rnn_decode_step(tokens, carry, inputs)
+            return torch.log_softmax(logits.float(), dim=-1), carry
+
+        return beam_search(
+            step_fn, carry, batch_size=N, vocab_size=self.opt["vocab_size"],
+            gather_carry=_gather_carry, device=self.device,
+            beam_size=self.beam_size, max_len=self.max_len,
+            beam_alpha=self.beam_alpha, topk=self.topk)
 
     def collect(self, out) -> Tuple[List[List[List[int]]], List[List[float]]]:
         """Host side of one decode: fetch the outputs and collect the

@@ -15,17 +15,31 @@ category embeddings, the compositional projections conditioned on
 and the ``TAP_pos`` / ``TAP_ln`` text post-processing of the embeddings
 the decoder-side concept losses read. Masks are additive 0/-1e9 biases
 computed from the token ids.
+
+The RNN captioners (``care_tpu/models/decoders.py:412-910``, reference
+``RNN_single_layer.py`` and ``RNN_multi_layers.py``): SA-LSTM's
+``SingleLayerRNNDecoder`` (its ``VOERNNDecoder`` form starts from the raw
+mean features) and the two-cell ``TopDownAttentionRNNDecoder``, on the
+torch-layout cells ``LSTMCellTorch`` / ``GRUCellTorch``, with additive,
+multi-level or multi-head attention over the encoder states, the GSG vector
+added to every word, the LSG concept slots attended under the local flag,
+and the one-hot category appended to the cell's input. Training runs a
+Python loop over time with scheduled sampling; serving steps the cell over
+a carry that the translator reorders with the beams.
 """
 
 from typing import Any, Dict
 
+import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from care_tpu_torch import constants
-from care_tpu_torch.models.common import Dropout, LayerNorm, unsupported
+from care_tpu_torch.models.common import (Dense, Dropout, LayerNorm, dense,
+                                          unsupported, xavier_param)
 from care_tpu_torch.models.embeddings import Embeddings
-from care_tpu_torch.models.layers import DecoderLayer
+from care_tpu_torch.models.layers import DecoderLayer, MultiHeadAttention
 from care_tpu_torch.models.predictors import TextPostProcesser
 from care_tpu_torch.ops.attention import NEG_INF
 
@@ -362,11 +376,463 @@ class TwoStageTransformerDecoder(TransformerDecoder):
         return outputs2
 
 
+# ---------------------------------------------------------------------------
+# RNN decoders
+# ---------------------------------------------------------------------------
+
+def _rnn_uniform_(tensor, cell_features: int, generator: torch.Generator):
+    """torch's LSTMCell / GRUCell init, U(-1/sqrt(H), 1/sqrt(H)), in place
+    (the reference's xavier pass touches only Linear and Embedding
+    modules, so its cells keep this default)."""
+    k = 1.0 / cell_features ** 0.5
+    with torch.no_grad():
+        tensor.uniform_(-k, k, generator=generator)
+
+
+def rnn_dense(dim_in: int, dim_out: int, cell_features: int,
+              generator: torch.Generator, forget_offset: float = 0.0
+              ) -> Dense:
+    """A cell's ``Dense`` with the torch cell init; ``forget_offset`` is
+    added to the forget chunk [H:2H] of its bias."""
+    layer = Dense(dim_in, dim_out)
+    _rnn_uniform_(layer.weight, cell_features, generator)
+    _rnn_uniform_(layer.bias, cell_features, generator)
+    if forget_offset:
+        with torch.no_grad():
+            layer.bias[cell_features:2 * cell_features] += forget_offset
+    return layer
+
+
+class LSTMCellTorch(nn.Module):
+    """``torch.nn.LSTMCell``'s semantics (gate order i, f, g, o) on two
+    ``Dense`` maps ``ih`` and ``hh``. The reference adds 1 to the forget
+    chunk of both biases after init, which their init does here."""
+
+    def __init__(self, dim_in: int, features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.ih = rnn_dense(dim_in, 4 * features, features, generator, 1.0)
+        self.hh = rnn_dense(features, 4 * features, features, generator, 1.0)
+
+    def forward(self, carry, inputs):
+        h, c = carry
+        i, f, g, o = (self.ih(inputs) + self.hh(h)).chunk(4, dim=-1)
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return new_h, new_c
+
+
+class GRUCellTorch(nn.Module):
+    """``torch.nn.GRUCell``'s semantics: r and z from ``ih_rz`` +
+    ``hh_rz``, n = tanh(ih_n(x) + r * hh_n(h)) with r multiplying
+    ``hh_n``'s output and its bias."""
+
+    def __init__(self, dim_in: int, features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        self.ih_rz = rnn_dense(dim_in, 2 * features, features, generator)
+        self.hh_rz = rnn_dense(features, 2 * features, features, generator)
+        self.ih_n = rnn_dense(dim_in, features, features, generator)
+        self.hh_n = rnn_dense(features, features, features, generator)
+
+    def forward(self, carry, inputs):
+        r, z = torch.sigmoid(self.ih_rz(inputs)
+                             + self.hh_rz(carry)).chunk(2, dim=-1)
+        n = torch.tanh(self.ih_n(inputs) + r * self.hh_n(carry))
+        return (1 - z) * n + z * carry
+
+
+def _bmm_context(probs, feats):
+    """sum_l probs[b, l] * feats[b, l, :] in the promoted dtype."""
+    dtype = torch.promote_types(probs.dtype, feats.dtype)
+    return torch.bmm(probs[:, None, :].to(dtype), feats.to(dtype))[:, 0]
+
+
+class AdditiveAttention(nn.Module):
+    """Bahdanau attention with a loop over the feature lists (reference
+    ``Attention.py:134-206``): one ``linear1_f_<i>`` per list (one for all
+    with ``feats_share_weights``), ``linear1_h`` of the query, the
+    bias-free ``linear2`` to one logit a key, and with ``hybrid_length`` a
+    learned ``hybrid_bias`` [1, hybrid_length] added to the logits.
+    Returns (the lists' contexts concatenated, their probabilities stacked
+    on axis 1), or with ``return_raw`` the two lists."""
+
+    def __init__(self, dim_hidden: int, dim_mid: int, dim_feats: int,
+                 generator: torch.Generator, n_feats: int = 1,
+                 feats_share_weights: bool = False, hybrid_length: int = 0):
+        super().__init__()
+        self.n_layers = 1 if feats_share_weights else n_feats
+        for i in range(self.n_layers):
+            self.add_module(f"linear1_f_{i}",
+                            dense(dim_feats, dim_mid, generator))
+        self.linear1_h = dense(dim_hidden, dim_mid, generator)
+        self.linear2 = dense(dim_mid, 1, generator, bias=False)
+        self.hybrid_bias = (nn.Parameter(torch.zeros(1, hybrid_length))
+                            if hybrid_length else None)
+
+    def forward(self, hidden_states, feats, return_raw: bool = False):
+        if not isinstance(feats, (list, tuple)):
+            feats = [feats]
+        emb_h = self.linear1_h(hidden_states)[:, None, :]
+        probs, context = [], []
+        for i, inputs in enumerate(feats):
+            layer = getattr(self, f"linear1_f_{min(i, self.n_layers - 1)}")
+            logits = self.linear2(torch.tanh(emb_h + layer(inputs)))[:, :, 0]
+            if self.hybrid_bias is not None:
+                logits = logits + self.hybrid_bias
+            p = torch.softmax(logits, dim=1)
+            probs.append(p)
+            context.append(_bmm_context(p, inputs))
+        if return_raw:
+            return context, probs
+        return torch.cat(context, dim=1), torch.stack(probs, dim=1)
+
+
+class MultiLevelAttention(nn.Module):
+    """Temporal attention per feature list, then attention over the lists'
+    contexts (reference ``Attention.py:209-237``). Returns the second
+    stage's context and the temporal probabilities stacked on axis 1, as
+    the JAX package keeps them."""
+
+    def __init__(self, dim_hidden: int, dim_mid: int, dim_feats: int,
+                 n_feats: int, generator: torch.Generator,
+                 feats_share_weights: bool = False):
+        super().__init__()
+        self.temporal_aware_attention = AdditiveAttention(
+            dim_hidden, dim_mid, dim_feats, generator, n_feats=n_feats,
+            feats_share_weights=feats_share_weights)
+        self.modality_aware_attention = AdditiveAttention(
+            dim_hidden, dim_mid, dim_feats, generator)
+
+    def forward(self, hidden_states, feats):
+        context, probs = self.temporal_aware_attention(hidden_states, feats,
+                                                       return_raw=True)
+        ctx2, _ = self.modality_aware_attention(
+            hidden_states, torch.stack(context, dim=1), return_raw=True)
+        return ctx2[0], torch.stack(probs, dim=1)
+
+
+def _word_embeddings(opt: dict, generator: torch.Generator) -> nn.Parameter:
+    """The RNN decoders' word table (reference ``RNN_single_layer.py:58-69``):
+    a table read from the local ``.npy`` file ``pretrained_embs_path``
+    (frozen by the optimizer unless ``train_emb``), else xavier with the
+    PAD row zeroed."""
+    shape = (opt["vocab_size"], opt["dim_hidden"])
+    if opt.get("pretrained_embs_path", ""):
+        table = np.load(opt["pretrained_embs_path"]).astype(np.float32)
+        if table.shape != shape:
+            raise ValueError(f"pretrained embeddings {table.shape}, the "
+                             f"decoder's table is {shape}")
+        return nn.Parameter(torch.from_numpy(table))
+    return xavier_param(shape, generator, zero_pad_row=True)
+
+
+def _mean_video_features(encoder_hidden_states):
+    """The mean over the feature lists, then over time: [B, D]."""
+    if not isinstance(encoder_hidden_states, (list, tuple)):
+        encoder_hidden_states = [encoder_hidden_states]
+    return torch.stack(list(encoder_hidden_states), dim=0).mean(dim=0).mean(
+        dim=1)
+
+
+class _RNNDecoderBase(nn.Module):
+    """What both RNN decoders share: the word table and its LN, the
+    attention over the encoder states (``rnn_use_mha``: the multi-head
+    sublayer with the step's query; ``with_multileval_attention``: the
+    multi-level one; else additive, with the hybrid bias), the concept
+    flags (``emb``: the GSG vector added to every word; ``att``: additive
+    attention over the concept slots), dropout and the one-hot category.
+    Submodules carry the flax tree's names."""
+
+    def __init__(self, opt: dict, generator: torch.Generator,
+                 multilevel: bool):
+        super().__init__()
+        if opt.get("with_category") and opt.get("use_category_embs"):
+            raise unsupported("use_category_embs", opt["use_category_embs"])
+        self.opt = opt
+        D = opt["dim_hidden"]
+        self.rnn_type = opt.get("rnn_type", "lstm").lower()
+        if self.rnn_type not in ("lstm", "gru"):
+            raise ValueError(f"unknown rnn_type `{self.rnn_type}`")
+        self.cell_cls = (LSTMCellTorch if self.rnn_type == "lstm"
+                         else GRUCellTorch)
+        self.word_embeddings = _word_embeddings(opt, generator)
+        self.LayerNorm = LayerNorm(D, eps=opt.get("layer_norm_eps", 1e-12))
+
+        modality = opt.get("modality_for_decoder") or opt["modality"]
+        num_modality = len(modality)
+        fusion = opt["fusion"]
+        # the encoder hands a list of streams only without fusion
+        n_lists = num_modality if fusion == "none" else 1
+        self.dim_feats = D * (num_modality if fusion == "channel_concat"
+                              else 1)
+        t = opt.get("use_attr_type") or ""
+        self.semantic_global_flag = bool(opt.get("use_attr")) and "emb" in t
+        self.semantic_local_flag = bool(opt.get("use_attr")) and "att" in t
+        hybrid_length = (opt["n_frames"] * num_modality
+                         + opt.get("use_attr_topk", 30)
+                         if opt.get("add_hybrid_attention_bias") else 0)
+        self.mha_flag = bool(opt.get("rnn_use_mha", False))
+        share = opt.get("feats_share_weights", False)
+        if self.mha_flag:
+            self.att = MultiHeadAttention(
+                D, opt["num_attention_heads"], opt["hidden_dropout_prob"],
+                opt["layer_norm_eps"], generator,
+                hybrid_length=hybrid_length,
+                attention_probs_dropout_prob=opt[
+                    "attention_probs_dropout_prob"],
+                attend_to_video=True, dim_key=self.dim_feats,
+                dim_value=self.dim_feats)
+            self.dim_context = D
+        elif multilevel and opt.get("with_multileval_attention", False):
+            self.att = MultiLevelAttention(D, D, self.dim_feats, n_lists,
+                                           generator,
+                                           feats_share_weights=share)
+            self.dim_context = self.dim_feats
+        else:
+            self.att = AdditiveAttention(
+                D, D, self.dim_feats, generator, n_feats=n_lists,
+                feats_share_weights=share, hybrid_length=hybrid_length)
+            self.dim_context = self.dim_feats * n_lists
+        self.semantic_att = (AdditiveAttention(D, D, D, generator)
+                             if self.semantic_local_flag else None)
+        self.dropout = Dropout(opt["hidden_dropout_prob"])
+        self.with_category = bool(opt.get("with_category", False))
+        self.dim_category = (opt.get("num_category", 20)
+                             if self.with_category else 0)
+        # the generator scheduled sampling draws from (None: torch's default
+        # generator of the device); ``set_sampling_generator`` sets it
+        self.sampling_generator = None
+
+    def _get_h(self, state):
+        return state[0] if self.rnn_type == "lstm" else state
+
+    def _embed_word(self, it, semantic_hidden_states):
+        word = F.embedding(it, self.word_embeddings)
+        if self.semantic_global_flag:
+            word = word + semantic_hidden_states
+        return self.LayerNorm(word)
+
+    def _attend(self, query, encoder_hidden_states):
+        if self.mha_flag:
+            context, probs, _ = self.att(query[:, None, :],
+                                         encoder_hidden_states=
+                                         encoder_hidden_states)
+            return context[:, 0, :], probs
+        return self.att(query, encoder_hidden_states)
+
+    def forward(self, input_ids, encoder_hidden_states, cls_head=None,
+                schedule_sampling_prob: float = 0.0, **kwargs):
+        return _rnn_time_loop(self, input_ids, encoder_hidden_states,
+                              cls_head, schedule_sampling_prob, **kwargs)
+
+
+class SingleLayerRNNDecoder(_RNNDecoderBase):
+    """SA-LSTM (reference ``RNN_single_layer.py``): one cell whose input is
+    [word, (category), context, (concept context)], the context attended
+    with h(t-1) as the query. The state starts from ``v2h`` / ``v2c`` of the
+    mean features, or, with ``has_v2h_v2c`` False (VOE), from the raw mean
+    features."""
+
+    def __init__(self, opt: dict, generator: torch.Generator,
+                 has_v2h_v2c: bool = True):
+        super().__init__(opt, generator, multilevel=True)
+        D = opt["dim_hidden"]
+        dim_in = (D + self.dim_category + self.dim_context
+                  + (D if self.semantic_local_flag else 0))
+        self.rnn = self.cell_cls(dim_in, D, generator)
+        self.has_v2h_v2c = has_v2h_v2c
+        if has_v2h_v2c:
+            self.v2h = dense(self.dim_feats, D, generator)
+            if self.rnn_type == "lstm":
+                self.v2c = dense(self.dim_feats, D, generator)
+
+    def init_rnn_state(self, encoder_hidden_states):
+        mean_v = _mean_video_features(encoder_hidden_states)
+        if self.has_v2h_v2c:
+            hidden = self.v2h(mean_v)
+            cell = self.v2c(mean_v) if self.rnn_type == "lstm" else None
+        else:
+            # reference RNN_single_layer.py:91-113: without v2h / v2c (VOE)
+            # h0 and c0 are the raw mean features, not zeros
+            hidden = cell = mean_v
+        return (hidden, cell) if self.rnn_type == "lstm" else hidden
+
+    def forward_step(self, it, encoder_hidden_states, rnn_state=None,
+                     category=None, semantic_embs=None,
+                     semantic_hidden_states=None, **unused):
+        """One step on the tokens ``it`` [B]: the attention outputs, the
+        dropped-out hidden state [B, D] and the new cell state."""
+        if rnn_state is None:
+            rnn_state = self.init_rnn_state(encoder_hidden_states)
+        h_query = self._get_h(rnn_state)
+        context, attention_probs = self._attend(h_query,
+                                                encoder_hidden_states)
+        rnn_inputs = [self._embed_word(it, semantic_hidden_states)]
+        if self.with_category:
+            rnn_inputs.append(category)
+        rnn_inputs.append(context)
+        outputs = {"context": context, "attention_probs": attention_probs}
+        if self.semantic_local_flag:
+            sem_ctx, sem_probs = self.semantic_att(h_query, semantic_embs)
+            rnn_inputs.append(sem_ctx)
+            outputs["semantic_attention_probs"] = sem_probs
+        x = self.dropout(torch.cat(rnn_inputs, dim=-1))
+        rnn_state = self.rnn(rnn_state, x)
+        outputs["hidden_states"] = self.dropout(self._get_h(rnn_state))
+        outputs["decoder_rnn_hidden_states"] = rnn_state
+        return outputs
+
+
+def VOERNNDecoder(opt: dict, generator: torch.Generator):
+    """``SingleLayerRNNDecoder`` without ``v2h`` / ``v2c`` (reference
+    ``RNN_single_layer.py:354-356``)."""
+    return SingleLayerRNNDecoder(opt, generator, has_v2h_v2c=False)
+
+
+class TopDownAttentionRNNDecoder(_RNNDecoderBase):
+    """The two-cell bottom-up / top-down decoder (reference
+    ``RNN_multi_layers.py:60-184``): the bottom cell takes [word, h_top,
+    mean features, (category)] and starts from tanh(``v2h``) and
+    tanh(``v2c``) of the mean features; the attention queries h_bottom; the
+    top cell takes [h_bottom, context, (concept context)] and starts from
+    zeros."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__(opt, generator, multilevel=False)
+        D = opt["dim_hidden"]
+        self.bottom_rnn = self.cell_cls(
+            2 * D + self.dim_feats + self.dim_category, D, generator)
+        self.top_rnn = self.cell_cls(
+            D + self.dim_context + (D if self.semantic_local_flag else 0), D,
+            generator)
+        self.v2h = dense(self.dim_feats, D, generator)
+        if self.rnn_type == "lstm":
+            self.v2c = dense(self.dim_feats, D, generator)
+
+    def init_rnn_state(self, encoder_hidden_states):
+        mean_v = _mean_video_features(encoder_hidden_states)
+        hidden = torch.tanh(self.v2h(mean_v))
+        if self.rnn_type == "lstm":
+            cell = torch.tanh(self.v2c(mean_v))
+            return [(hidden, cell),
+                    (torch.zeros_like(hidden), torch.zeros_like(cell))]
+        return [hidden, torch.zeros_like(hidden)]
+
+    def forward_step(self, it, encoder_hidden_states, rnn_state=None,
+                     category=None, semantic_embs=None,
+                     semantic_hidden_states=None, **unused):
+        if rnn_state is None:
+            rnn_state = self.init_rnn_state(encoder_hidden_states)
+        bottom_state, top_state = rnn_state
+        bottom_inputs = [self._embed_word(it, semantic_hidden_states),
+                         self._get_h(top_state),
+                         _mean_video_features(encoder_hidden_states)]
+        if self.with_category:
+            bottom_inputs.append(category)
+        bottom_state = self.bottom_rnn(
+            bottom_state, self.dropout(torch.cat(bottom_inputs, dim=-1)))
+        h_bottom = self._get_h(bottom_state)
+        context, attention_probs = self._attend(h_bottom,
+                                                encoder_hidden_states)
+        top_inputs = [h_bottom, context]
+        outputs = {"context": context, "attention_probs": attention_probs}
+        if self.semantic_local_flag:
+            sem_ctx, sem_probs = self.semantic_att(h_bottom, semantic_embs)
+            top_inputs.append(sem_ctx)
+            outputs["semantic_attention_probs"] = sem_probs
+        top_state = self.top_rnn(top_state,
+                                 self.dropout(torch.cat(top_inputs, dim=-1)))
+        outputs["hidden_states"] = self.dropout(self._get_h(top_state))
+        outputs["decoder_rnn_hidden_states"] = [bottom_state, top_state]
+        return outputs
+
+
+def _rnn_time_loop(decoder, input_ids, encoder_hidden_states, cls_head,
+                   schedule_sampling_prob, **kwargs):
+    """The RNN decoders' training forward (reference
+    ``RNN_single_layer.py:179-222``; the JAX package's ``nn.scan``): one
+    step per position of ``input_ids`` [B, T].
+
+    Teacher forcing computes the logits after the loop as one [B, T, V]
+    projection. Scheduled sampling (training mode, ``cls_head`` given,
+    ``scheduled_sampling_start`` >= 0 and a probability above 0) feeds
+    each step after the first the teacher's token when a coin U[0, 1)
+    drawn from the decoder's ``sampling_generator`` is at least the
+    probability, else a token sampled from the softmax of the previous
+    step's logits; its outputs add ``scheduled_sampling_mask`` [B, T] (the
+    positions fed a sample) and ``fed_input_ids`` [B, T].
+
+    Returns ``hidden_states`` [B, T, D], ``attention_probs`` (each step's
+    stacked on axis 2), ``logits`` and ``sentence_embs`` (the word table at
+    ``input_ids``).
+    """
+    opt = decoder.opt
+    bsz, seq_len = input_ids.shape
+    use_ss = (decoder.training and cls_head is not None
+              and opt.get("scheduled_sampling_start", -1) >= 0
+              and schedule_sampling_prob > 0)
+    state = decoder.init_rnn_state(encoder_hidden_states)
+    hidden, probs, logits = [], [], []
+    fed, sampled = [], []
+    for t in range(seq_len):
+        it = input_ids[:, t]
+        if use_ss:
+            if t:
+                g = decoder.sampling_generator
+                coin = torch.rand((bsz,), generator=g, device=it.device)
+                draw = torch.multinomial(torch.softmax(logits[-1].float(),
+                                                       dim=-1), 1,
+                                         generator=g)[:, 0]
+                take = coin < schedule_sampling_prob
+                it = torch.where(take, draw, it)
+            else:
+                take = torch.zeros((bsz,), dtype=torch.bool,
+                                   device=it.device)
+            fed.append(it)
+            sampled.append(take)
+        out = decoder.forward_step(it, encoder_hidden_states, state,
+                                   **kwargs)
+        state = out["decoder_rnn_hidden_states"]
+        hidden.append(out["hidden_states"])
+        probs.append(out["attention_probs"])
+        if use_ss:
+            logits.append(cls_head(out["hidden_states"]))
+    hidden = torch.stack(hidden, dim=1)
+    outputs = {
+        "hidden_states": hidden,
+        "attention_probs": torch.stack(probs, dim=2),
+        "logits": (torch.stack(logits, dim=1) if use_ss
+                   else cls_head(hidden) if cls_head is not None else None),
+        "sentence_embs": F.embedding(input_ids, decoder.word_embeddings),
+    }
+    if use_ss:
+        outputs["scheduled_sampling_mask"] = torch.stack(sampled, dim=1)
+        outputs["fed_input_ids"] = torch.stack(fed, dim=1)
+    return outputs
+
+
+def set_sampling_generator(model: nn.Module, generator) -> None:
+    """Every RNN decoder of ``model`` draws its scheduled-sampling coins and
+    samples from ``generator`` (a ``torch.Generator`` on the model's
+    device, or None) from now on."""
+    for module in model.modules():
+        if isinstance(module, _RNNDecoderBase):
+            module.sampling_generator = generator
+
+
+def is_rnn_decoder(opt: dict) -> bool:
+    return "rnn" in opt["decoder"].lower()
+
+
 DECODERS = {"TransformerDecoder": TransformerDecoder,
-            "TwoStageTransformerDecoder": TwoStageTransformerDecoder}
+            "TwoStageTransformerDecoder": TwoStageTransformerDecoder,
+            "SingleLayerRNNDecoder": SingleLayerRNNDecoder,
+            "VOERNNDecoder": VOERNNDecoder,
+            "TopDownAttentionRNNDecoder": TopDownAttentionRNNDecoder}
 
 
 def get_decoder(opt: dict, generator: torch.Generator) -> nn.Module:
     if opt["decoder"] not in DECODERS:
-        raise unsupported("decoder", opt["decoder"])
+        raise ValueError(f"unknown decoder `{opt['decoder']}`")
     return DECODERS[opt["decoder"]](opt, generator)

@@ -17,6 +17,11 @@ the biased batch variance and moves the running mean and the unbiased
 running variance by momentum 0.1, which the JAX package's
 ``_TorchBatchNorm`` was written to reproduce; in evaluation it uses the
 running statistics.
+
+``VOE`` (reference ``Encoder.py:379-412``) chains one flax-layout GRU per
+dense modality over time, each after the first starting from the carry of
+the one before and reading the dropped-out outputs of the one before beside
+its own features, and closes with the BatchNorm.
 """
 
 from typing import Any, Dict, List
@@ -25,7 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
+from care_tpu_torch.models.common import (Dense, Dropout, LayerNorm, dense,
                                           unsupported)
 from care_tpu_torch.models.embeddings import PositionalEmbedding
 from care_tpu_torch.models.layers import EncoderLayer
@@ -202,8 +207,8 @@ class MultipleStreams(nn.Module):
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
         if opt["encoder"] not in STREAM_KINDS:
-            if opt["encoder"] in ("VOE", "SingleStreamEmbedder", "CNN1",
-                                  "CNN2", "CNN3"):
+            if opt["encoder"] in ("SingleStreamEmbedder", "CNN1", "CNN2",
+                                  "CNN3"):
                 raise unsupported("encoder", opt["encoder"])
             raise ValueError(f"unknown encoder `{opt['encoder']}`")
         self.kind = STREAM_KINDS[opt["encoder"]]
@@ -272,5 +277,83 @@ class MultipleStreams(nn.Module):
         return data
 
 
+class GRUCellFlax(nn.Module):
+    """flax's ``nn.GRUCell``, which is not ``torch.nn.GRUCell``: ``ir``,
+    ``iz`` and ``in`` map the input with a bias, ``hr`` and ``hz`` the
+    state without one and ``hn`` with one; r = sigmoid(ir(x) + hr(h)),
+    z = sigmoid(iz(x) + hz(h)), n = tanh(in(x) + r * hn(h)),
+    h' = (1 - z) * n + z * h. Init as flax's: lecun-normal input kernels,
+    orthogonal state kernels, zero biases."""
+
+    def __init__(self, dim_in: int, features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        for name in ("ir", "iz", "in"):
+            layer = Dense(dim_in, features)
+            std = (1.0 / dim_in) ** 0.5 / 0.87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                layer.bias.zero_()
+            self.add_module(name, layer)
+        for name, bias in (("hr", False), ("hz", False), ("hn", True)):
+            layer = Dense(features, features, bias=bias)
+            with torch.no_grad():
+                nn.init.orthogonal_(layer.weight, generator=generator)
+                if bias:
+                    layer.bias.zero_()
+            self.add_module(name, layer)
+
+    def scan(self, inputs, carry):
+        """The cell over time: inputs [B, T, dim_in], carry [B, H]; returns
+        (the last carry, the outputs [B, T, H]). The input maps of every
+        step are taken at once."""
+        xr, xz, xn = (getattr(self, n)(inputs) for n in ("ir", "iz", "in"))
+        outputs = []
+        for t in range(inputs.shape[1]):
+            r = torch.sigmoid(xr[:, t] + self.hr(carry))
+            z = torch.sigmoid(xz[:, t] + self.hz(carry))
+            n = torch.tanh(xn[:, t] + r * self.hn(carry))
+            carry = (1.0 - z) * n + z * carry
+            outputs.append(carry)
+        return carry, torch.stack(outputs, dim=1)
+
+
+class VOE(nn.Module):
+    """Chained per-modality GRUs (reference ``Encoder.py:379-412``): the
+    first ``RNN_<c>`` starts from zeros over its features; each later one
+    starts from the last carry of the one before, over the dropout of its
+    outputs concatenated with its own features; then ``bn`` (``BN1d``)."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        self.modality = [c for c in opt["modality"] if c != "t"]
+        H = opt["dim_hidden"]
+        for i, char in enumerate(self.modality):
+            dim_in = opt["dim_" + char] + (H if i else 0)
+            self.add_module(f"RNN_{char}", GRUCellFlax(dim_in, H, generator))
+        self.dropout = Dropout(opt.get("encoder_dropout_prob", 0.5))
+        self.bn = BN1d(H)
+        self.dim_hidden = H
+
+    def forward(self, input_feats: List[torch.Tensor]) -> Dict[str, Any]:
+        if len(input_feats) != len(self.modality):
+            raise ValueError(f"{len(input_feats)} feature streams for "
+                             f"modality `{''.join(self.modality)}`")
+        outputs = carry = None
+        for i, char in enumerate(self.modality):
+            x = input_feats[i]
+            if i:
+                x = torch.cat([self.dropout(outputs), x], dim=2)
+            else:
+                carry = x.new_zeros((x.shape[0], self.dim_hidden))
+            carry, outputs = getattr(self, f"RNN_{char}").scan(x, carry)
+        outputs = self.bn(outputs)
+        return {"encoder_hidden_states": outputs,
+                "mean_encoder_hidden_states": [outputs.mean(dim=1)]}
+
+
 def get_encoder(opt: dict, generator: torch.Generator) -> nn.Module:
+    if opt["encoder"] == "VOE":
+        return VOE(opt, generator)
     return MultipleStreams(opt, generator)

@@ -11,6 +11,11 @@ KV-cached decode. The retrieved-text stream ``t`` is embedded by
 embeddings). Submodules are named after the JAX package's parameter tree
 (``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``, ...),
 which ``models/weights.py`` relies on.
+
+With an RNN decoder (``is_rnn``) the decoding phase is the decoder's time
+loop (teacher forcing, or scheduled sampling at ``schedule_sampling_prob``
+in training mode), and serving steps the cell through ``init_rnn_carry`` /
+``rnn_decode_step`` instead of the KV cache.
 """
 
 from typing import Any, Dict, List
@@ -19,7 +24,7 @@ import torch
 from torch import nn
 
 from care_tpu_torch.models.common import unsupported
-from care_tpu_torch.models.decoders import get_decoder
+from care_tpu_torch.models.decoders import get_decoder, is_rnn_decoder
 from care_tpu_torch.models.embeddings import NaiveEmbeddings
 from care_tpu_torch.models.encoders import get_encoder
 from care_tpu_torch.models.heads import get_cls_head
@@ -96,6 +101,7 @@ class Captioner(nn.Module):
         self.text_embedder = (TextEmbedder(opt, generator)
                               if "t" in opt["modality"] else None)
         self.decoder_input_keys = input_keys_for_decoder(opt)
+        self.is_rnn = is_rnn_decoder(opt)
 
     # ------------------------------------------------------------------
     def encoding_phase(self, feats: List[torch.Tensor]) -> Dict[str, Any]:
@@ -111,7 +117,7 @@ class Captioner(nn.Module):
             if char == "t":
                 ret_input_ids = f
                 ret_text_embs = self.text_embedder(
-                    f, embeddings_module=self.decoder.embedding)
+                    f, embeddings_module=self._decoder_embedding())
             else:
                 dense_feats.append(f)
         data = self.encoder(dense_feats)
@@ -132,6 +138,11 @@ class Captioner(nn.Module):
                      inputs_for_decoder["semantic_embs"]], dim=1)
         return inputs_for_decoder
 
+    def _decoder_embedding(self):
+        if self.is_rnn:
+            raise ValueError("text stream requires a transformer decoder")
+        return self.decoder.embedding
+
     def prepare_inputs_for_decoder(self, encoding_phase_outputs: Dict[str, Any],
                                    batch: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
@@ -148,7 +159,9 @@ class Captioner(nn.Module):
                        last_time_step_logits: bool = False,
                        compute_logits: bool = True,
                        collect_aux: bool = True,
-                       attr_input_ids=None) -> Dict[str, Any]:
+                       attr_input_ids=None, rnn_state=None,
+                       schedule_sampling_prob: float = 0.0
+                       ) -> Dict[str, Any]:
         """``compute_logits=False`` (the fused-xent training path,
         ``ops/fused_xent.py``, and the fused statistics of NAR decoding)
         skips the vocab projection: the caller takes its statistics from
@@ -157,7 +170,15 @@ class Captioner(nn.Module):
         states, ``logits`` is the list of each pass's logits.
         ``collect_aux`` adds the decoder's aux entries (attention
         probabilities, contexts, embeddings) that the decoder-side concept
-        losses read."""
+        losses read. An RNN decoder computes its logits whatever
+        ``compute_logits`` says; ``rnn_state`` is the carry its
+        ``last_time_step_logits`` step starts from (None: the initial one),
+        ``schedule_sampling_prob`` the probability its time loop feeds a
+        sampled token in training mode."""
+        if self.is_rnn:
+            return self._rnn_decoding_phase(
+                input_ids, inputs_for_decoder, last_time_step_logits,
+                rnn_state, schedule_sampling_prob)
         outputs = self.decoder(input_ids, collect_aux=collect_aux,
                                attr_input_ids=attr_input_ids,
                                **inputs_for_decoder)
@@ -176,12 +197,29 @@ class Captioner(nn.Module):
             outputs["logits"] = self.cls_head(hidden_states)
         return outputs
 
+    def _rnn_decoding_phase(self, input_ids, inputs_for_decoder,
+                            last_time_step_logits, rnn_state,
+                            schedule_sampling_prob):
+        kwargs = {k: v for k, v in inputs_for_decoder.items()
+                  if k != "encoder_hidden_states"}
+        enc = inputs_for_decoder["encoder_hidden_states"]
+        if last_time_step_logits:
+            it = input_ids[:, -1] if input_ids.dim() == 2 else input_ids
+            out = self.decoder.forward_step(it, enc, rnn_state, **kwargs)
+            out["logits"] = self.cls_head(out["hidden_states"])
+            return out
+        return self.decoder(input_ids, enc, cls_head=self.cls_head,
+                            schedule_sampling_prob=schedule_sampling_prob,
+                            **kwargs)
+
     def forward(self, batch: Dict[str, Any], compute_logits: bool = True,
-                collect_aux: bool = True) -> Dict[str, Any]:
+                collect_aux: bool = True,
+                schedule_sampling_prob: float = 0.0) -> Dict[str, Any]:
         """feedforward_step (reference ``Framework.py:215-234``). In
         training mode (``model.train()``) every dropout is active and draws
-        from the generator given to ``set_dropout_generator``, and the
-        encoder's BatchNorm moves its running statistics."""
+        from the generator given to ``set_dropout_generator``, the
+        encoder's BatchNorm moves its running statistics, and an RNN
+        decoder feeds sampled tokens at ``schedule_sampling_prob``."""
         encoding_phase_outputs = self.encoding_phase(batch["feats"])
         inputs_for_decoder = self.prepare_inputs_for_decoder(
             encoding_phase_outputs, batch)
@@ -190,7 +228,9 @@ class Captioner(nn.Module):
                                       compute_logits=compute_logits,
                                       collect_aux=collect_aux,
                                       attr_input_ids=batch.get(
-                                          "attr_input_ids"))}
+                                          "attr_input_ids"),
+                                      schedule_sampling_prob=
+                                      schedule_sampling_prob)}
 
     # ------------------------------------------------------------------
     # KV-cached incremental decoding
@@ -219,6 +259,22 @@ class Captioner(nn.Module):
         """One AR step: returns (logits [B, V], state)."""
         h, state = self.decoder.decode_step(token_ids, position, state)
         return self.cls_head(h), state
+
+    # ------------------------------------------------------------------
+    # RNN decoding
+    # ------------------------------------------------------------------
+    def init_rnn_carry(self, inputs_for_decoder: Dict[str, Any]):
+        """The RNN decoder's initial carry from the (beam-enlarged) decoder
+        inputs."""
+        return self.decoder.init_rnn_state(
+            inputs_for_decoder["encoder_hidden_states"])
+
+    def rnn_decode_step(self, token_ids, rnn_state,
+                        inputs_for_decoder: Dict[str, Any]):
+        """One RNN step: returns (logits [B, V], the new carry)."""
+        out = self._rnn_decoding_phase(token_ids, inputs_for_decoder, True,
+                                       rnn_state, 0.0)
+        return out["logits"], out["decoder_rnn_hidden_states"]
 
     def project_attribute(self, feats, flag: str):
         """The concept projection of ``flag``, shared with the loss layer

@@ -9,6 +9,9 @@ generation and COCO scoring on the validation set, CIDEr-monitored top-k
 checkpoints, the plateau LR rule, the best-checkpoint reload and the test
 pass with its CSV and caption-quality analysis; the train state saved every
 epoch under ``resume``, so an interrupted run continues where it stopped.
+An RNN decoder takes the epoch's scheduled-sampling probability into its
+forward and draws its coins and samples from the trainer's sampling
+generator, which the train state saves beside the dropout generator.
 
 With ``fused_xent`` the step skips the model's vocab projection and the
 language loss takes its statistics from (hidden states, head weight)
@@ -54,6 +57,8 @@ from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.metrics import COCOScorer
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.models.common import set_dropout_generator, unsupported
+from care_tpu_torch.models.decoders import (is_rnn_decoder,
+                                            set_sampling_generator)
 from care_tpu_torch.models.weights import (variables_from_jax,
                                            variables_to_jax)
 from care_tpu_torch.training import optim as optim_lib
@@ -191,6 +196,10 @@ class Trainer:
         self.dropout_generator = torch.Generator(device=self.device)
         self.dropout_generator.manual_seed(self.opt.get("seed", 0) + 1)
         set_dropout_generator(self.model, self.dropout_generator)
+        # the scheduled sampling of an RNN decoder: coins and samples
+        self.sampling_generator = torch.Generator(device=self.device)
+        self.sampling_generator.manual_seed(self.opt.get("seed", 0) + 2)
+        set_sampling_generator(self.model, self.sampling_generator)
         return self.model
 
     @property
@@ -345,15 +354,16 @@ class Trainer:
                       and opt.get("cls_head") == "NaiveHead"
                       and not opt.get("pointer")
                       and not opt.get("visual_word_generation", False)
-                      and "rnn" not in opt.get("decoder", "").lower())
+                      and not is_rnn_decoder(opt))
         self._fused_xent = fused_xent
 
         collect_aux = self._needs_aux
 
-        def train_step(batch):
+        def train_step(batch, ss_prob: float = 0.0):
             # training mode: the BatchNorm running statistics move here
             outputs = model(batch, compute_logits=not fused_xent,
-                            collect_aux=collect_aux)
+                            collect_aux=collect_aux,
+                            schedule_sampling_prob=ss_prob)
             results = {**outputs, **batch}
             if fused_xent and "logits" not in outputs:
                 results["cls_head_kernel"] = model.cls_head.tgt_word_prj.weight
@@ -362,6 +372,12 @@ class Trainer:
             tx.zero_grad()
             total.backward()
             tx.step()
+            mask = outputs.get("scheduled_sampling_mask")
+            if mask is not None:
+                # the share of the positions after the first, where a
+                # sample may be fed, that took one
+                metrics = {**metrics,
+                           "ss_share": mask[:, 1:].float().mean()}
             return (total.detach(),
                     {k: v.detach() for k, v in losses.items()},
                     {k: v.detach() for k, v in metrics.items()})
@@ -436,7 +452,7 @@ class Trainer:
                     self._stop_profiler(prof, profile_dir)
                     prof = None
                 step_stats.append(self._train_step_fn(
-                    self._device_batch(batch)))
+                    self._device_batch(batch), ss_prob))
                 self.global_step += 1
             if prof is not None:
                 self._stop_profiler(prof, profile_dir)
@@ -462,6 +478,9 @@ class Trainer:
             if metric_sums.get("xent_count"):
                 log["Perplexity"] = math.exp(metric_sums["xent_sum"]
                                              / metric_sums["xent_count"])
+            if "ss_share" in metric_sums:
+                # the share of an RNN's positions fed a sampled token
+                log["Sampled Share"] = metric_sums["ss_share"] / n_steps
             if self.tb:
                 for k, v in log.items():
                     self.tb.add_scalar(k, v, epoch)
@@ -532,6 +551,7 @@ class Trainer:
         state = {"model": self.model.state_dict(),
                  "optimizer": self.tx.state_dict(),
                  "generator": self.dropout_generator.get_state(),
+                 "sampling_generator": self.sampling_generator.get_state(),
                  "loader_rngs": {k: _rng_state(r)
                                  for k, r in self._loader_rngs().items()}}
         self._train_state_ckpt().save(epoch, state, meta)
@@ -571,6 +591,7 @@ class Trainer:
         self.model.load_state_dict(state["model"])
         self.tx.load_state_dict(state["optimizer"])
         self.dropout_generator.set_state(state["generator"])
+        self.sampling_generator.set_state(state["sampling_generator"])
         rngs = self._loader_rngs()
         for k, st in state["loader_rngs"].items():
             _set_rng_state(rngs[k], st)

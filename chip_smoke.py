@@ -108,6 +108,18 @@ before the last line:
    with the plain version in K2's place (hypotheses identical, log-probs
    within 1e-5); K2 against its plain version at the decode's shape
    [11 520, 512] x [11 000, 512] with token ids, f32 and bf16.
+7f. rnn: the RNN captioners at full width (``--arch base``, MSRVTT ViT,
+   ``--modality ami -dm VA -pm VAT``, V 11 000, batch 64, beam 5,
+   ``max_len`` 30): SALSTM CARE (``scripts/exp_versatility_of_CARE.sh:34``),
+   TopDown CARE (``:44``) and the ``VOE`` preset each train 2 epochs of 2
+   batches with dropout on and scheduled sampling at 0.25 in epoch 1 (the
+   share of positions fed a sample printed and held to a binomial bound;
+   VOE's running statistics must move) and serve one batch of 64 and the
+   ragged 17, every score re-checked by teacher forcing; no kernel
+   launches, as ``care_tpu`` keeps these models off the fused head and the
+   fused cross-entropy. The SALSTM batch is profiled, and SALSTM is served
+   in bf16 beside f32 (decode-step log-probs within 2% of the step's
+   largest |log-prob|).
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -737,13 +749,16 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
     served = translator.serving_model(model)
     torch.cuda.synchronize()
     layers = opt["num_hidden_layers_decoder"]
+    # an RNN decoder has no Transformer layers and stays off the fused head
     assert all(l.inter_attention.use_flash is flash
-               for l in model.decoder.layers)
+               for l in getattr(model.decoder, "layers", []))
+    head = translator.fused_head
     dtype = translator.compute_dtype or torch.float32
     print(f"serve {label}: built the Captioner "
           f"({sum(p.numel() for p in model.parameters())} parameters, served "
           f"in {str(next(served.parameters()).dtype)[6:]}, vocab head "
-          f"{str(served.cls_head.tgt_word_prj.weight.dtype)[6:]}) in "
+          f"{str(served.cls_head.tgt_word_prj.weight.dtype)[6:]}"
+          f"{'' if head else ', dense'}) in "
           f"{time.perf_counter() - t0:.1f} s")
     batches = [_synthetic_feats(opt, n, SEED + 10 + i)
                for i, n in enumerate(batch_sizes)]
@@ -761,7 +776,8 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
     counts = _launch_counts()
     bf16 = _bf16_launch_counts()
     steps = translator.beam_steps
-    assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
+    assert steps > 0 and counts["fused_head_topk"] == steps * head, \
+        (counts, steps)
     assert counts["flash_attention_fwd"] == (steps * layers if flash else 0), \
         (counts, steps)
     for name, n in bf16.items():
@@ -1425,6 +1441,144 @@ def phase_nar(scratch) -> dict:
     _check_argmax_lse_nar(h, W, tokens)
     _check_argmax_lse_nar(*_head_inputs(rows, H, V, torch.bfloat16, True, 13),
                           tokens)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# the RNN captioners
+# ---------------------------------------------------------------------------
+
+RNN_EPOCHS, RNN_BATCHES = 2, 2
+VERSATILITY_MSRVTT = {"feats": "ViT", "modality": "ami",
+                      "decoder_modality_flags": "VA",
+                      "predictor_modality_flags": "VAT"}
+# (label, the command's flags, where the paper runs it)
+RNN = [
+    ("SALSTM CARE", dict(VERSATILITY_MSRVTT, method="SALSTM", task="CARE"),
+     "scripts/exp_versatility_of_CARE.sh:34"),
+    ("TopDown CARE", dict(VERSATILITY_MSRVTT, method="TopDown",
+                          task="CARE"),
+     "scripts/exp_versatility_of_CARE.sh:44"),
+    ("VOE", dict(VERSATILITY_MSRVTT, method="VOE", task="Base"),
+     "care_tpu/config/yamls/methods.yaml:30"),
+]
+# scheduled sampling from epoch 0, at 0.25 in epoch 1
+RNN_SAMPLING = {"scheduled_sampling_start": 0,
+                "scheduled_sampling_increase_every": 1,
+                "scheduled_sampling_increase_prob": 0.25}
+# bf16 against f32 decode-step log-probs, relative to the step's largest
+# |log-prob|: the bound the bf16 decode is held to on the host
+# (tests/test_torch_fused_decode.py, tests/test_torch_rnn.py)
+BF16_LOGP_REL = 2e-2
+
+
+@torch.no_grad()
+def _bf16_step_gap(opt, f32_model, feats, steps=3):
+    """The largest |bf16 - f32| of the decode-step log-probs (BOS, then the
+    f32 model's greedy token) over ``steps`` steps, relative to the step's
+    largest |log-prob|, for the bf16 serving copy of ``f32_model``."""
+    worst = 0.0
+    runs = []
+    for cfg in (opt, _half(opt)):
+        tr = get_translator(cfg)
+        served = tr.serving_model(f32_model)
+        inputs = served.prepare_inputs_for_decoder(
+            served.encoding_phase(tr._feats({"feats": feats})), {})
+        runs.append((served, inputs, served.init_rnn_carry(inputs)))
+    tokens = torch.full((len(feats[0]),), constants.BOS, device="cuda")
+    for _ in range(steps):
+        logps = []
+        for i, (served, inputs, carry) in enumerate(runs):
+            logits, carry = served.rnn_decode_step(tokens, carry, inputs)
+            runs[i] = (served, inputs, carry)
+            logps.append(torch.log_softmax(logits.float(), dim=-1))
+        scale = logps[0].abs().max().item()
+        worst = max(worst, (logps[1] - logps[0]).abs().max().item() / scale)
+        tokens = logps[0].argmax(dim=-1)
+    return worst
+
+
+def phase_rnn(scratch) -> dict:
+    """The RNN captioners at full width (``--arch base``: H 512; V 11 000;
+    28 frames of audio, motion and image; 30 concept slots; batch 64, beam
+    5, ``max_len`` 30, random weights from a seed): SALSTM CARE, TopDown
+    CARE and the VOE preset. Each trains ``RNN_EPOCHS`` epochs of
+    ``RNN_BATCHES`` batches with dropout on and scheduled sampling at 0.25
+    in epoch 1 (no kernel launches: the RNN loss stays dense, as in
+    ``care_tpu``; VOE's running statistics must move), then ``_serve``
+    decodes one batch of 64 and the ragged 17 off the fused head (no
+    kernel launches; every score re-checked by teacher forcing; caps/s and
+    ms per beam step); the SALSTM batch is profiled, and SALSTM is served
+    in bf16 beside f32. Returns the launch counts of the phase, all 0."""
+    totals = dict.fromkeys(_launch_counts(), 0)
+    for i, (label, flags, where) in enumerate(RNN):
+        opt = dict(family_opt(flags), **RNN_SAMPLING)
+        print(f"rnn {label} ({where}): encoder {opt['encoder']}, decoder "
+              f"{opt['decoder']}, rnn_type {opt['rnn_type']}, use_attr_type "
+              f"{opt.get('use_attr_type')!r}, hybrid bias "
+              f"{opt['add_hybrid_attention_bias']}, modality "
+              f"{opt['modality']}")
+        loader = SyntheticLoader(opt, RNN_BATCHES, BATCH, SEED + 100 + i)
+        trainer = Trainer(dict(opt, epochs=RNN_EPOCHS,
+                               checkpoint_path=os.path.join(
+                                   scratch, f"rnn{i}")), loader)
+        trainer.init_model()
+        stats = _bn_stats(trainer.model)
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        trainer.fit()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _launch_counts()
+        losses = _step_losses(trainer)
+        assert not trainer._fused_xent, label
+        assert len(losses) == RNN_EPOCHS * RNN_BATCHES, losses
+        assert all(np.isfinite(losses)), losses
+        assert all(n == 0 for n in counts.values()), (label, counts)
+        epoch1 = trainer.history[1]
+        share = epoch1["Sampled Share"]
+        positions = RNN_BATCHES * BATCH * (opt["max_len"] - 2)
+        sigma = (0.25 * 0.75 / positions) ** 0.5
+        assert epoch1["schedule_sampling_prob"] == 0.25, epoch1
+        assert abs(share - 0.25) <= 4 * sigma, (share, sigma)
+        moved = [float((a - b).abs().max())
+                 for a, b in zip(_bn_stats(trainer.model), stats)]
+        assert (opt["encoder"] == "VOE") == bool(stats), label
+        assert all(m > 0 for m in moved), moved
+        print(f"rnn {label}: train {len(losses)} steps of batch {BATCH} "
+              f"({RNN_EPOCHS} epochs), dropout on, in {seconds:.2f} s with "
+              f"model build and first-launch costs; epoch 1 "
+              f"{1e3 * epoch1['epoch_time'] / RNN_BATCHES:.1f} ms a step "
+              f"(host clock, the epoch's one fetch included); losses "
+              f"{[round(l, 4) for l in losses]}; epoch 1 fed a sampled token "
+              f"at {100 * share:.2f}% of {positions} positions (p 0.25, "
+              f"4 sigma {400 * sigma:.2f}%); kernel launches "
+              f"{sum(counts.values())}"
+              + (f"; BatchNorm running statistics moved by up to "
+                 f"{max(moved):.3e}" if stats else ""))
+        for k, n in counts.items():
+            totals[k] += n
+        del trainer, loader
+        run = _serve(f"rnn {label}", opt, [BATCH, RAGGED], False,
+                     ["fused_head_topk"] if i == 0 else [])
+        for k, n in run["counts"].items():
+            totals[k] += n
+        if i == 0:
+            bf16 = _serve(f"rnn {label}, bf16", _half(opt), [BATCH], False,
+                          [])
+            _against_f32(f"rnn {label}, bf16", bf16, run)
+            for k, n in bf16["counts"].items():
+                totals[k] += n
+            model = build_captioner(opt, seed=SEED)
+            gap = _bf16_step_gap(opt, model,
+                                 _synthetic_feats(opt, BATCH, SEED + 10))
+            assert gap <= BF16_LOGP_REL, gap
+            print(f"serve rnn {label}, bf16: decode-step log-probs within "
+                  f"{100 * gap:.3f}% of the step's largest |log-prob| of "
+                  f"f32's (bound {100 * BF16_LOGP_REL:g}%)")
+            del model
+    assert all(n == 0 for n in totals.values()), totals
     return totals
 
 
@@ -2484,6 +2638,8 @@ def main() -> None:
             counts[k] += n
         nar_counts = phase_nar(scratch)
         for k, n in nar_counts.items():
+            counts[k] += n
+        for k, n in phase_rnn(scratch).items():
             counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -125,12 +125,12 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 UNSUPPORTED = [
-    ("decoder", "TopDownAttentionRNNDecoder"), ("encoder", "VOE"),
+    ("encoder", "CNN3"), ("encoder", "CNN2"),
     ("encoder", "CNN1"), ("pointer", "Pointer"),
-    ("decoder", "SingleLayerRNNDecoder"),
+    ("retrieval", True),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
     ("has_retrieval_rnn", True), ("with_backbones", True),
-    ("encoder", "SingleStreamEmbedder"), ("decoder", "VOERNNDecoder"),
+    ("encoder", "SingleStreamEmbedder"), ("compute_dtype_decode", "fp8"),
 ]
 
 
@@ -188,6 +188,28 @@ def test_nar_methods_build_and_serve(method):
     hyps, scores = translator.translate_batch(
         model, {"feats": synthetic_batch(opt, 2, seed=1)["feats"]})
     assert np.shape(hyps) == np.shape(scores) == (2, 1, opt["max_len"])
+
+
+@pytest.mark.parametrize("method", ["SALSTM", "TopDown", "VOE"])
+def test_rnn_methods_build_and_serve(method):
+    """The three RNN decoders and the ``VOE`` encoder used to raise; the
+    RNN methods now build and decode through the AR translator off the
+    fused head (``tests/test_torch_rnn*.py`` and
+    ``tests/test_torch_paper_grid_rnn*.py`` hold them to ``care_tpu``)."""
+    opt = port_get_opt({**TINY, "method": method}, read_vocab=False,
+                       resolve_paths=False)
+    opt.update(dim_m=24, dim_i=16)
+    model = build_captioner(opt, device="cpu")
+    assert model.is_rnn and type(model.decoder).__name__ == {
+        "SALSTM": "SingleLayerRNNDecoder", "VOE": "SingleLayerRNNDecoder",
+        "TopDown": "TopDownAttentionRNNDecoder"}[method]
+    assert type(model.encoder).__name__ == (
+        "VOE" if method == "VOE" else "MultipleStreams")
+    translator = get_translator(opt, device="cpu")
+    assert not translator.fused_head
+    hyps, scores = translator.translate_batch(
+        model, {"feats": synthetic_batch(opt, 2, seed=1)["feats"]})
+    assert len(hyps) == len(scores) == 2 and all(len(h[0]) for h in hyps)
 
 
 def test_ensembles_and_fused_batches_raise():

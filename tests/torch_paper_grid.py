@@ -15,6 +15,10 @@ widths 1/64 of the command's (at least 4), 4 frames, 8 tokens, a
 and the ``NAB`` preset, ``teacher_overrides`` the ARB command that trains
 each one's teacher.
 
+``RNN_COMMANDS`` holds the eight SALSTM and TopDown lines of
+``exp_versatility_of_CARE.sh``, the ``VOE`` preset and the ``TAP_RNN`` /
+``DAP_RNN`` tasks on SALSTM.
+
 ``held_against_jax`` builds a command's model in both packages, carries
 the weights (and BatchNorm running statistics) across with
 ``variables_from_jax``, and returns the largest logit difference of the
@@ -191,6 +195,35 @@ NAR_COMMANDS = [
           with_teacher_during_training=True)),
     ("NAB-Base-MSRVTT", "care_tpu/config/yamls/methods.yaml:47",
      dict(VERS_MSRVTT, method="NAB", task="Base")),
+]
+
+
+# the RNN captioners: the SALSTM and TopDown lines of
+# scripts/exp_versatility_of_CARE.sh, the VOE preset and the TAP_RNN /
+# DAP_RNN tasks on SALSTM; held by tests/test_torch_paper_grid_rnn.py
+RNN_COMMANDS = [
+    ("SALSTM-Base-MSVD", "scripts/exp_versatility_of_CARE.sh:28",
+     dict(VERS_MSVD, method="SALSTM", task="Base")),
+    ("SALSTM-Base-MSRVTT", "scripts/exp_versatility_of_CARE.sh:30",
+     dict(VERS_MSRVTT, method="SALSTM", task="Base")),
+    ("SALSTM-CARE-MSVD", "scripts/exp_versatility_of_CARE.sh:32",
+     dict(VERS_MSVD, method="SALSTM", task="CARE")),
+    ("SALSTM-CARE-MSRVTT", "scripts/exp_versatility_of_CARE.sh:34",
+     dict(VERS_MSRVTT, method="SALSTM", task="CARE")),
+    ("TopDown-Base-MSVD", "scripts/exp_versatility_of_CARE.sh:38",
+     dict(VERS_MSVD, method="TopDown", task="Base")),
+    ("TopDown-Base-MSRVTT", "scripts/exp_versatility_of_CARE.sh:40",
+     dict(VERS_MSRVTT, method="TopDown", task="Base")),
+    ("TopDown-CARE-MSVD", "scripts/exp_versatility_of_CARE.sh:42",
+     dict(VERS_MSVD, method="TopDown", task="CARE")),
+    ("TopDown-CARE-MSRVTT", "scripts/exp_versatility_of_CARE.sh:44",
+     dict(VERS_MSRVTT, method="TopDown", task="CARE")),
+    ("VOE-Base-MSRVTT", "care_tpu/config/yamls/methods.yaml:30",
+     dict(VERS_MSRVTT, method="VOE", task="Base")),
+    ("SALSTM-TAP_RNN-MSRVTT", "care_tpu/config/yamls/tasks.yaml:85",
+     dict(VERS_MSRVTT, method="SALSTM", task="TAP_RNN")),
+    ("SALSTM-DAP_RNN-MSRVTT", "care_tpu/config/yamls/tasks.yaml:95",
+     dict(VERS_MSRVTT, method="SALSTM", task="DAP_RNN")),
 ]
 
 
