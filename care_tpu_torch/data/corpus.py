@@ -184,6 +184,11 @@ def write_synthetic_dataset(root: str, opt: dict, n_videos: int = 40,
     ``correlated=True`` makes features a (noisy) linear function of the
     video's caption content words, so captions are learnable from features
     — used by the end-to-end learning tests.
+
+    The ``t`` stream (PointerGen's retrieved captions) is a retrieval
+    database ``synthetic_t.hdf5``: per video a row ``video<k>_i`` of
+    ``max(retrieval_topk, 20)`` indices into the training split's captions
+    in flat order, as ``datasets.JointDataset.load_t_feats`` reads it.
     """
     import h5py
 
@@ -207,7 +212,10 @@ def write_synthetic_dataset(root: str, opt: dict, n_videos: int = 40,
     n_total = opt.get("n_total_frames", constants.N_TOTAL_FRAMES)
     paths = {}
     for char in opt["modality"]:
-        if char in ("t",):
+        if char == "t":
+            paths[char] = _write_retrieval_db(
+                os.path.join(feats_dir, "synthetic_t.hdf5"), corpus, opt,
+                n_videos, rng)
             continue
         dim = opt[f"dim_{char}"]
         word_codes = rng.randn(vocab_size, dim).astype(np.float32)
@@ -225,3 +233,18 @@ def write_synthetic_dataset(root: str, opt: dict, n_videos: int = 40,
                 hf.create_dataset("video%d" % v, data=data)
         paths[char] = p
     return dataset_dir, paths, corpus, refs
+
+
+def _write_retrieval_db(path: str, corpus: dict, opt: dict, n_videos: int,
+                        rng: np.random.RandomState) -> str:
+    """A retrieval database of random training-caption indices per video."""
+    import h5py
+
+    train_ids = get_ids_set("train", corpus["info"]["split"])
+    n_flat = sum(len(corpus["captions"]["video%d" % v]) for v in train_ids)
+    topk = max(opt.get("retrieval_topk", 20), 20)
+    with h5py.File(path, "w") as hf:
+        for v in range(n_videos):
+            hf.create_dataset("video%d_i" % v,
+                              data=rng.randint(0, n_flat, topk))
+    return path

@@ -10,10 +10,16 @@ and scores.
 cross-attention K/V at [B] rows and the self-attention cache at [B*beam]
 rows, and runs the beam loop. With the default ``fused_head_topk`` each
 step's vocab expansion goes through the fused head + top-k kernel, so the
-[B*beam, V] logits never exist. An RNN decoder decodes from its carry
-(``init_rnn_carry`` on the beam-enlarged inputs, ``rnn_decode_step``, the
-nested carry reordered with the beams) and its dense log-probabilities, as
-the JAX package keeps it off the fused head.
+[B*beam, V] logits never exist. Every other decode takes the dense step,
+as the JAX package rules (``care_tpu/decoding/translator.py:225-230``): an
+RNN decoder steps its carry (``init_rnn_carry`` on the beam-enlarged
+inputs, ``rnn_decode_step``, the nested carry reordered with the beams), a
+pointer model's step returns the log of its copy-mixed probabilities (its
+retrieved captions enlarged to the beam rows), and an ensemble of several
+``Captioner``s (``models`` a list) keeps each member's encoding, inputs
+and state and averages the members' f32 log-probabilities each step; a
+heterogeneous ensemble takes one feature list per model
+(``models/ensemble.py:EnsembleSpec.split_feats``).
 
 ``TranslatorNARFormer`` decodes a length beam: the ``length_beam_size``
 most likely lengths of each instance (from ``preds_length``), each a canvas
@@ -145,20 +151,19 @@ class Translator:
     def __init__(self, opt: dict, device=None):
         if opt.get("fused_head_backend", "auto") != "auto":
             raise unsupported("fused_head_backend", opt["fused_head_backend"])
-        if opt.get("pointer"):
-            raise unsupported("pointer", opt["pointer"])
         self.opt = opt
         self.device = resolve_device(device)
         self.max_len = opt.get("max_len", 30)
         self.beam_alpha = opt.get("beam_alpha", 1.0)
         # the fused head streams a bias-free projection of the decoder's
-        # hidden state: the plain NaiveHead of a Transformer decoder, as the
-        # JAX package rules; any other head, and every RNN decoder, decodes
-        # through its dense logits
+        # hidden state: the plain NaiveHead of a Transformer decoder with no
+        # pointer, as the JAX package rules; any other head, every RNN
+        # decoder, a pointer model and an ensemble decode through their
+        # dense log-probabilities
         self.is_rnn = is_rnn_decoder(opt)
         self.fused_head = (opt.get("fused_head_topk", True)
                            and opt.get("cls_head") == "NaiveHead"
-                           and not self.is_rnn)
+                           and not self.is_rnn and not opt.get("pointer"))
         self.compute_dtype = decode_dtype(opt.get("compute_dtype_decode"))
         self.keep_head_f32 = bool(opt.get("decode_head_f32", False))
         # the cast copies of the models served in half precision, by the
@@ -166,27 +171,34 @@ class Translator:
         # its parameters, cast copy)
         self._served = {}
 
-    def _model(self, models) -> Captioner:
-        if isinstance(models, (list, tuple)):
-            if len(models) != 1:
-                raise unsupported("ensembles of several models")
-            models = models[0]
-        if not isinstance(models, Captioner):
-            raise TypeError(f"expected a care_tpu_torch Captioner, got "
-                            f"{type(models).__name__}")
-        if models.training:
-            raise ValueError("translate with the model in eval mode")
-        dev = next(models.parameters()).device
-        if dev.type != self.device.type:
-            raise ValueError(f"the model lies on {dev}, the translator "
-                             f"serves on {self.device}")
+    def _models(self, models) -> List[Captioner]:
+        """``models`` (a Captioner, or a list of them: an ensemble) as a
+        checked list."""
+        models = (list(models) if isinstance(models, (list, tuple))
+                  else [models])
+        if not models:
+            raise ValueError("no model to translate with")
+        for model in models:
+            if not isinstance(model, Captioner):
+                raise TypeError(f"expected a care_tpu_torch Captioner, got "
+                                f"{type(model).__name__}")
+            if model.training:
+                raise ValueError("translate with the model in eval mode")
+            dev = next(model.parameters()).device
+            if dev.type != self.device.type:
+                raise ValueError(f"the model lies on {dev}, the translator "
+                                 f"serves on {self.device}")
         return models
 
-    def serving_model(self, models) -> Captioner:
-        """The model a decode runs: the caller's, or in half precision its
-        cast copy, made again whenever the caller's parameters changed in
-        place (a train step, a checkpoint load)."""
-        model = self._model(models)
+    def serving_model(self, model) -> Captioner:
+        """The model a decode runs (a Captioner or a one-element list): the
+        caller's, or in half precision its cast copy, made again whenever
+        the caller's parameters changed in place (a train step, a
+        checkpoint load)."""
+        models = self._models(model)
+        if len(models) != 1:
+            raise ValueError(f"one model expected, got {len(models)}")
+        model = models[0]
         if self.compute_dtype is None:
             return model
         stamp = tuple(p._version for p in model.parameters())
@@ -197,19 +209,32 @@ class Translator:
             self._served[id(model)] = served
         return served[2]
 
-    def _feats(self, batch: Dict[str, Any]) -> List[torch.Tensor]:
-        dtype = self.compute_dtype or torch.float32
-        return [torch.as_tensor(np.asarray(f) if not torch.is_tensor(f) else f,
-                                dtype=torch.float32,
-                                device=self.device).to(dtype)
+    def _tensor(self, x) -> torch.Tensor:
+        """A feature stream ``x`` on the device: floating streams in the
+        serving dtype (by way of f32), integer ones (the ``t`` stream's
+        token ids) as int64, never through a float."""
+        t = x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+        if not t.is_floating_point():
+            return t.to(self.device).long()
+        return torch.as_tensor(t, dtype=torch.float32,
+                               device=self.device).to(
+                                   self.compute_dtype or torch.float32)
+
+    def _feats(self, batch: Dict[str, Any]):
+        """The batch's feature streams on the device; a heterogeneous
+        ensemble's batch holds one list of streams per model."""
+        return [[self._tensor(x) for x in f]
+                if isinstance(f, (list, tuple)) else self._tensor(f)
                 for f in batch["feats"]]
 
     def _batch_inputs(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """The decoder inputs a batch carries besides its features (the
-        category of ``with_category``), on the device: the Transformer's
-        category ids as int64, the RNN decoders' one-hot rows as given."""
+        category of ``with_category``, the category vectors of
+        ``use_category_embs``), on the device: the Transformer's category
+        ids as int64, the RNN decoders' one-hot rows and the category
+        vectors as given."""
         out = {}
-        for k in ("category",):
+        for k in ("category", "category_embs"):
             if k in batch:
                 t = torch.as_tensor(np.asarray(batch[k]) if not
                                     torch.is_tensor(batch[k]) else batch[k],
@@ -276,51 +301,93 @@ class TranslatorARFormer(Translator):
 
     @torch.no_grad()
     def dispatch(self, models, batch: Dict[str, Any], **unused):
-        """Decode one batch on the device; returns the beam's output tensors
-        on the device (pair with :meth:`collect`). A teacher given with the
-        batch is not used, as in the JAX package."""
-        model = self.serving_model(models)
+        """Decode one batch on the device with one model or an ensemble (a
+        list); returns the beam's output tensors on the device (pair with
+        :meth:`collect`). A teacher given with the batch is not used, as in
+        the JAX package."""
+        models = [self.serving_model(m) for m in self._models(models)]
         feats = self._feats(batch)
-        N = feats[0].shape[0]
-        enc = model.encoding_phase(feats)
-        inputs = model.prepare_inputs_for_decoder(enc,
-                                                  self._batch_inputs(batch))
-        if self.is_rnn:
-            return self._dispatch_rnn(model, inputs, N)
+        per_model = isinstance(feats[0], list)
+        if per_model and len(feats) != len(models):
+            raise ValueError(f"{len(feats)} feature lists for "
+                             f"{len(models)} models")
+        aux = self._batch_inputs(batch)
+        N = (feats[0][0] if per_model else feats[0]).shape[0]
+        members = []
+        for i, model in enumerate(models):
+            enc = model.encoding_phase(feats[i] if per_model else feats)
+            members.append((model,
+                            model.prepare_inputs_for_decoder(enc, aux)))
+        if self.fused_head and len(members) == 1:
+            return self._dispatch_fused(*members[0], N)
+        return self._dispatch_dense(members, N)
+
+    def _dispatch_fused(self, model, inputs, N: int):
+        """One model through the fused head + top-k: the step returns the
+        decoder's hidden states."""
         carry = model.init_decode_state(inputs, self.max_len, self.beam_size)
 
         def step_fn(tokens, position, state):
             self.beam_steps += 1
-            if self.fused_head:
-                return model.decode_step_hidden(tokens, position, state)
-            logits, state = model.decode_step(tokens, position, state)
-            return torch.log_softmax(logits.float(), dim=-1), state
+            return model.decode_step_hidden(tokens, position, state)
 
-        fused = ((model.cls_head.tgt_word_prj.weight, None) if self.fused_head
-                 else None)
         return beam_search(
             step_fn, carry, batch_size=N, vocab_size=self.opt["vocab_size"],
             gather_carry=_gather_self_kv, device=self.device,
             beam_size=self.beam_size, max_len=self.max_len,
-            beam_alpha=self.beam_alpha, topk=self.topk, fused_head=fused)
+            beam_alpha=self.beam_alpha, topk=self.topk,
+            fused_head=(model.cls_head.tgt_word_prj.weight, None))
 
-    def _dispatch_rnn(self, model, inputs, N: int):
-        """The RNN decode: the decoder inputs enlarged to B x beam rows, the
-        carry made from them, one ``rnn_decode_step`` and an f32
-        log-softmax a beam step, every tensor of the carry reordered with
-        the beams."""
-        inputs = auto_enlarge(inputs, self.beam_size)
-        carry = model.init_rnn_carry(inputs)
+    def _dispatch_dense(self, members, N: int):
+        """The dense step of one model or an ensemble: each member's carry
+        (a KV cache from the un-enlarged inputs, or an RNN carry from the
+        beam-enlarged ones) and each member's f32 log-probabilities (a
+        pointer model's step gives them itself), averaged over the
+        members."""
+        beam = self.beam_size
+        carries, step_inputs = [], []
+        for model, inputs in members:
+            if model.is_rnn:
+                inputs = auto_enlarge(inputs, beam)
+                carries.append(model.init_rnn_carry(inputs))
+            else:
+                carries.append(model.init_decode_state(inputs, self.max_len,
+                                                       beam))
+                # the pointer reads the retrieved captions at every beam
+                # row, as the JAX package enlarges them
+                inputs = (auto_enlarge({k: inputs[k] for k in
+                                        ("ret_text_embs", "ret_input_ids")},
+                                       beam)
+                          if model.pointer is not None else None)
+            step_inputs.append(inputs)
 
         def step_fn(tokens, position, carry):
             self.beam_steps += 1
-            logits, carry = model.rnn_decode_step(tokens, carry, inputs)
-            return torch.log_softmax(logits.float(), dim=-1), carry
+            logps, new_carry = [], []
+            for (model, _), inputs, c in zip(members, step_inputs, carry):
+                if model.is_rnn:
+                    out, c = model.rnn_decode_step(tokens, c, inputs)
+                    is_prob = False
+                else:
+                    out, c, is_prob = model.decode_step(tokens, position, c,
+                                                        inputs)
+                out = out.float()
+                logps.append(out if is_prob
+                             else torch.log_softmax(out, dim=-1))
+                new_carry.append(c)
+            logp = (logps[0] if len(logps) == 1
+                    else torch.stack(logps).mean(dim=0))
+            return logp, new_carry
+
+        def gather_carry(carry, row_idx):
+            return [_gather_carry(c, row_idx) if model.is_rnn
+                    else _gather_self_kv(c, row_idx)
+                    for (model, _), c in zip(members, carry)]
 
         return beam_search(
-            step_fn, carry, batch_size=N, vocab_size=self.opt["vocab_size"],
-            gather_carry=_gather_carry, device=self.device,
-            beam_size=self.beam_size, max_len=self.max_len,
+            step_fn, carries, batch_size=N,
+            vocab_size=self.opt["vocab_size"], gather_carry=gather_carry,
+            device=self.device, beam_size=beam, max_len=self.max_len,
             beam_alpha=self.beam_alpha, topk=self.topk)
 
     def collect(self, out) -> Tuple[List[List[List[int]]], List[List[float]]]:
@@ -425,8 +492,11 @@ class TranslatorNARFormer(Translator):
             teacher.encoding_phase(feats), batch_aux), lbs)
         pad_mask = canvas == constants.PAD
         eos_mask = canvas == constants.EOS
+        # a pointer teacher comes back with its logits, which the JAX
+        # package then takes
         fused = (opt.get("fused_head_topk", True)
-                 and isinstance(teacher.cls_head, NaiveHead))
+                 and isinstance(teacher.cls_head, NaiveHead)
+                 and teacher.pointer is None)
 
         def teacher_score(tokens, is_last):
             if (is_last and opt.get("no_candidate_decision", False)) or (
@@ -464,6 +534,7 @@ class TranslatorNARFormer(Translator):
         ``teacher``: an AR Captioner in eval mode on the same device, which
         rescores the candidates; ``vocab_mapping``: the student-id ->
         teacher-id array when their vocabularies differ."""
+        # one model (serving_model refuses several), as care_tpu decodes
         model = self.serving_model(models)
         feats = self._feats(batch)
         batch_aux = self._batch_inputs(batch)

@@ -54,6 +54,31 @@ def dense(dim_in: int, dim_out: int, generator: torch.Generator,
     return layer
 
 
+class LazyDense(nn.LazyLinear):
+    """``dense`` whose input width comes from its first call, as flax's
+    ``Dense`` takes it from its first input (or from the weights that
+    ``models/weights.py`` carries in, which fix it first). Until then its
+    parameters are uninitialized; then it becomes a ``Dense``, its weight
+    xavier-uniform from a seed drawn from ``generator`` at construction."""
+
+    cls_to_become = Dense
+
+    def __init__(self, dim_out: int, generator: torch.Generator):
+        super().__init__(dim_out)
+        self.init_seed = int(torch.randint(2 ** 62, (1,),
+                                           generator=generator))
+
+    def reset_parameters(self):
+        if self.has_uninitialized_params() or not hasattr(self, "init_seed"):
+            return
+        weight = torch.empty(self.weight.shape)
+        nn.init.xavier_uniform_(
+            weight, generator=torch.Generator().manual_seed(self.init_seed))
+        with torch.no_grad():
+            self.weight.copy_(weight)
+            self.bias.zero_()
+
+
 class CompositionalLinear(nn.Module):
     """Low-rank semantic-conditioned linear map ``A(B(sem) * C(x)) + b``
     (reference ``models/components/basic.py:4-19``), the "semantic

@@ -37,7 +37,7 @@ from torch.nn import functional as F
 
 from care_tpu_torch import constants
 from care_tpu_torch.models.common import (Dense, Dropout, LayerNorm, dense,
-                                          unsupported, xavier_param)
+                                          xavier_param)
 from care_tpu_torch.models.embeddings import Embeddings
 from care_tpu_torch.models.layers import DecoderLayer, MultiHeadAttention
 from care_tpu_torch.models.predictors import TextPostProcesser
@@ -164,7 +164,8 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, input_ids, encoder_hidden_states, semantic_embs=None,
                 semantic_hidden_states=None, preds_attr=None, category=None,
-                attr_input_ids=None, collect_aux: bool = True,
+                category_embs=None, attr_input_ids=None,
+                collect_aux: bool = True,
                 return_input_embs: bool = False,
                 **unused) -> Dict[str, Any]:
         """Full forward over ``input_ids`` [B, L]. Returns
@@ -194,7 +195,8 @@ class TransformerDecoder(nn.Module):
                         encoder_hidden_states.shape[-1])
         input_embs = self.embedding(
             input_ids, semantic_hidden_states=semantic_hidden_states,
-            category=category, additional_feats=additional_feats)
+            category=category, category_embs=category_embs,
+            additional_feats=additional_feats)
         original_input_embs = input_embs
         if self.concept_prefix:
             input_embs = torch.cat([semantic_embs, input_embs], dim=1)
@@ -250,8 +252,8 @@ class TransformerDecoder(nn.Module):
     def init_decode_state(self, batch_size: int, max_len: int,
                           encoder_hidden_states, semantic_embs=None,
                           semantic_hidden_states=None, preds_attr=None,
-                          category=None, beam_size: int = 1
-                          ) -> Dict[str, Any]:
+                          category=None, category_embs=None,
+                          beam_size: int = 1) -> Dict[str, Any]:
         """The decode cache: cross-attention (and concept-attention) K/V
         per layer + an empty self-attention K/V cache, with the concept
         prefix of the ``prefix`` / ``pp_emb`` modes prefilled.
@@ -290,14 +292,16 @@ class TransformerDecoder(nn.Module):
                 "self_v": encoder_hidden_states.new_zeros(shape)})
         state = {"layers": layers_state,
                  "aux": {"category": rep(category),
+                         "category_embs": rep(category_embs),
                          "semantic_hidden_states": rep(semantic_hidden_states),
                          "preds_attr": rep(preds_attr)}}
         if self.prefix_len:
             if self.concept_prefix:
                 x = semantic_embs
             else:
-                x = self.embedding.embed_pp_prefix(semantic_hidden_states,
-                                                   category=category)
+                x = self.embedding.embed_pp_prefix(
+                    semantic_hidden_states, category=category,
+                    category_embs=category_embs)
             p = self.prefix_len
             eye = torch.eye(p, dtype=torch.bool, device=x.device)
             diag = torch.full((p, p), NEG_INF, device=x.device).masked_fill(
@@ -327,7 +331,7 @@ class TransformerDecoder(nn.Module):
                                     else aux["semantic_hidden_states"]),
             position_ids=torch.full((token_ids.shape[0], 1), position,
                                     device=dev),
-            category=aux["category"])
+            category=aux["category"], category_embs=aux["category_embs"])
         cache_pos = position + self.prefix_len
         # visible: the prefix slots and the words up to this one
         visible = torch.arange(cache_len, device=dev) <= cache_pos
@@ -442,6 +446,47 @@ class GRUCellTorch(nn.Module):
         return (1 - z) * n + z * carry
 
 
+class OptimizedLSTMCellTorch(nn.Module):
+    """flax's ``OptimizedLSTMCell`` (the ``has_retrieval_rnn`` refiner of
+    the text stream), which is not ``torch.nn.LSTMCell``: per gate a
+    bias-free input map ``i{i,f,g,o}`` and a recurrent map ``h{i,f,g,o}``
+    with a bias, lecun-normal input and orthogonal recurrent kernels, zero
+    biases and no forget-gate offset. The carry is (c, h), as flax's."""
+
+    def __init__(self, dim_in: int, features: int,
+                 generator: torch.Generator):
+        super().__init__()
+        for gate in "ifgo":
+            inp = Dense(dim_in, features, bias=False)
+            # flax's lecun_normal: a normal truncated at 2 sigma, rescaled
+            std = (1.0 / dim_in) ** 0.5 / 0.87962566103423978
+            rec = Dense(features, features)
+            with torch.no_grad():
+                nn.init.trunc_normal_(inp.weight, std=std, a=-2 * std,
+                                      b=2 * std, generator=generator)
+                nn.init.orthogonal_(rec.weight, generator=generator)
+                rec.bias.zero_()
+            # "if" is a keyword: the maps are registered by name
+            self.add_module(f"i{gate}", inp)
+            self.add_module(f"h{gate}", rec)
+
+    def forward(self, carry, inputs):
+        c, h = carry
+        maps = [getattr(self, f"{side}{gate}") for side in "ih"
+                for gate in "ifgo"]
+        # flax promotes the operands to one dtype
+        dtype = torch.promote_types(inputs.dtype, maps[0].weight.dtype)
+        dense_i = F.linear(inputs.to(dtype), torch.cat(
+            [m.weight for m in maps[:4]]).to(dtype))
+        dense_h = F.linear(h.to(dtype),
+                           torch.cat([m.weight for m in maps[4:]]).to(dtype),
+                           torch.cat([m.bias for m in maps[4:]]).to(dtype))
+        i, f, g, o = (dense_h + dense_i).chunk(4, dim=-1)
+        new_c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        return (new_c, new_h), new_h
+
+
 def _bmm_context(probs, feats):
     """sum_l probs[b, l] * feats[b, l, :] in the promoted dtype."""
     dtype = torch.promote_types(probs.dtype, feats.dtype)
@@ -548,7 +593,11 @@ class _RNNDecoderBase(nn.Module):
                  multilevel: bool):
         super().__init__()
         if opt.get("with_category") and opt.get("use_category_embs"):
-            raise unsupported("use_category_embs", opt["use_category_embs"])
+            # care_tpu hands such a decoder ``category_embs`` and no
+            # ``category``, and its cell input then fails to concatenate
+            raise ValueError("use_category_embs is an option of the "
+                             "Transformer decoders; an RNN decoder takes the "
+                             "one-hot category")
         self.opt = opt
         D = opt["dim_hidden"]
         self.rnn_type = opt.get("rnn_type", "lstm").lower()

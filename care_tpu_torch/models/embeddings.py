@@ -11,8 +11,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from care_tpu_torch.models.common import (Dropout, LayerNorm, dense,
-                                          unsupported, xavier_param)
+from care_tpu_torch.models.common import (Dropout, LayerNorm, LazyDense,
+                                          dense, xavier_param)
 from care_tpu_torch.ops.attention import relative_position_index
 
 
@@ -113,13 +113,14 @@ class Embeddings(nn.Module):
     ``pretrained_embs_path`` reads the word table from a local ``.npy``
     file (projected by the bias-free ``w2h`` when its width is not
     ``dim_hidden``); ``with_category`` adds a row of the learned
-    ``category_embeddings`` table [num_category, D] to every token.
+    ``category_embeddings`` table [num_category, D] to every token, or with
+    ``use_category_embs`` the dataset's category vector through the
+    ``Dense`` ``category_embeddings``, whose input width is the vectors'
+    (a ``LazyDense``: flax takes it from the first batch).
     """
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        if opt.get("with_category") and opt.get("use_category_embs"):
-            raise unsupported("use_category_embs", opt["use_category_embs"])
         dim = opt["dim_hidden"]
         self.w2h = None
         if opt.get("pretrained_embs_path"):
@@ -142,7 +143,11 @@ class Embeddings(nn.Module):
                 opt["max_len"], dim, opt.get("trainable_pe", False),
                 generator)
         self.category_embeddings = None
-        if opt.get("with_category"):
+        self.use_category_embs = bool(opt.get("with_category")
+                                      and opt.get("use_category_embs"))
+        if self.use_category_embs:
+            self.category_embeddings = LazyDense(dim, generator)
+        elif opt.get("with_category"):
             self.category_embeddings = xavier_param(
                 (opt["num_category"], dim), generator)
         self.LayerNorm = None
@@ -154,24 +159,28 @@ class Embeddings(nn.Module):
         embs = F.embedding(input_ids, self.word_embeddings)
         return embs if self.w2h is None else self.w2h(embs)
 
-    def _category(self, category):
+    def _category(self, category, category_embs):
+        if self.use_category_embs:
+            cat = self.category_embeddings(category_embs)
+            return cat[:, None, :] if cat.dim() == 2 else cat
         return self.category_embeddings[category.reshape(-1)][:, None, :]
 
-    def embed_pp_prefix(self, semantic_hidden_states, category=None):
+    def embed_pp_prefix(self, semantic_hidden_states, category=None,
+                        category_embs=None):
         """The single GSG prefix token of ``pp_emb`` mode as the full
         forward embeds it (reference ``Embeddings.py:156-168``): no
         position term, + category, the shared LN; no dropout (decode
         time). Returns [B, 1, D]."""
         embeddings = semantic_hidden_states[:, None, :]
         if self.category_embeddings is not None:
-            embeddings = embeddings + self._category(category)
+            embeddings = embeddings + self._category(category, category_embs)
         if self.LayerNorm is not None:
             embeddings = self.LayerNorm(embeddings)
         return embeddings
 
     def forward(self, input_ids, semantic_hidden_states=None,
-                position_ids=None, category=None, additional_feats=None,
-                only_word_and_position: bool = False):
+                position_ids=None, category=None, category_embs=None,
+                additional_feats=None, only_word_and_position: bool = False):
         embeddings = self.embed_tokens(input_ids)
         if self.position_embeddings is not None:
             if position_ids is None:
@@ -187,7 +196,8 @@ class Embeddings(nn.Module):
                 embeddings = torch.cat([semantic_hidden_states[:, None, :],
                                         embeddings], dim=1)
             if self.category_embeddings is not None:
-                embeddings = embeddings + self._category(category)
+                embeddings = embeddings + self._category(category,
+                                                         category_embs)
             if additional_feats is not None:
                 embeddings = embeddings + additional_feats
             if (self.semantic_flag and not self.prefix_flag

@@ -1,16 +1,20 @@
-"""The Captioner: encoder -> concept predictor -> decoder -> vocab head.
+"""The Captioner: encoder -> concept predictor -> decoder -> vocab head
+(-> pointer).
 
 Port of ``care_tpu/models/framework.py`` (reference ``models/Framework.py``):
 ``encoding_phase`` runs the encoder and the predictor and merges the
 predictor's outputs (with the ``preds_length`` of NAR decoding) into the
 decoder inputs (the LSG ``concat`` mode appends the concept-slot
 embeddings to the encoder states); ``decoding_phase`` runs
-the decoder and the head; ``init_decode_state`` / ``decode_step`` drive the
-KV-cached decode. The retrieved-text stream ``t`` is embedded by
-``TextEmbedder`` (its own embeddings, or the decoder's word and position
-embeddings). Submodules are named after the JAX package's parameter tree
-(``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``, ...),
-which ``models/weights.py`` relies on.
+the decoder, the head and the pointer; ``init_decode_state`` /
+``decode_step`` drive the KV-cached decode. The retrieved-text stream
+``t`` (token ids [B, R, L]) is embedded by ``TextEmbedder`` (its own
+embeddings, or the decoder's word and position embeddings; with
+``has_retrieval_rnn`` refined by a bidirectional LSTM) and reaches the
+PointerGen copy head (``models/pointer.py``) as ``ret_text_embs`` /
+``ret_input_ids``. Submodules are named after the JAX package's parameter
+tree (``encoder.Encoder_A.linear``, ``decoder.layer_0.inter_attention``,
+``pointer.Wq``, ...), which ``models/weights.py`` relies on.
 
 With an RNN decoder (``is_rnn``) the decoding phase is the decoder's time
 loop (teacher forcing, or scheduled sampling at ``schedule_sampling_prob``
@@ -23,11 +27,13 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import unsupported
-from care_tpu_torch.models.decoders import get_decoder, is_rnn_decoder
+from care_tpu_torch.models.common import Dropout, LayerNorm, unsupported
+from care_tpu_torch.models.decoders import (OptimizedLSTMCellTorch,
+                                            get_decoder, is_rnn_decoder)
 from care_tpu_torch.models.embeddings import NaiveEmbeddings
 from care_tpu_torch.models.encoders import get_encoder
 from care_tpu_torch.models.heads import get_cls_head
+from care_tpu_torch.models.pointer import get_pointer
 from care_tpu_torch.models.predictors import Predictor, has_predictor
 from care_tpu_torch.utils.device import resolve_device
 
@@ -37,7 +43,8 @@ def input_keys_for_decoder(opt: dict) -> List[str]:
     inputs (reference ``Framework.py:20-40``)."""
     keys = ["encoder_hidden_states"]
     if opt.get("with_category", False):
-        keys.append("category")
+        keys.append("category_embs" if opt.get("use_category_embs", False)
+                    else "category")
     t = opt.get("use_attr_type") or ""
     if opt.get("use_attr", False) and ("prefix" in t or "att" in t.lower()):
         keys.append("semantic_embs")
@@ -46,32 +53,65 @@ def input_keys_for_decoder(opt: dict) -> List[str]:
     if (opt.get("compositional_intra") or opt.get("compositional_inter")
             or opt.get("compositional_ffn")):
         keys.append("preds_attr")
+    if opt.get("pointer"):
+        keys += ["ret_text_embs", "ret_input_ids"]
     return keys
 
 
 def _check_opt(opt: dict) -> None:
-    for key in ("with_backbones", "pointer", "retrieval",
-                "has_retrieval_rnn"):
-        if opt.get(key):
-            raise unsupported(key, opt[key])
+    if opt.get("with_backbones"):
+        raise unsupported("with_backbones", opt["with_backbones"])
+
+
+class FlaxRNN(nn.Module):
+    """flax's ``nn.RNN`` over [N, L, D] with a zero initial carry: the
+    ``cell`` steps along the time axis, from the end with ``reverse`` (the
+    outputs kept in input order, flax's ``keep_order``). No sequence
+    lengths: the cell runs over the PAD tail too, as in ``care_tpu``."""
+
+    def __init__(self, cell: nn.Module, features: int, reverse: bool = False):
+        super().__init__()
+        self.cell = cell
+        self.features = features
+        self.reverse = reverse
+
+    def forward(self, x):
+        zeros = x.new_zeros(x.shape[0], self.features)
+        carry, outs = (zeros, zeros), []
+        steps = range(x.shape[1])
+        for t in (reversed(steps) if self.reverse else steps):
+            carry, y = self.cell(carry, x[:, t])
+            outs.append(y)
+        if self.reverse:
+            outs.reverse()
+        return torch.stack(outs, dim=1)
 
 
 class TextEmbedder(nn.Module):
     """Embeds the retrieved-caption token ids of the ``t`` stream
     [B, n_retrieval, L] (reference ``models/Encoder.py:341-376``): with
     ``has_retrieval_embs`` its own ``embs``, else the decoder's word and
-    position embeddings."""
+    position embeddings; with ``has_retrieval_rnn`` then the mean of a
+    forward and a reverse LSTM (flax's ``OptimizedLSTMCell``), a LayerNorm
+    and dropout 0.5."""
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
+        D = opt["dim_hidden"]
         self.embs = None
         if opt.get("has_retrieval_embs", False):
             self.embs = NaiveEmbeddings(
                 n_words=opt["vocab_size"], n_positions=opt["max_len"],
-                dim_hidden=opt["dim_hidden"],
-                layer_norm_eps=opt["layer_norm_eps"],
+                dim_hidden=D, layer_norm_eps=opt["layer_norm_eps"],
                 hidden_dropout_prob=opt["hidden_dropout_prob"],
                 generator=generator, zero_pad_row=True)
+        self.rnn_fwd = self.rnn_bwd = None
+        if opt.get("has_retrieval_rnn", False):
+            self.rnn_fwd = FlaxRNN(OptimizedLSTMCellTorch(D, D, generator), D)
+            self.rnn_bwd = FlaxRNN(OptimizedLSTMCellTorch(D, D, generator), D,
+                                   reverse=True)
+            self.LayerNorm = LayerNorm(D, eps=opt["layer_norm_eps"])
+            self.rnn_dropout = Dropout(0.5)
 
     def forward(self, input_ids, embeddings_module=None):
         if input_ids.dim() != 3:
@@ -83,11 +123,14 @@ class TextEmbedder(nn.Module):
             embs = self.embs(flat)
         else:
             embs = embeddings_module(flat, only_word_and_position=True)
+        if self.rnn_fwd is not None:
+            embs = (self.rnn_fwd(embs) + self.rnn_bwd(embs)) / 2
+            embs = self.rnn_dropout(self.LayerNorm(embs))
         return embs.reshape(bsz, n_retrieval, max_len, -1)
 
 
 class Captioner(nn.Module):
-    """One module owning encoder / predictor / decoder / head."""
+    """One module owning encoder / predictor / decoder / head / pointer."""
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
@@ -98,6 +141,7 @@ class Captioner(nn.Module):
                           else None)
         self.decoder = get_decoder(opt, generator)
         self.cls_head = get_cls_head(opt, generator)
+        self.pointer = get_pointer(opt, generator)
         self.text_embedder = (TextEmbedder(opt, generator)
                               if "t" in opt["modality"] else None)
         self.decoder_input_keys = input_keys_for_decoder(opt)
@@ -166,8 +210,11 @@ class Captioner(nn.Module):
         ``ops/fused_xent.py``, and the fused statistics of NAR decoding)
         skips the vocab projection: the caller takes its statistics from
         ``hidden_states`` and the head's weight, so the ``[B, L, V]``
-        logits never exist. Given the two-stage decoder's list of hidden
-        states, ``logits`` is the list of each pass's logits.
+        logits never exist; a pointer model computes its logits all the
+        same, since its ``probs`` need them (as in the JAX package). Given
+        the two-stage decoder's list of hidden states, ``logits`` is the
+        list of each pass's logits. The pointer then adds ``probs``, which
+        replace the softmax of the logits downstream.
         ``collect_aux`` adds the decoder's aux entries (attention
         probabilities, contexts, embeddings) that the decoder-side concept
         losses read. An RNN decoder computes its logits whatever
@@ -182,7 +229,8 @@ class Captioner(nn.Module):
         outputs = self.decoder(input_ids, collect_aux=collect_aux,
                                attr_input_ids=attr_input_ids,
                                **inputs_for_decoder)
-        if not compute_logits and not last_time_step_logits:
+        if (not compute_logits and not last_time_step_logits
+                and self.pointer is None):
             # the two-stage decoder's hidden_states is a list of passes;
             # the callers take the last entry
             return outputs
@@ -195,6 +243,10 @@ class Captioner(nn.Module):
             outputs["logits"] = [self.cls_head(h) for h in hidden_states]
         else:
             outputs["logits"] = self.cls_head(hidden_states)
+        if self.pointer is not None:
+            outputs.update(self.pointer(
+                **{**inputs_for_decoder, **outputs},
+                last_time_step_logits=last_time_step_logits))
         return outputs
 
     def _rnn_decoding_phase(self, input_ids, inputs_for_decoder,
@@ -247,7 +299,8 @@ class Captioner(nn.Module):
             beam_size=beam_size, encoder_hidden_states=enc,
             semantic_embs=get("semantic_embs"),
             semantic_hidden_states=get("semantic_hidden_states"),
-            preds_attr=get("preds_attr"), category=get("category"))
+            preds_attr=get("preds_attr"), category=get("category"),
+            category_embs=get("category_embs"))
 
     def decode_step_hidden(self, token_ids, position: int, state):
         """One AR step returning the decoder hidden states [B, H] before the
@@ -255,10 +308,22 @@ class Captioner(nn.Module):
         projection itself, so the [B, V] logits are never formed."""
         return self.decoder.decode_step(token_ids, position, state)
 
-    def decode_step(self, token_ids, position: int, state):
-        """One AR step: returns (logits [B, V], state)."""
+    def decode_step(self, token_ids, position: int, state,
+                    inputs_for_decoder: Dict[str, Any] = None):
+        """One AR step: returns (out [B, V], state, is_prob). A pointer
+        model given its (beam-enlarged) ``inputs_for_decoder`` returns
+        ``log(probs + 1e-9)`` and ``is_prob`` True; otherwise ``out`` is
+        the logits and ``is_prob`` False."""
         h, state = self.decoder.decode_step(token_ids, position, state)
-        return self.cls_head(h), state
+        logits = self.cls_head(h)
+        if self.pointer is None or inputs_for_decoder is None:
+            return logits, state, False
+        probs = self.pointer(
+            hidden_states=h[:, None, :],
+            ret_text_embs=inputs_for_decoder["ret_text_embs"],
+            ret_input_ids=inputs_for_decoder["ret_input_ids"],
+            logits=logits[:, None, :])["probs"][:, 0, :]
+        return torch.log(probs + 1e-9), state, True
 
     # ------------------------------------------------------------------
     # RNN decoding

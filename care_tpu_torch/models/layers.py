@@ -49,7 +49,9 @@ class MultiHeadAttention(nn.Module):
     and value inputs (the ``channel_concat`` fusion's concatenated
     streams). ``compositional`` makes every projection a
     ``CompositionalLinear`` of the input and the concept distribution
-    ``preds_attr``.
+    ``preds_attr``. ``projections_only`` builds the query, key and value
+    projections alone (no output dense, no LN): the pointer's attention,
+    which flax builds from ``project_q`` / ``project_kv`` calls only.
     """
 
     def __init__(self, dim_hidden: int, num_attention_heads: int,
@@ -64,7 +66,7 @@ class MultiHeadAttention(nn.Module):
                  dim_key: int = None, dim_value: int = None,
                  has_ln: bool = True, skip_connection: bool = True,
                  compositional: bool = False, dim_semantic: int = 500,
-                 dim_factor_scale: int = 2):
+                 dim_factor_scale: int = 2, projections_only: bool = False):
         super().__init__()
         self.num_attention_heads = num_attention_heads
         self.pre_ln = pre_ln
@@ -86,7 +88,8 @@ class MultiHeadAttention(nn.Module):
             self.key = dense(dims_in[1], dim_hidden, generator, bias=use_bias)
             self.value = dense(dims_in[2], dim_hidden, generator,
                                bias=use_bias)
-            self.dense = dense(dim_hidden, dim_hidden, generator)
+            self.dense = (None if projections_only
+                          else dense(dim_hidden, dim_hidden, generator))
         self.rpe = None
         if have_relative_position_bias:
             if max_relative_position is None:
@@ -100,7 +103,7 @@ class MultiHeadAttention(nn.Module):
         else:
             self.hybrid_bias = None
         self.LayerNorm = (LayerNorm(dim_hidden, eps=layer_norm_eps)
-                          if has_ln else None)
+                          if has_ln and not projections_only else None)
         self.attn_dropout = Dropout(attention_probs_dropout_prob)
         self.out_dropout = Dropout(hidden_dropout_prob)
 

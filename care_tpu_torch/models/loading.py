@@ -10,7 +10,7 @@ teacher's parameters of matching shape into a fresh student and remaps the
 vocabulary rows of the word embeddings and the head through the id
 mapping). It reads the port's own checkpoints (``training/checkpoints.py``:
 the variables under the flax tree's names and the ``.json`` side-car's
-opt). Ensembles of several checkpoints are not ported yet and raise.
+opt). Several checkpoints load as an ensemble (``models/ensemble.py``).
 """
 
 import os
@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from care_tpu_torch import constants
-from care_tpu_torch.models.common import unsupported
+from care_tpu_torch.models.ensemble import EnsembleSpec
 from care_tpu_torch.models.framework import build_captioner
 from care_tpu_torch.models.weights import (batch_norm_modules, flat_leaves,
                                            jax_leaf_key, variables_from_jax,
@@ -100,34 +100,43 @@ def load_model(checkpoint_path, new_opt_used_to_override: dict = None,
                do_replace_paths: bool = True,
                base_data_path: Optional[str] = None,
                return_spec: bool = False, strict: bool = True, device=None):
-    """Load one checkpoint of the port.
+    """Load one checkpoint of the port, or several (an ensemble).
 
-    Returns (models, opt): ``models`` is a one-element list of the
-    ``Captioner`` in eval mode on ``device`` (None = the CUDA card; raises
-    without one unless ``"cpu"``), what ``get_translator(opt)`` serves. With
-    ``return_spec`` a third value, the ensemble spec, is None. With
-    ``strict`` the weights load strictly: a missing, unused or misshapen
-    parameter raises; without it a parameter the checkpoint lacks keeps
-    its fresh init and a leaf the model does not take is dropped, both
-    named (``_restore_into_template``).
+    Returns (models, opt): ``models`` is the list of the ``Captioner``s in
+    eval mode on ``device`` (None = the CUDA card; raises without one
+    unless ``"cpu"``), what ``get_translator(opt)`` serves. With several
+    paths ``opt`` is the first model's options with the union of the
+    modalities (``models/ensemble.py``), and ``return_spec`` returns the
+    ``EnsembleSpec`` as a third value, whose ``split_feats`` gives each
+    model its own features of a batch read with the union (None for one
+    model). With ``strict`` the weights load strictly: a missing, unused
+    or misshapen parameter raises; without it a parameter the checkpoint
+    lacks keeps its fresh init and a leaf the model does not take is
+    dropped, both named (``_restore_into_template``).
     """
     paths = (checkpoint_path if isinstance(checkpoint_path, (list, tuple))
              else [checkpoint_path])
-    if len(paths) > 1:
-        raise unsupported("ensembles of several models")
-    variables, opt, _ = load_checkpoint(paths[0])
-    if new_opt_used_to_override:
-        opt = {**opt, **new_opt_used_to_override}
-    if do_replace_paths and opt.get("info_corpus"):
-        opt = replace_paths(opt, base_data_path)
-    model = build_captioner(opt, device=device)
-    if not strict:
-        variables = _restore_into_template(model, opt, variables,
-                                           strict=False)
-    variables_from_jax(model, variables)
-    models = [model]
+    models, all_opts = [], []
+    for path in paths:
+        variables, opt, _ = load_checkpoint(path)
+        if new_opt_used_to_override:
+            opt = {**opt, **new_opt_used_to_override}
+        if do_replace_paths and opt.get("info_corpus"):
+            opt = replace_paths(opt, base_data_path)
+        model = build_captioner(opt, device=device)
+        if not strict:
+            variables = _restore_into_template(model, opt, variables,
+                                               strict=False)
+        variables_from_jax(model, variables)
+        models.append(model)
+        all_opts.append(opt)
+    spec, opt = None, all_opts[0]
+    if len(all_opts) > 1:
+        spec = EnsembleSpec(all_opts)
+        opt = {**all_opts[0],
+               **{k: v for k, v in spec.opt.items() if v is not None}}
     if return_spec:
-        return models, opt, None
+        return models, opt, spec
     return models, opt
 
 

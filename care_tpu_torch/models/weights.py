@@ -61,6 +61,8 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
             value = np.array(leaves[key], dtype=np.float32)
             if transpose:
                 value = np.ascontiguousarray(value.T)
+            if isinstance(param, nn.parameter.UninitializedParameter):
+                _fix_lazy_width(model, name, value)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: port shape {tuple(param.shape)} "
                                  f"!= JAX shape {tuple(value.shape)}")
@@ -72,12 +74,26 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
     return model
 
 
+def _fix_lazy_width(model: nn.Module, name: str, value) -> None:
+    """Give the lazy ``Linear`` that holds ``name`` its input width from
+    the carried weight ``value`` (``[out, in]``), as its first call would:
+    its parameters become ordinary ones of that width."""
+    module = model.get_submodule(name.rsplit(".", 1)[0])
+    if not isinstance(module, nn.LazyLinear) or value.ndim != 2:
+        raise ValueError(f"{name} is uninitialized and takes no width from "
+                         f"a JAX leaf of shape {value.shape}")
+    module.initialize_parameters(torch.empty(0, value.shape[1]))
+
+
 def _to_jax_tree(model: nn.Module, pick) -> dict:
     tree: dict = {}
     for name, param in model.named_parameters():
         key, transpose = jax_leaf_key(model, name)
         if not key[:-1]:
             raise KeyError(f"port parameter {name} has no flax name")
+        if isinstance(param, nn.parameter.UninitializedParameter):
+            raise ValueError(f"{name} has no width yet: its lazy layer "
+                             f"takes it from its first call")
         tensor = pick(name, param)
         value = tensor.detach().to("cpu", torch.float32).numpy().copy()
         node = tree

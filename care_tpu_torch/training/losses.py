@@ -2,7 +2,9 @@
 
 Port of ``care_tpu/training/losses.py`` (reference ``misc/Crit/``):
 
-* the language NLL with label smoothing on log-softmax, the stripping of
+* the language NLL with label smoothing on log-softmax (or, for a
+  pointer model, on ``log(probs + 1e-6)`` of its copy-mixed ``probs``:
+  1e-6 here, where the decode step takes 1e-9), the stripping of
   the G-LSG concept-prefix positions, and the word-accuracy and perplexity
   recorders, dense (``_lang_step``) or from the fused statistics of
   ``ops/fused_xent.py`` (``_lang_step_fused``);
@@ -20,8 +22,7 @@ Port of ``care_tpu/training/losses.py`` (reference ``misc/Crit/``):
 * the ``Criterion`` aggregator with named scales.
 
 Every value is a tensor on the model's device; the trainer fetches them
-once per epoch. Pointer ``probs`` are not ported yet and raise
-``NotImplementedError``.
+once per epoch.
 """
 
 from typing import Any, Dict, List, Optional, Tuple
@@ -29,7 +30,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from care_tpu_torch import constants
-from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.ops.fused_xent import vocab_xent_stats
 from care_tpu_torch.models.predictors import prepare_merged_probs
 from care_tpu_torch.ops.topk import top_k
@@ -88,10 +88,15 @@ def _lang_reduce(opt, nll, smooth, preds, labels):
     return (loss * mask).sum(), metrics
 
 
-def _lang_step(opt, logits, labels):
-    """One (logits, labels) pair -> (sum-loss, metrics)."""
-    logits = _strip_positions(opt, logits, labels)
-    logprobs = torch.log_softmax(logits.float(), dim=-1)
+def _lang_step(opt, logits, labels, probs=None):
+    """One (logits, labels) pair -> (sum-loss, metrics); given a pointer's
+    ``probs`` they replace the softmax of the logits."""
+    if probs is not None:
+        logprobs = torch.log(_strip_positions(opt, probs, labels).float()
+                             + 1e-6)
+    else:
+        logits = _strip_positions(opt, logits, labels)
+        logprobs = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logprobs, 2, labels[:, :, None])[:, :, 0]
     smooth = -logprobs.mean(dim=-1)
     return _lang_reduce(opt, nll, smooth, logprobs.argmax(dim=-1), labels)
@@ -116,9 +121,8 @@ def lang_loss(opt, results) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     ``visual_word_generation`` the passes weigh by ``nv_weights``, the
     perplexity counts the caption passes only, and ``word_acc0`` (the
     visual-word pass) leaves the MASK targets out (reference
-    ``crit_lang.py:75-78``)."""
-    if results.get("probs") is not None:
-        raise unsupported("probs (pointer copy probabilities)")
+    ``crit_lang.py:75-78``). A pointer model's ``probs`` replace the
+    last pass's softmax (a pointer model has one pass)."""
     labels = _as_list(results["labels"])
 
     if results.get("logits") is None and "cls_head_kernel" in results:
@@ -144,8 +148,10 @@ def lang_loss(opt, results) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     denom = logits[0].shape[0]
     total = 0.0
     metrics: Dict[str, torch.Tensor] = {}
+    probs = results.get("probs")
     for i, (w, lg, lb) in enumerate(zip(weights, logits, labels)):
-        s, m = _lang_step(opt, lg, lb)
+        s, m = _lang_step(opt, lg, lb,
+                          probs if i == len(logits) - 1 else None)
         total = total + w * s / denom
         metrics[f"word_acc_num{i}"] = m["word_acc_num"]
         metrics[f"word_acc_den{i}"] = m["word_acc_den"]

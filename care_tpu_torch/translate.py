@@ -18,7 +18,14 @@ candidates:
     python -m care_tpu_torch.translate -cp exps/NACF/best.ckpt \
         --teacher_path exps/ARB/best.ckpt -paradigm mp
 
-Several checkpoints (an ensemble) are not ported yet and raise.
+Several checkpoints decode as an ensemble (their log-probabilities averaged
+at each beam step); checkpoints of different modalities read the union of
+the modalities and each gets its own share of every batch:
+
+    python -m care_tpu_torch.translate -cp exps/a/best.ckpt exps/b/best.ckpt
+
+``--retrieval_db_ratio`` / ``--retrieval_datasets`` swap the retrieval
+database a CARE or PointerGen model reads (``feats_r``, ``feats_t``).
 """
 
 import argparse
@@ -28,8 +35,6 @@ import time
 
 import numpy as np
 import torch
-
-from care_tpu_torch.models.common import unsupported
 
 # decode overrides of the NAR translator
 NAR_OVERRIDES = ("iterations", "length_beam_size", "q", "q_iterations",
@@ -100,8 +105,6 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
     from care_tpu_torch.metrics import COCOScorer
     from care_tpu_torch.utils.logger import to_sentence
 
-    if ensemble_spec is not None:
-        raise unsupported("ensembles of several models")
     translator = get_translator(opt, device)
     tkw = teacher_kwargs or {}
     preds = {}
@@ -112,10 +115,18 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
     except TypeError:
         pass
 
+    def put(x):
+        # f32 features (the translator casts them to its serving dtype);
+        # the retrieved captions' token ids stay integers
+        t = torch.as_tensor(np.asarray(x))
+        return t.to(translator.device, torch.float32
+                    if t.is_floating_point() else torch.long)
+
     def to_device(batch):
-        b = {"feats": [torch.as_tensor(np.asarray(f), dtype=torch.float32,
-                                       device=translator.device)
-                       for f in batch["feats"]]}
+        feats = [put(f) for f in batch["feats"]]
+        if ensemble_spec is not None:
+            feats = ensemble_spec.split_feats(feats)
+        b = {"feats": feats}
         for k in ("category", "category_embs"):
             if k in batch and isinstance(batch[k], np.ndarray):
                 b[k] = torch.as_tensor(batch[k], device=translator.device)
@@ -184,14 +195,13 @@ def main(argv=None):
     args = parse_args(argv)
     device = resolve_device(args.device)
     paths = args.checkpoint_paths
-    if len(paths) > 1:
-        raise unsupported("ensembles of several models")
     decode_overrides = {k: getattr(args, k) for k in
                         ("beam_size", "beam_alpha") + NAR_OVERRIDES
                         + ("teacher_path", "topk")
                         if getattr(args, k) is not None}
     models, opt, ensemble_spec = load_model(
-        paths[0], new_opt_used_to_override=decode_overrides,
+        paths if len(paths) > 1 else paths[0],
+        new_opt_used_to_override=decode_overrides,
         base_data_path=args.base_data_path or None, return_spec=True,
         device=device)
     opt = modify_opt_if_necessary(opt, args.retrieval_datasets,

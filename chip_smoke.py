@@ -120,6 +120,27 @@ before the last line:
    fused cross-entropy. The SALSTM batch is profiled, and SALSTM is served
    in bf16 beside f32 (decode-step log-probs within 2% of the step's
    largest |log-prob|).
+7g. pointer: PointerGen Base and PointerGen CARE on MSRVTT
+   (``scripts/exp_versatility_of_CARE.sh:70, :74``) at full width, 20
+   retrieved captions of 30 token ids a video (``exclude_eos``; half the
+   words from 20 frequent ids, so ids repeat): each trains 2 epochs of 2
+   batches of 64 with dropout on, then again from the same seed (losses
+   equal, parameter gap exactly 0.0: the copy scatter repeats bit for
+   bit), the peak of allocated memory and ms a step printed; the pointer
+   of one beam step is timed alone at the serving shape; ``_serve``
+   decodes one batch of 64 and the ragged 17 through the dense pointer
+   step (scores re-checked by teacher forcing on the pointer's
+   probabilities), the batch of 64 profiled with the pointer's share of
+   device time; no kernel launches, as ``care_tpu`` keeps pointer models
+   off K1, the fused cross-entropy and flash attention.
+7h. ensemble: PointerGen CARE with itself decodes what it decodes alone
+   (``==``); the heterogeneous ensemble of the flagship (``amir``) and
+   PointerGen CARE (``amirt``) decodes 3 batches of 64 and the ragged 17,
+   features split from the union by ``EnsembleSpec``, batch by batch and
+   grouped (fused-K 4) with equal results, caps/s of each; then
+   ``care_tpu_torch.translate.main -cp a b`` on the two checkpoints the
+   phase writes, over a synthetic dataset with a retrieval database. No
+   kernel launches.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -664,10 +685,28 @@ def _check_flash() -> dict:
 # serving the flagship
 # ---------------------------------------------------------------------------
 
+def _retrieved_ids(opt, n, seed):
+    """The ``t`` stream: ``retrieval_topk`` retrieved captions of
+    ``max_len`` token ids a video, half of the words from 20 frequent ids
+    (captions share their common words, so ids repeat within and across
+    retrievals), PAD after a length of 8 to ``max_len`` (no EOS:
+    ``exclude_eos``)."""
+    rs = np.random.RandomState(seed)
+    shape = (n, opt["retrieval_topk"], opt["max_len"])
+    ids = np.where(rs.rand(*shape) < 0.5, rs.randint(6, 26, shape),
+                   rs.randint(6, opt["vocab_size"], shape))
+    lengths = rs.randint(8, opt["max_len"] + 1, shape[:2])
+    ids[np.arange(opt["max_len"]) >= lengths[..., None]] = constants.PAD
+    return ids.astype(np.int64)
+
+
 def _synthetic_feats(opt, n, seed):
     rs = np.random.RandomState(seed)
     feats = []
     for char in opt["modality"]:
+        if char == "t":
+            feats.append(_retrieved_ids(opt, n, seed + 7))
+            continue
         if char == "m" and opt["feats"] == "SwinBERTDense":
             # the dense motion stream is loaded whole: 1568 patches a video
             feats.append(np.random.default_rng(seed).standard_normal(
@@ -682,11 +721,12 @@ def _synthetic_feats(opt, n, seed):
 def _teacher_forced_scores(model, opt, feats, hyps, dtype=torch.float32):
     """Σ log p(token) / len**alpha of each hypothesis from the full forward
     of ``model`` on the features in ``dtype`` (the served model and its
-    feature dtype). Filler after a hypothesis is EOS, not PAD: causal
+    feature dtype; token ids stay integers). Filler after a hypothesis is EOS, not PAD: causal
     attention keeps the filler out of earlier positions, while a PAD input
     would be masked."""
     dev = next(model.parameters()).device
-    tf = [torch.as_tensor(f, device=dev).to(dtype) for f in feats]
+    tf = [torch.as_tensor(f, device=dev) for f in feats]
+    tf = [t.to(dtype) if t.is_floating_point() else t for t in tf]
     inputs = model.prepare_inputs_for_decoder(model.encoding_phase(tf), {})
     L = max(len(h[0]) for h in hyps)
     ids = torch.full((len(hyps), L), constants.EOS, dtype=torch.long)
@@ -698,8 +738,10 @@ def _teacher_forced_scores(model, opt, feats, hyps, dtype=torch.float32):
         # a generated PAD token as decoder input is masked by the full
         # forward but not by the KV-cached step; such rows are not compared
         usable.append(constants.PAD not in toks[:-1])
-    logp = torch.log_softmax(
-        model.decoding_phase(ids.to(dev), inputs)["logits"].float(), dim=-1)
+    out = model.decoding_phase(ids.to(dev), inputs)
+    # a pointer model scores by its copy-mixed probabilities, as its step
+    logp = (torch.log(out["probs"].float() + 1e-9) if "probs" in out
+            else torch.log_softmax(out["logits"].float(), dim=-1))
     scores = []
     for n, h in enumerate(hyps):
         toks = torch.as_tensor(h[0], device=dev)
@@ -735,14 +777,16 @@ SCORE_TOL, SCORE_TOL_BF16 = 1e-3, 3e-3
 
 
 def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
-           bf16_kernels=()) -> dict:
+           bf16_kernels=(), profile_ranges=()) -> dict:
     """Caption synthetic batches of the given sizes through
     ``get_translator(opt).translate_batch`` with the launch counts set to 0
     just before and read just after; hold the counts against the beam steps
     (``bf16_kernels``: the kernels whose every launch must be bf16, the
     others' none) and every score against teacher forcing through the full
     forward of the served model (the dense attention). Returns the launch
-    counts, caps/s, ms per beam step and the first hypotheses."""
+    counts, caps/s, ms per beam step and the first hypotheses.
+    ``profile_ranges``: modules whose share of the profiled batch's device
+    time to print (``_profile``)."""
     t0 = time.perf_counter()
     model = build_captioner(opt, seed=SEED)
     translator = get_translator(opt)
@@ -834,13 +878,16 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
               f"({n_bytes / 1e6:.1f} MB of pageable numpy{cast}): "
               f"{1e3 * copy_s:.3f} ms ({n_bytes / copy_s / 1e9:.2f} GB/s), "
               f"{100 * copy_s / seconds[0]:.1f}% of the batch's wall time")
-    if profile_kernels:
-        _profile(f"{label}, batch {BATCH}",
-                 lambda: translator.translate_batch(model,
-                                                    {"feats": batches[0]}),
-                 seconds[0], profile_kernels, steps=steps // len(batches))
+    profiled = None
+    if profile_kernels or profile_ranges:
+        profiled = _profile(
+            f"{label}, batch {BATCH}",
+            lambda: translator.translate_batch(model, {"feats": batches[0]}),
+            seconds[0], profile_kernels, steps=steps // len(batches),
+            ranges=profile_ranges)
     return {"counts": counts, "caps": caps, "step_ms": step_ms,
-            "first": [h[0] for r in results for h in r[0]]}
+            "first": [h[0] for r in results for h in r[0]],
+            "profile": profiled}
 
 
 def _half(opt, head_f32=False) -> dict:
@@ -929,32 +976,62 @@ def phase_flash_gradient() -> dict:
                                    "flash_attention_bwd_dkv")}
 
 
-def _profile(label, run, unprofiled_seconds, kernel_names, steps=None):
+def _profile(label, run, unprofiled_seconds, kernel_names, steps=None,
+             ranges=()):
     """``run`` once more under torch.profiler: the device time by kernel,
     and the device's busy share of the same work's unprofiled wall time
     (the profiler slows the host, not the device). ``steps``: the beam
-    steps of the run, for the device operations per step."""
+    steps of the run, for the device operations per step. ``ranges``:
+    (name, module class) pairs; each class's ``forward`` runs inside a
+    ``record_function`` of that name for the profile, and the range's
+    device time is printed as a share. Returns the busy ms and the ranges'
+    device ms (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def traced(name, forward):
+        def wrapper(*args, **kwargs):
+            with record_function(name):
+                return forward(*args, **kwargs)
+        return wrapper
+
+    originals = [(cls, cls.forward) for _, cls in ranges]
+    for (name, cls), (_, forward) in zip(ranges, originals):
+        cls.forward = traced(name, forward)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        for cls, forward in originals:
+            cls.forward = forward
     # device-side events are kernels and copies, plus the device-track
-    # copy of the optimizer's host annotation (``Optimizer.step#Adam.step``),
-    # which spans kernels already counted
+    # copies of the optimizer's host annotation (``Optimizer.step#Adam.step``)
+    # and of each range, which span kernels already counted
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("Optimizer.")]
+               and not e.key.startswith("Optimizer.")
+               and e.key not in dict(ranges)]
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("profile: the profiler saw no device time: not measured")
-        return
+        return None, None
     shares = []
     for name in kernel_names:
         us = sum(e.self_device_time_total for e in kernels
                  if any(k in e.key for k in DEVICE_KERNELS[name]))
         shares.append(f"{name} {100 * us / busy_us:.1f}%")
+    range_ms = {}
+    for name, _ in ranges:
+        # a range's device time: the kernels launched inside it, which its
+        # host event sums
+        events = [e for e in prof.key_averages() if e.key == name
+                  and e.device_type == DeviceType.CPU]
+        us = sum(e.device_time_total for e in events)
+        range_ms[name] = us / 1e3
+        shares.append(f"{name} {100 * us / busy_us:.1f}% ({us / 1e3:.3f} ms "
+                      f"in {sum(e.count for e in events)} calls)")
     print(f"profile: {label}: device busy "
           f"{busy_us / 1e3:.3f} ms of {1e3 * unprofiled_seconds:.3f} ms wall "
           f"({100 * busy_us / 1e6 / unprofiled_seconds:.1f}% busy); "
@@ -966,6 +1043,7 @@ def _profile(label, run, unprofiled_seconds, kernel_names, steps=None):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x {e.key[:90]}")
+    return busy_us / 1e3, range_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1582,6 +1660,251 @@ def phase_rnn(scratch) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# PointerGen: the copy head over the retrieved captions
+# ---------------------------------------------------------------------------
+
+POINTER_EPOCHS, POINTER_BATCHES = 2, 2
+# (label, the command's flags, where the paper runs it)
+POINTER = [
+    ("PointerGen Base", dict(VERSATILITY_MSRVTT, method="PointerGen",
+                             task="Base"),
+     "scripts/exp_versatility_of_CARE.sh:70"),
+    ("PointerGen CARE", dict(VERSATILITY_MSRVTT, method="PointerGen",
+                             task="CARE"),
+     "scripts/exp_versatility_of_CARE.sh:74"),
+]
+
+
+def _pointer_fit(opt, scratch, name, seed):
+    """``Trainer.fit`` of ``POINTER_EPOCHS`` epochs of ``POINTER_BATCHES``
+    synthetic batches of 64, dropout on, with the launch counts set to 0
+    just before and read just after. Returns (trainer, counts, seconds,
+    the peak of allocated device memory)."""
+    loader = SyntheticLoader(opt, POINTER_BATCHES, BATCH, seed)
+    trainer = Trainer(dict(opt, epochs=POINTER_EPOCHS,
+                           checkpoint_path=os.path.join(scratch, name)),
+                      loader)
+    trainer.init_model()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    return (trainer, _launch_counts(), time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated())
+
+
+@torch.no_grad()
+def _time_pointer_step(opt, model) -> tuple:
+    """The pointer of one beam step alone at the serving shape (batch 64 x
+    beam 5 rows, the retrieved captions enlarged to them, as the decode
+    step gives them), warm calls between CUDA events: (ms, the GFLOP of
+    its K/V projection, its bytes of enlarged embeddings)."""
+    rows = BATCH * opt["beam_size"]
+    R, S, H, V = (opt["retrieval_topk"], opt["max_len"], opt["dim_hidden"],
+                  opt["vocab_size"])
+    g = torch.Generator("cuda").manual_seed(3)
+    h = torch.randn(rows, 1, H, device="cuda", generator=g)
+    embs = torch.randn(rows, R, S, H, device="cuda", generator=g)
+    ids = torch.as_tensor(_retrieved_ids(opt, BATCH, 5),
+                          device="cuda").repeat_interleave(
+                              opt["beam_size"], dim=0)
+    logits = torch.randn(rows, 1, V, device="cuda", generator=g)
+    ms = _time_ms(lambda: model.pointer(h, embs, ids, logits), n=10, warm=3)
+    return ms, 2 * 2 * rows * R * S * H * H / 1e9, embs.nbytes
+
+
+def phase_pointer(scratch) -> dict:
+    """PointerGen Base and PointerGen CARE on MSRVTT at full width
+    (``--arch base``: H 512; V 11 000; ViT features, ``--modality ami``;
+    ``retrieval_topk`` 20 retrieved captions of ``max_len`` 30 token ids,
+    ``exclude_eos``; batch 64, beam 5; random weights from a seed). Each
+    trains ``POINTER_EPOCHS`` epochs of ``POINTER_BATCHES`` steps with
+    dropout on (the dense cross-entropy on the pointer's probabilities),
+    then again from the same seed: the parameters must be equal bit for
+    bit (the copy scatter's determinism; the gap is printed). ``_serve``
+    then decodes one batch of 64 and the ragged 17 through the dense
+    pointer step, every score re-checked by teacher forcing; the batch of
+    64 is profiled with the pointer's share of device time, and the
+    pointer of one beam step is timed alone. K1-K4c launch 0 times in the
+    phase, as ``care_tpu`` keeps pointer models off the fused head, the
+    fused cross-entropy and flash attention. Returns the launch counts,
+    all 0."""
+    from care_tpu_torch.models.pointer import Pointer
+    totals = dict.fromkeys(_launch_counts(), 0)
+    for i, (label, flags, where) in enumerate(POINTER):
+        opt = family_opt(flags)
+        assert opt["pointer"] == "Pointer" and opt["modality"].endswith("t")
+        print(f"pointer {label} ({where}): modality {opt['modality']}, "
+              f"{opt['retrieval_topk']} retrieved captions of "
+              f"{opt['max_len']} ids, exclude_eos {opt['exclude_eos']}, "
+              f"copy_scale {opt['copy_scale']}, use_attr_type "
+              f"{opt.get('use_attr_type')!r}")
+        runs = []
+        for repeat in range(2):
+            trainer, counts, seconds, peak = _pointer_fit(
+                opt, scratch, f"pointer{i}_{repeat}", SEED + 120 + i)
+            assert not trainer._fused_xent, label
+            assert all(n == 0 for n in counts.values()), (label, counts)
+            runs.append((trainer, seconds, peak))
+        losses = _step_losses(runs[0][0])
+        assert len(losses) == POINTER_EPOCHS * POINTER_BATCHES, losses
+        assert all(np.isfinite(losses)), losses
+        assert losses == _step_losses(runs[1][0]), label
+        gap = max(float((a - b).detach().abs().max()) for a, b in zip(
+            runs[0][0].model.parameters(), runs[1][0].model.parameters()))
+        assert gap == 0.0, (label, gap)
+        epoch1 = runs[0][0].history[1]
+        print(f"pointer {label}: train {len(losses)} steps of batch {BATCH} "
+              f"({POINTER_EPOCHS} epochs), dropout on, dense "
+              f"cross-entropy on the pointer's probabilities, in "
+              f"{runs[0][1]:.2f} s with model build and first-launch costs; "
+              f"epoch 1 {1e3 * epoch1['epoch_time'] / POINTER_BATCHES:.1f} "
+              f"ms a step (host clock, the epoch's one fetch included); "
+              f"peak device memory {runs[0][2] / 2**30:.3f} GiB allocated "
+              f"(repeat {runs[1][2] / 2**30:.3f}); losses "
+              f"{[round(l, 4) for l in losses]}; a repeat from the same "
+              f"seed: losses equal, parameter gap {gap!r}; kernel "
+              f"launches 0")
+        model = runs[0][0].model.eval()
+        del runs
+        pointer_ms, gflop, n_bytes = _time_pointer_step(opt, model)
+        print(f"pointer {label}: the pointer of one beam step alone "
+              f"([{BATCH * opt['beam_size']}, 1, {opt['dim_hidden']}] "
+              f"queries over {opt['retrieval_topk']} x {opt['max_len']} "
+              f"enlarged captions, {n_bytes / 1e6:.1f} MB of embeddings; "
+              f"K/V projection {gflop:.1f} GFLOP): {pointer_ms:.3f} ms "
+              f"({gflop / pointer_ms:.1f} TFLOP/s on the projection)")
+        del model
+        run = _serve(f"pointer {label}", opt, [BATCH, RAGGED], False, [],
+                     profile_ranges=[("pointer", Pointer)])
+        for k, n in run["counts"].items():
+            totals[k] += n
+        if run["profile"] and run["profile"][0]:
+            busy, ranges = run["profile"]
+            print(f"pointer {label}: device busy {busy:.3f} ms a batch of "
+                  f"{BATCH}, the pointer {ranges['pointer']:.3f} ms of it "
+                  f"({100 * ranges['pointer'] / busy:.1f}%)")
+    assert all(n == 0 for n in totals.values()), totals
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# ensembles
+# ---------------------------------------------------------------------------
+
+# the flagship and PointerGen CARE on the same MSRVTT features: the
+# ensemble's modalities are amir and amirt
+ENSEMBLE = [("flagship", dict(VERSATILITY_MSRVTT, method="Transformer",
+                              task="CARE"),
+             "__graft_entry__.py:_flagship_opt"),
+            POINTER[1]]
+
+
+def phase_ensemble(scratch) -> dict:
+    """Ensembles at full width (batch 64, beam 5), with the launch counts
+    set to 0 just before and read just after: (1) PointerGen CARE with
+    itself decodes what it decodes alone (``==`` on hypotheses and scores:
+    the mean of equal log-probabilities is themselves); (2) the
+    heterogeneous ensemble of the CARE flagship (``amir``) and PointerGen
+    CARE (``amirt``): 3 batches of 64 and the ragged 17, split from the
+    union's features by ``EnsembleSpec``, decoded batch by batch and
+    grouped (``translate_batches_grouped``, fused-K 4), equal results
+    (``==``), caps/s of each; (3) ``care_tpu_torch.translate.main`` with
+    the two checkpoints the phase writes (``-cp a b``) on the test split of
+    a synthetic dataset of the union's modalities with a retrieval
+    database. No kernel launches: ensembles take the dense step, as in
+    ``care_tpu``."""
+    import care_tpu_torch.data as data_pkg
+    from care_tpu_torch import translate
+    from care_tpu_torch.models.ensemble import EnsembleSpec
+    from care_tpu_torch.models.weights import variables_to_jax
+    from care_tpu_torch.training.checkpoints import save_checkpoint
+    opts = [family_opt(flags) for _, flags, _ in ENSEMBLE]
+    assert [o["modality"] for o in opts] == ["amir", "amirt"], opts
+    models = [build_captioner(o, seed=SEED + 30 + i)
+              for i, o in enumerate(opts)]
+    spec = EnsembleSpec(opts)
+    assert spec.need_to_split_feats and spec.opt["modality"] == "amirt"
+    merged = {**opts[0], **{k: v for k, v in spec.opt.items()
+                            if v is not None}}
+    translator = get_translator(merged)
+    union = dict(opts[1])
+    feats = [_synthetic_feats(union, n, SEED + 60 + j)
+             for j, n in enumerate([BATCH] * 3 + [RAGGED])]
+    batches = [{"feats": spec.split_feats(f)} for f in feats]
+    pointer_alone = get_translator(opts[1])
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+
+    alone = pointer_alone.translate_batch(models[1],
+                                          {"feats": feats[0]})
+    pair = pointer_alone.translate_batch([models[1], models[1]],
+                                         {"feats": feats[0]})
+    assert pair == alone
+    print(f"ensemble: PointerGen CARE with itself == PointerGen CARE alone "
+          f"on a batch of {BATCH} (hypotheses and scores)")
+
+    translator.translate_batch(models, batches[0])             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_by_one = [translator.translate_batch(models, b) for b in batches]
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grouped = [out for _, out in translator.translate_batches_grouped(
+        models, enumerate(batches), 4)]
+    torch.cuda.synchronize()
+    grouped_s = time.perf_counter() - t0
+    assert grouped == one_by_one
+    n_caps = sum(len(f[0]) for f in feats)
+    assert all(len(h) == len(f[0]) and all(len(x[0]) >= 1 for x in h)
+               for (h, _), f in zip(one_by_one, feats))
+    print(f"ensemble: flagship (amir) + PointerGen CARE (amirt), features "
+          f"split from the union {spec.opt['modality']}: {len(batches)} "
+          f"batches ({n_caps} videos) batch by batch {single_s:.3f} s "
+          f"({n_caps / single_s:.1f} caps/s), grouped fused-K 4 "
+          f"{grouped_s:.3f} s ({n_caps / grouped_s:.1f} caps/s), results "
+          f"equal (==)")
+
+    root = os.path.join(scratch, "ensemble")
+    data_opt, _, corpus, _, loader_fn = _pipeline_data(
+        dict(union, eval_batch_size=BATCH), root)
+    paths = []
+    for i, (model, o) in enumerate(zip(models, opts)):
+        o = dict(o, info_corpus=data_opt["info_corpus"],
+                 reference=data_opt["reference"])
+        for c in o["modality"]:
+            o[f"feats_{c}"] = data_opt[f"feats_{c}"]
+        paths.append(os.path.join(root, f"member{i}", "best.ckpt"))
+        save_checkpoint(paths[-1], variables_to_jax(model), o)
+    out = os.path.join(scratch, "ensemble_out")
+    inner_loader = data_pkg.get_loader
+    data_pkg.get_loader = loader_fn
+    try:
+        t0 = time.perf_counter()
+        (scores,) = translate.main(["-cp", *paths, "--base_data_path", root,
+                                    "--batch_size", str(BATCH),
+                                    "--json_path", out])
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t0
+    finally:
+        data_pkg.get_loader = inner_loader
+    counts = _launch_counts()
+    with open(os.path.join(out, "preds.json")) as f:
+        preds = json.load(f)
+    n_test = len(corpus["info"]["split"]["test"])
+    assert len(preds) == n_test, (len(preds), n_test)
+    assert all(n == 0 for n in counts.values()), counts
+    print(f"ensemble: translate -cp <flagship> <PointerGen CARE> on "
+          f"{n_test} test videos in {entry_s:.3f} s (load_model, loader and "
+          f"scoring included): CIDEr {scores['CIDEr']:.6f}; kernel "
+          f"launches in the phase 0")
+    return counts
+
+
 def _xent_scratch(opt) -> None:
     """What the wrappers of K3a and K3b allocate beyond their outputs (dh;
     dW and db) at the training shape: the peak of allocated device memory
@@ -1623,6 +1946,16 @@ def _synthetic_stores(opt, corpus, n_videos, seed):
     rng = np.random.RandomState(seed + 1)
     stores = {}
     for char in opt["modality"]:
+        if char == "t":
+            # the retrieval database: training-caption indices a video
+            train = corpus_lib.get_ids_set("train", corpus["info"]["split"])
+            n_flat = sum(len(corpus["captions"]["video%d" % v])
+                         for v in train)
+            topk = max(opt["retrieval_topk"], 20)
+            stores["memory:t"] = {"video%d_i" % v: rng.randint(0, n_flat,
+                                                               topk)
+                                  for v in range(n_videos)}
+            continue
         dim = opt[f"dim_{char}"]
         rng.randn(vocab_size, dim)          # the writer's word codes
         stores[f"memory:{char}"] = {
@@ -2640,6 +2973,10 @@ def main() -> None:
         for k, n in nar_counts.items():
             counts[k] += n
         for k, n in phase_rnn(scratch).items():
+            counts[k] += n
+        for k, n in phase_pointer(scratch).items():
+            counts[k] += n
+        for k, n in phase_ensemble(scratch).items():
             counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -57,7 +57,7 @@ def _kv_logits(port, inputs, seq, max_len, beam_size=1):
     state = port.init_decode_state(inputs, max_len, beam_size=beam_size)
     out = []
     for t in range(seq.shape[1]):
-        logits, state = port.decode_step(seq[:, t], t, state)
+        logits, state, _ = port.decode_step(seq[:, t], t, state)
         out.append(logits)
     return torch.stack(out, dim=1)
 

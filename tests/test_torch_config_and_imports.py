@@ -100,6 +100,7 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "          'models.encoders', 'models.predictors', 'models.heads',\n"
         "          'models.embeddings', 'models.decoders',\n"
         "          'models.framework', 'models.weights',\n"
+        "          'models.pointer', 'models.ensemble',\n"
         "          'models.loading', 'decoding.nar', 'decoding.translator',\n"
         "          'config.loader'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
@@ -126,10 +127,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 UNSUPPORTED = [
     ("encoder", "CNN3"), ("encoder", "CNN2"),
-    ("encoder", "CNN1"), ("pointer", "Pointer"),
-    ("retrieval", True),
+    ("encoder", "CNN1"),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
-    ("has_retrieval_rnn", True), ("with_backbones", True),
+    ("with_backbones", True),
     ("encoder", "SingleStreamEmbedder"), ("compute_dtype_decode", "fp8"),
 ]
 
@@ -140,6 +140,28 @@ def test_unsupported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key):
         build_captioner(opt, device="cpu")
         get_translator(opt, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("pointer", "Pointer"), ("retrieval", True), ("has_retrieval_rnn", True)])
+def test_retrieval_options_build_and_serve(key, value):
+    """The pointer and the retrieved-caption options used to raise; a
+    PointerGen model now builds with each and decodes through the dense
+    step (``tests/test_torch_pointer.py`` and
+    ``tests/test_torch_paper_grid_pointer.py`` hold them to
+    ``care_tpu``)."""
+    opt = port_get_opt({**TINY, "method": "PointerGen"}, read_vocab=False,
+                       resolve_paths=False)
+    opt.update(dim_m=24, dim_i=16, retrieval_topk=3, **{key: value})
+    assert opt["pointer"] == "Pointer" and opt["modality"].endswith("t")
+    model = build_captioner(opt, device="cpu")
+    assert (model.text_embedder.rnn_fwd is not None) == (
+        key == "has_retrieval_rnn")
+    translator = get_translator(opt, device="cpu")
+    assert not translator.fused_head
+    hyps, scores = translator.translate_batch(
+        model, {"feats": synthetic_batch(opt, 2, seed=1)["feats"]})
+    assert len(hyps) == len(scores) == 2 and all(len(h[0]) for h in hyps)
 
 
 @pytest.mark.parametrize("key,value", [
@@ -213,13 +235,18 @@ def test_rnn_methods_build_and_serve(method):
 
 
 def test_ensembles_and_fused_batches_raise():
-    """Ensembles still raise; fused batches, which used to raise, now
-    decode as the batches one by one do."""
+    """Ensembles and fused batches used to raise. An ensemble of a model
+    with itself now decodes as the model alone does (its averaged
+    log-probabilities are the model's), and fused batches as the batches
+    one by one do."""
     opt = flagship_small_opt()
     model = build_captioner(opt, device="cpu")
     translator = get_translator(opt, device="cpu")
-    with pytest.raises(NotImplementedError, match="ensembles"):
-        translator.translate_batch([model, model], {"feats": []})
+    alone = {"feats": synthetic_batch(opt, 2, seed=3)["feats"]}
+    got_h, got_s = translator.translate_batch([model, model], alone)
+    want_h, want_s = translator.translate_batch(model, alone)
+    assert got_h == want_h
+    np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-5)
     batches = [{"feats": synthetic_batch(opt, 2, seed=s)["feats"]}
                for s in (1, 2)]
     assert translator.translate_batches_fused([model], batches) == [

@@ -169,12 +169,22 @@ def test_eval_json_prints_run_eval_scores(trained, tmp_path, capsys):
 
 
 def test_loading_refuses_ensembles_and_defaults_to_the_card(trained,
-                                                            monkeypatch):
+                                                            monkeypatch,
+                                                            tmp_path):
+    """Ensembles used to be refused. Two paths now load both models (one
+    modality set, so nothing to split), and ``translate`` of a checkpoint
+    with itself scores what the checkpoint alone scores
+    (``tests/test_torch_ensemble.py`` holds ensembles to ``care_tpu``)."""
     root, _, _, ckpt, _ = trained
-    with pytest.raises(NotImplementedError, match="ensembles"):
-        port_translate.main(["-cp", ckpt, ckpt, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ensembles"):
-        loading.load_model([ckpt, ckpt], device="cpu")
+    monkeypatch.chdir(tmp_path)
+    common = ["--device", "cpu", "--batch_size", "4", "--base_data_path",
+              root]
+    (pair,) = port_translate.main(["-cp", ckpt, ckpt] + common)
+    (alone,) = port_translate.main(["-cp", ckpt] + common)
+    assert pair == alone
+    models, _, spec = loading.load_model([ckpt, ckpt], base_data_path=root,
+                                         return_spec=True, device="cpu")
+    assert len(models) == 2 and not spec.need_to_split_feats
     # strict=False used to raise; on a complete checkpoint it loads what
     # the strict load does
     loose, _ = loading.load_model(ckpt, base_data_path=root, strict=False,

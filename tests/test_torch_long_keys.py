@@ -152,7 +152,7 @@ def test_kv_step_matches_full_forward_and_jax_step(name):
         state = port.init_decode_state(inputs, opt["max_len"])
         steps = []
         for t in range(seq.shape[1]):
-            logits, state = port.decode_step(ids[:, t], t, state)
+            logits, state, _ = port.decode_step(ids[:, t], t, state)
             steps.append(logits)
     kv = torch.stack(steps, dim=1).numpy()
     assert _flash_forwards() - before == seq.shape[1] * layers

@@ -153,12 +153,14 @@ def test_auxiliary_crits_match_jax(crit, extra):
 
 @pytest.mark.parametrize("key,value", [("probs", 1.0)])
 def test_unported_lang_branches_raise(key, value):
+    """The pointer's ``probs`` used to raise; they now replace the softmax
+    of the logits, the NLL taken of ``log(probs + 1e-6)``
+    (``tests/test_torch_pointer.py`` holds the loss to ``care_tpu``'s)."""
     opt = dict(flagship_small_opt(), crits=["lang"])
-    res = {"logits": torch.zeros(1, 11, opt["vocab_size"]),
-           "labels": torch.zeros(1, 11, dtype=torch.long)}
-    if key == "probs":
-        res["probs"] = torch.zeros(1)
-    else:
-        opt[key] = value
-    with pytest.raises(NotImplementedError, match=key):
-        Criterion(opt)(res)
+    V = opt["vocab_size"]
+    labels = torch.full((1, 11), 7, dtype=torch.long)
+    res = {"logits": torch.zeros(1, 11, V), "labels": labels,
+           key: torch.full((1, 11, V), value / V)}
+    total = Criterion(opt)(res)[0]
+    np.testing.assert_allclose(total.item(), -11 * np.log(1 / V + 1e-6),
+                               rtol=1e-5)

@@ -12,6 +12,7 @@ import torch
 
 import __graft_entry__ as graft
 from care_tpu.models import build_captioner as jax_build_captioner
+from care_tpu_torch import constants
 from care_tpu_torch.models import build_captioner as port_build_captioner
 from care_tpu_torch.models.weights import variables_from_jax
 
@@ -45,10 +46,25 @@ def stream_length(opt: dict, char: str) -> int:
     return opt["n_frames"]
 
 
-def synthetic_feats(opt: dict, batch_size: int, seed: int):
-    """Per-modality feature streams as numpy arrays."""
+def retrieved_ids(opt: dict, batch_size: int, seed: int):
+    """The ``t`` stream: ``retrieval_topk`` retrieved captions of
+    ``max_len`` token ids per video [B, R, max_len] int32, drawn from a few
+    ids so that ids repeat within and across retrievals, each caption
+    followed by a PAD tail of its own length."""
     rs = np.random.RandomState(seed)
-    return [rs.randn(batch_size, stream_length(opt, c),
+    shape = (batch_size, opt["retrieval_topk"], opt["max_len"])
+    ids = rs.randint(4, min(opt["vocab_size"], 12), shape)
+    lengths = rs.randint(2, opt["max_len"] + 1, shape[:2])
+    pad = np.arange(opt["max_len"])[None, None, :] >= lengths[:, :, None]
+    return np.where(pad, constants.PAD, ids).astype(np.int32)
+
+
+def synthetic_feats(opt: dict, batch_size: int, seed: int):
+    """Per-modality feature streams as numpy arrays (the ``t`` stream's
+    token ids by ``retrieved_ids``)."""
+    rs = np.random.RandomState(seed)
+    return [retrieved_ids(opt, batch_size, seed + 7) if c == "t" else
+            rs.randn(batch_size, stream_length(opt, c),
                      opt[f"dim_{c}"]).astype(np.float32)
             for c in opt["modality"]]
 
@@ -70,6 +86,9 @@ def synthetic_batch(opt: dict, batch_size: int, seed: int) -> dict:
     if opt.get("with_category"):
         batch["category"] = rs.randint(
             0, opt["num_category"], (batch_size, 1)).astype(np.int32)
+        if opt.get("use_category_embs"):
+            batch["category_embs"] = rs.randn(
+                batch_size, opt["dim_category"]).astype(np.float32)
     return batch
 
 
@@ -106,7 +125,11 @@ def flagship_pair(opt: dict, seed: int = 0, jax_opt: dict = None):
 
 
 def tensors(arrays, dtype=torch.float32):
-    return [torch.as_tensor(a, dtype=dtype) for a in arrays]
+    """Tensors of ``arrays``: floating ones in ``dtype``, integer ones (the
+    ``t`` stream's ids) as int64."""
+    return [torch.as_tensor(a, dtype=dtype)
+            if np.issubdtype(np.asarray(a).dtype, np.floating)
+            else torch.as_tensor(np.asarray(a)).long() for a in arrays]
 
 
 def per_step_logits_jax(jmodel, variables, inputs, seq):
@@ -149,7 +172,7 @@ def per_step_logits_port(port, inputs, seq, max_len: int = None):
         else:
             state = port.init_decode_state(inputs, max_len)
             for t in range(seq.shape[1]):
-                logits, state = port.decode_step(seq[:, t], t, state)
+                logits, state, _ = port.decode_step(seq[:, t], t, state)
                 outs.append(logits)
     return torch.stack(outs, dim=1).numpy()
 
@@ -159,7 +182,7 @@ def decoder_inputs(jmodel, variables, port, batch: dict):
     and the batch's own entries, ``category``)."""
     import jax.numpy as jnp
     from care_tpu.models.framework import Captioner
-    aux = {k: batch[k] for k in ("category",) if k in batch}
+    aux = {k: batch[k] for k in ("category", "category_embs") if k in batch}
     enc = jmodel.apply(variables, [jnp.asarray(f) for f in batch["feats"]],
                        method=Captioner.encoding_phase)
     jinputs = jmodel.apply(variables, enc,
@@ -167,14 +190,13 @@ def decoder_inputs(jmodel, variables, port, batch: dict):
                            method=Captioner.prepare_inputs_for_decoder)
     with torch.no_grad():
         penc = port.encoding_phase(tensors(batch["feats"]))
-    pinputs = port.prepare_inputs_for_decoder(
-        penc, {k: torch.as_tensor(v).long() for k, v in aux.items()})
+    pinputs = port.prepare_inputs_for_decoder(penc, dict(zip(
+        aux, tensors(list(aux.values())))))
     return jinputs, pinputs
 
 
 def token_sequence(opt: dict, batch_size: int, seed: int):
     """[B, max_len - 1] token ids starting with BOS, as numpy int32."""
-    from care_tpu_torch import constants
     rs = np.random.RandomState(seed)
     seq = rs.randint(6, opt["vocab_size"], (batch_size, opt["max_len"] - 1))
     seq[:, 0] = constants.BOS

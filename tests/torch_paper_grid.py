@@ -19,10 +19,14 @@ each one's teacher.
 ``exp_versatility_of_CARE.sh``, the ``VOE`` preset and the ``TAP_RNN`` /
 ``DAP_RNN`` tasks on SALSTM.
 
+``POINTER_COMMANDS`` holds the four PointerGen lines of
+``exp_versatility_of_CARE.sh``.
+
 ``held_against_jax`` builds a command's model in both packages, carries
 the weights (and BatchNorm running statistics) across with
 ``variables_from_jax``, and returns the largest logit difference of the
-full forward and both packages' beams. The ``test_torch_paper_grid*``
+full forward (for a pointer model also of the log-probabilities,
+``log(probs + 1e-9)``) and both packages' beams. The ``test_torch_paper_grid*``
 files hold every command to it, a share of the scripts each so that each
 file stays short on one worker. This module holds no tests.
 """
@@ -227,6 +231,20 @@ RNN_COMMANDS = [
 ]
 
 
+# the PointerGen lines of scripts/exp_versatility_of_CARE.sh, Base then
+# + CARE on each dataset; held by tests/test_torch_paper_grid_pointer.py
+POINTER_COMMANDS = [
+    ("PointerGen-Base-MSVD", "scripts/exp_versatility_of_CARE.sh:68",
+     dict(VERS_MSVD, method="PointerGen", task="Base")),
+    ("PointerGen-Base-MSRVTT", "scripts/exp_versatility_of_CARE.sh:70",
+     dict(VERS_MSRVTT, method="PointerGen", task="Base")),
+    ("PointerGen-CARE-MSVD", "scripts/exp_versatility_of_CARE.sh:72",
+     dict(VERS_MSVD, method="PointerGen", task="CARE")),
+    ("PointerGen-CARE-MSRVTT", "scripts/exp_versatility_of_CARE.sh:74",
+     dict(VERS_MSRVTT, method="PointerGen", task="CARE")),
+]
+
+
 def teacher_overrides(overrides: dict) -> dict:
     """The ARB command a NAR command's teacher is trained by."""
     out = {k: v for k, v in overrides.items()
@@ -291,10 +309,15 @@ def held_against_jax(opt: dict):
     if key not in _RESULTS:
         jmodel, variables, port = flagship_pair(opt, seed=3)
         batch = synthetic_batch(opt, 3, seed=4)
-        want = jmodel.apply(variables, batch, deterministic=True)["logits"]
+        want = jmodel.apply(variables, batch, deterministic=True)
         with torch.no_grad():
-            got = port(device_batch(batch, "cpu"))["logits"]
-        err = float(np.abs(got.numpy() - np.asarray(want)).max())
+            got = port(device_batch(batch, "cpu"))
+        err = float(np.abs(got["logits"].numpy()
+                           - np.asarray(want["logits"])).max())
+        if "probs" in want:
+            err = max(err, float(np.abs(
+                torch.log(got["probs"] + 1e-9).numpy()
+                - np.log(np.asarray(want["probs"]) + 1e-9)).max()))
         feats = {"feats": batch["feats"]}
         want_h, want_s = jax_get_translator(opt).translate_batch(
             [(jmodel, variables)], feats)
