@@ -61,6 +61,7 @@ from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.decoders import is_rnn_decoder
 from care_tpu_torch.models.framework import Captioner
 from care_tpu_torch.models.heads import NaiveHead
+from care_tpu_torch.models.weights import batch_stats_leaves
 from care_tpu_torch.ops.fused_head_topk import vocab_argmax_lse
 from care_tpu_torch.utils.device import resolve_device
 
@@ -103,11 +104,9 @@ def _cast_variables(model: Captioner, compute_dtype: torch.dtype,
                 continue
             if p.is_floating_point():
                 p.data = p.data.to(compute_dtype)
-        for module in served.modules():
-            if isinstance(module, torch.nn.BatchNorm1d):
-                module.running_mean.data = module.running_mean.to(
-                    compute_dtype)
-                module.running_var.data = module.running_var.to(compute_dtype)
+        for _, module, attr in batch_stats_leaves(served):
+            buf = getattr(module, attr)
+            buf.data = buf.to(compute_dtype)
     return served
 
 

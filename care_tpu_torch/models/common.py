@@ -7,6 +7,7 @@ table, zero biases, LayerNorm weight 1 / bias 0, the PAD embedding row
 zeroed. Init draws from the ``torch.Generator`` the model is built with.
 """
 
+import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
@@ -41,6 +42,90 @@ class LayerNorm(nn.LayerNorm):
         return F.layer_norm(x.to(dtype), self.normalized_shape,
                             self.weight.to(dtype), self.bias.to(dtype),
                             self.eps)
+
+
+class FlaxBatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the channel axis ``dim`` of its input,
+    under flax's names: parameters ``scale`` and ``bias``, running
+    statistics ``mean`` and ``var`` (``models/weights.py`` carries them as
+    ``batch_stats``). It normalises as flax does, ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``. ``frozen`` (the CNN towers'
+    ``use_running_average=True``) always takes the running statistics,
+    whatever ``train()`` says. Otherwise training takes the batch's mean
+    and its *biased* variance ``E[x^2] - E[x]^2`` (clipped at 0, in f32)
+    and moves the running ones by ``momentum`` as flax does:
+    ``new = momentum * old + (1 - momentum) * batch``; torch's
+    ``BatchNorm`` would move them by the unbiased variance."""
+
+    FLAX_BATCH_STATS = True
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.99, frozen: bool = False, dim: int = 1):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+        self.eps, self.momentum, self.frozen, self.dim = (eps, momentum,
+                                                          frozen, dim)
+
+    def forward(self, x):
+        shape = [1] * x.dim()
+        shape[self.dim] = -1
+        if self.frozen or not self.training:
+            mean, var = self.mean, self.var
+        else:
+            axes = [d for d in range(x.dim()) if d != self.dim % x.dim()]
+            x32 = x.float()
+            mean = x32.mean(dim=axes)
+            var = torch.clamp(x32.square().mean(dim=axes) - mean.square(),
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+
+    def extra_repr(self) -> str:
+        return (f"{self.scale.numel()}, eps={self.eps}, momentum="
+                f"{self.momentum}, frozen={self.frozen}")
+
+
+def lecun_normal_(tensor, fan_in: int, generator: torch.Generator):
+    """flax's default kernel init, in place: a normal of variance
+    1 / fan_in, truncated at two standard deviations."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(tensor, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+    return tensor
+
+
+def flax_init_(layer: nn.Module, generator: torch.Generator) -> nn.Module:
+    """A ``Linear`` or ``Conv`` with flax's default init, in place: its
+    weight lecun-normal over its fan-in, its bias (if any) zero."""
+    lecun_normal_(layer.weight, layer.weight[0].numel(), generator)
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
+    return layer
+
+
+@torch.no_grad()
+def encode_in_chunks(model: nn.Module, inputs, batch_size: int,
+                     dtype: torch.dtype):
+    """``model`` over the numpy array ``inputs`` in chunks of
+    ``batch_size`` rows on the model's device, the chunks cast to
+    ``dtype``; numpy f32 out, the chunks' outputs concatenated."""
+    device = next(model.parameters()).device
+    outs = []
+    for i in range(0, inputs.shape[0], batch_size):
+        chunk = torch.as_tensor(np.ascontiguousarray(
+            inputs[i:i + batch_size]), device=device).to(dtype)
+        outs.append(model(chunk).float().cpu().numpy())
+    return np.concatenate(outs, axis=0)
 
 
 def dense(dim_in: int, dim_out: int, generator: torch.Generator,

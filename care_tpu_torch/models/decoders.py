@@ -37,7 +37,7 @@ from torch.nn import functional as F
 
 from care_tpu_torch import constants
 from care_tpu_torch.models.common import (Dense, Dropout, LayerNorm, dense,
-                                          xavier_param)
+                                          flax_init_, xavier_param)
 from care_tpu_torch.models.embeddings import Embeddings
 from care_tpu_torch.models.layers import DecoderLayer, MultiHeadAttention
 from care_tpu_torch.models.predictors import TextPostProcesser
@@ -457,13 +457,9 @@ class OptimizedLSTMCellTorch(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         for gate in "ifgo":
-            inp = Dense(dim_in, features, bias=False)
-            # flax's lecun_normal: a normal truncated at 2 sigma, rescaled
-            std = (1.0 / dim_in) ** 0.5 / 0.87962566103423978
+            inp = flax_init_(Dense(dim_in, features, bias=False), generator)
             rec = Dense(features, features)
             with torch.no_grad():
-                nn.init.trunc_normal_(inp.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
                 nn.init.orthogonal_(rec.weight, generator=generator)
                 rec.bias.zero_()
             # "if" is a keyword: the maps are registered by name

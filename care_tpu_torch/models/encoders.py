@@ -22,6 +22,12 @@ running statistics.
 dense modality over time, each after the first starting from the carry of
 the one before and reading the dropped-out outputs of the one before beside
 its own features, and closes with the BatchNorm.
+
+The patch encoders (``CNN1`` / ``CNN2`` / ``CNN3``: ``CNNPatchEncoder``;
+``SingleStreamEmbedder``; the ``LightCNN`` and ``POSLayer`` blocks) use
+flax's ``nn.BatchNorm`` semantics instead (``FlaxBatchNorm``): the biased
+batch variance moves the running one, by momentum 0.9 in
+``CNNPatchEncoder``.
 """
 
 from typing import Any, Dict, List
@@ -30,8 +36,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from care_tpu_torch.models.common import (Dense, Dropout, LayerNorm, dense,
-                                          unsupported)
+from care_tpu_torch.models.common import (Dense, Dropout, FlaxBatchNorm,
+                                          LayerNorm, dense, flax_init_)
 from care_tpu_torch.models.embeddings import PositionalEmbedding
 from care_tpu_torch.models.layers import EncoderLayer
 
@@ -207,9 +213,6 @@ class MultipleStreams(nn.Module):
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
         if opt["encoder"] not in STREAM_KINDS:
-            if opt["encoder"] in ("SingleStreamEmbedder", "CNN1", "CNN2",
-                                  "CNN3"):
-                raise unsupported("encoder", opt["encoder"])
             raise ValueError(f"unknown encoder `{opt['encoder']}`")
         self.kind = STREAM_KINDS[opt["encoder"]]
         self.fusion_type = opt.get("fusion", "temporal_concat")
@@ -289,13 +292,8 @@ class GRUCellFlax(nn.Module):
                  generator: torch.Generator):
         super().__init__()
         for name in ("ir", "iz", "in"):
-            layer = Dense(dim_in, features)
-            std = (1.0 / dim_in) ** 0.5 / 0.87962566103423978
-            with torch.no_grad():
-                nn.init.trunc_normal_(layer.weight, std=std, a=-2 * std,
-                                      b=2 * std, generator=generator)
-                layer.bias.zero_()
-            self.add_module(name, layer)
+            self.add_module(name, flax_init_(Dense(dim_in, features),
+                                             generator))
         for name, bias in (("hr", False), ("hz", False), ("hn", True)):
             layer = Dense(features, features, bias=bias)
             with torch.no_grad():
@@ -353,7 +351,144 @@ class VOE(nn.Module):
                 "mean_encoder_hidden_states": [outputs.mean(dim=1)]}
 
 
+class LightCNN(nn.Module):
+    """Small conv stack over per-frame patch grids (dense-patch
+    experiments, reference ``Encoder.py:301-323``): [B, n_frames,
+    ch * res * res] -> [B, n_frames, chs[-1] * res'^2], ``conv<i>`` (3x3,
+    no padding) + ``bn<i>`` (flax's BatchNorm, momentum 0.99) + ReLU; the
+    output flattened in flax's NHWC order."""
+
+    def __init__(self, chs=(12, 32, 128, 512), resolution: int = 7,
+                 dropout_rate: float = 0.0,
+                 generator: torch.Generator = None):
+        super().__init__()
+        self.chs, self.resolution = tuple(chs), resolution
+        for i, (cin, cout) in enumerate(zip(self.chs, self.chs[1:])):
+            self.add_module(f"conv{i + 1}", flax_init_(
+                nn.Conv2d(cin, cout, 3), generator))
+            self.add_module(f"bn{i + 1}", FlaxBatchNorm(cout))
+        self.dropout = Dropout(dropout_rate)
+
+    def forward(self, x):
+        bsz, n_frames, _ = x.shape
+        r = self.resolution
+        h = x.reshape(bsz * n_frames, self.chs[0], r, r)
+        for i in range(1, len(self.chs)):
+            h = torch.relu(getattr(self, f"bn{i}")(
+                getattr(self, f"conv{i}")(h)))
+        return self.dropout(h.permute(0, 2, 3, 1).reshape(bsz, n_frames, -1))
+
+
+class POSLayer(nn.Module):
+    """Learned positional bias over per-frame patch positions (reference
+    ``Encoder.py:326-338``): ``pos_bias`` [res^2] added to every channel's
+    patch grid."""
+
+    def __init__(self, resolution: int = 7):
+        super().__init__()
+        self.pos_bias = nn.Parameter(torch.zeros(resolution ** 2))
+
+    def forward(self, x):
+        bsz, n_frames, _ = x.shape
+        h = x.reshape(bsz * n_frames, -1, self.pos_bias.numel())
+        return (h + self.pos_bias).reshape(bsz, n_frames, -1)
+
+
+class SingleStreamEmbedder(nn.Module):
+    """All dense modalities concatenated along channels, then one Linear +
+    LN + Dropout ``encoder`` (reference ``SingleStream`` /
+    ``SingleStreamEmbedder``, ``Encoder.py:29-48,159-162``)."""
+
+    def __init__(self, opt: dict, generator: torch.Generator):
+        super().__init__()
+        dim_in = sum(opt["dim_" + c] for c in opt["modality"].lower()
+                     if c != "t")
+        self.encoder = LinearLNDrop(
+            dim_in, opt.get("dim_hidden", 512),
+            opt.get("encoder_dropout_prob", 0.5), opt["layer_norm_eps"],
+            generator)
+
+    def forward(self, input_feats: List[torch.Tensor]) -> Dict[str, Any]:
+        x = self.encoder(torch.cat(list(input_feats), dim=-1))
+        return {"encoder_hidden_states": x,
+                "mean_encoder_hidden_states": [x.mean(dim=1)]}
+
+
+class CNNPatchEncoder(nn.Module):
+    """Dense-patch 3D-conv encoder (reference ``models/Att_Encoder.py:6-99``,
+    ``CNN1`` / ``CNN2`` / ``CNN3``): the first stream [B, n_frames,
+    n_layers, n_patches] (n_patches a square, the stream's width
+    ``dim_<c>``) is mean-pooled over layers into a [B, 1, F, ws, ws] volume,
+    then ``Conv_0`` / ``BatchNorm_0`` (2 channels), a frame-pair average,
+    ``Conv_1`` / ``BatchNorm_1`` (4), a frame-pair average, and ``Conv_2`` /
+    ``BatchNorm_2`` (8) whose kernel depth F // 4 collapses the frames,
+    each conv followed by flax's BatchNorm (momentum 0.9) and ReLU; the
+    [B, 8, 1, ws, ws] volume is flattened channel-major into one token,
+    then ``net`` (Dense) and ``LN``. The frame-pair average is a reshape
+    and mean, the VALID (2, 1, 1) pool, with a deterministic backward."""
+
+    def __init__(self, opt: dict, kernel_size=(3, 3, 3), padding=(1, 1, 1),
+                 generator: torch.Generator = None):
+        super().__init__()
+        char = next(c for c in opt["modality"].lower() if c != "t")
+        n_patches, self.n_frames = opt["dim_" + char], opt["n_frames"]
+        self.ws = int(n_patches ** 0.5)
+        if self.ws * self.ws != n_patches:
+            raise ValueError(f"{n_patches} patches (dim_{char}) is not a "
+                             f"square grid")
+        k, p = tuple(kernel_size), tuple(padding)
+        for i, (cin, cout, kernel, pad) in enumerate((
+                (1, 2, k, p), (2, 4, k, p),
+                (4, 8, (self.n_frames // 4,) + k[1:], (0,) + p[1:]))):
+            self.add_module(f"Conv_{i}", flax_init_(
+                nn.Conv3d(cin, cout, kernel, padding=pad), generator))
+            self.add_module(f"BatchNorm_{i}", FlaxBatchNorm(cout,
+                                                            momentum=0.9))
+        self.net = dense(8 * n_patches, opt.get("dim_hidden", 512),
+                         generator)
+        self.LN = LayerNorm(opt.get("dim_hidden", 512),
+                            eps=opt["layer_norm_eps"])
+
+    def _block(self, i: int, x):
+        return torch.relu(getattr(self, f"BatchNorm_{i}")(
+            getattr(self, f"Conv_{i}")(x)))
+
+    @staticmethod
+    def _frame_pairs(x):
+        b, c, f, h, w = x.shape
+        return x[:, :, :f - f % 2].reshape(b, c, f // 2, 2, h, w).mean(dim=3)
+
+    def forward(self, input_feats) -> Dict[str, Any]:
+        x = (input_feats[0] if isinstance(input_feats, (list, tuple))
+             else input_feats)
+        bsz, n_frames, _, n_patches = x.shape
+        if n_frames != self.n_frames or n_patches != self.ws ** 2:
+            raise ValueError(f"patch features {tuple(x.shape)} for "
+                             f"n_frames {self.n_frames} and "
+                             f"{self.ws ** 2} patches")
+        x = x.mean(dim=2).reshape(bsz, 1, n_frames, self.ws, self.ws)
+        x = self._frame_pairs(self._block(0, x))
+        x = self._frame_pairs(self._block(1, x))
+        x = self._block(2, x).reshape(bsz, 1, -1)     # channel-major
+        x = self.LN(self.net(x))
+        return {"encoder_hidden_states": x,
+                "mean_encoder_hidden_states": [x.mean(dim=1)]}
+
+
+CNN_VARIANTS = {
+    "CNN1": ((3, 3, 3), (1, 1, 1)),
+    "CNN2": ((7, 3, 3), (3, 1, 1)),
+    "CNN3": ((7, 5, 5), (3, 2, 2)),
+}
+
+
 def get_encoder(opt: dict, generator: torch.Generator) -> nn.Module:
-    if opt["encoder"] == "VOE":
+    name = opt["encoder"]
+    if name == "VOE":
         return VOE(opt, generator)
+    if name == "SingleStreamEmbedder":
+        return SingleStreamEmbedder(opt, generator)
+    if name in CNN_VARIANTS:
+        k, p = CNN_VARIANTS[name]
+        return CNNPatchEncoder(opt, k, p, generator)
     return MultipleStreams(opt, generator)

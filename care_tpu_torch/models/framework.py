@@ -1,9 +1,10 @@
-"""The Captioner: encoder -> concept predictor -> decoder -> vocab head
-(-> pointer).
+"""The Captioner: (backbone ->) encoder -> concept predictor -> decoder ->
+vocab head (-> pointer).
 
 Port of ``care_tpu/models/framework.py`` (reference ``models/Framework.py``):
-``encoding_phase`` runs the encoder and the predictor and merges the
-predictor's outputs (with the ``preds_length`` of NAR decoding) into the
+``encoding_phase`` runs the image backbone of ``with_backbones`` on raw
+frames (``models/backbone.py``), the encoder and the predictor, and merges
+the predictor's outputs (with the ``preds_length`` of NAR decoding) into the
 decoder inputs (the LSG ``concat`` mode appends the concept-slot
 embeddings to the encoder states); ``decoding_phase`` runs
 the decoder, the head and the pointer; ``init_decode_state`` /
@@ -27,7 +28,8 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from care_tpu_torch.models.common import Dropout, LayerNorm, unsupported
+from care_tpu_torch.models.backbone import get_backbone
+from care_tpu_torch.models.common import Dropout, LayerNorm
 from care_tpu_torch.models.decoders import (OptimizedLSTMCellTorch,
                                             get_decoder, is_rnn_decoder)
 from care_tpu_torch.models.embeddings import NaiveEmbeddings
@@ -56,11 +58,6 @@ def input_keys_for_decoder(opt: dict) -> List[str]:
     if opt.get("pointer"):
         keys += ["ret_text_embs", "ret_input_ids"]
     return keys
-
-
-def _check_opt(opt: dict) -> None:
-    if opt.get("with_backbones"):
-        raise unsupported("with_backbones", opt["with_backbones"])
 
 
 class FlaxRNN(nn.Module):
@@ -134,8 +131,8 @@ class Captioner(nn.Module):
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
-        _check_opt(opt)
         self.opt = opt
+        self.backbone = get_backbone(opt, generator)
         self.encoder = get_encoder(opt, generator)
         self.predictor = (Predictor(opt, generator) if has_predictor(opt)
                           else None)
@@ -155,6 +152,10 @@ class Captioner(nn.Module):
         feats, other_feats = list(feats[:len(modality)]), feats[len(modality):]
         semantic_logits = (other_feats[0] if other_feats
                            and self.opt.get("logits") else None)
+        if self.backbone is not None:
+            # raw frames [B, F, H, W, 3] -> [B, F, D], at the batch's rows
+            # (the translator enlarges by the beam after encoding)
+            feats = self.backbone(feats)
         ret_input_ids = ret_text_embs = None
         dense_feats = []
         for char, f in zip(modality, feats):

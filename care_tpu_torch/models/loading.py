@@ -23,8 +23,9 @@ import torch
 from care_tpu_torch import constants
 from care_tpu_torch.models.ensemble import EnsembleSpec
 from care_tpu_torch.models.framework import build_captioner
-from care_tpu_torch.models.weights import (batch_norm_modules, flat_leaves,
-                                           jax_leaf_key, variables_from_jax,
+from care_tpu_torch.models.weights import (batch_stats_leaves, flat_leaves,
+                                           from_flax_layout, jax_leaf_key,
+                                           variables_from_jax,
                                            variables_to_jax)
 from care_tpu_torch.training.checkpoints import load_checkpoint
 
@@ -198,11 +199,9 @@ def _student_leaves(model):
     for name, param in model.named_parameters():
         key, transpose = jax_leaf_key(model, name)
         yield ("params",) + key, transpose, param, name
-    for path, module in batch_norm_modules(model):
-        for leaf, buf in (("mean", module.running_mean),
-                          ("var", module.running_var)):
-            yield (("batch_stats",) + path + (leaf,), False, buf,
-                   ".".join(path + (leaf,)))
+    for key, module, attr in batch_stats_leaves(model):
+        yield (("batch_stats",) + key, False, getattr(module, attr),
+               ".".join(key))
 
 
 @torch.no_grad()
@@ -235,7 +234,7 @@ def load_teacher_weights_into_student(model, teacher_ckpt_path: str,
             continue
         value = np.asarray(flat_t[key], dtype=np.float32)
         if transpose:
-            value = value.T
+            value = from_flax_layout(value)
         if value.shape != tuple(tensor.shape):
             if verbose:
                 print(f"- Incompatible Shape of `{'/'.join(key)}`: Student "

@@ -4,14 +4,18 @@
 ``care_tpu`` Captioner's ``variables["params"]``, a nested dict of arrays.
 The port's submodules carry the flax tree's names, so the walk is
 mechanical: a ``Linear``'s ``weight`` is the flax ``kernel`` transposed
-([in, out] -> [out, in]), a ``LayerNorm``'s ``weight`` is its ``scale``,
-and every other parameter (embedding tables, the hybrid bias) keeps its
-name and shape. Arrays are copied, never aliased.
+([in, out] -> [out, in]), a ``Conv2d`` / ``Conv3d``'s ``weight`` is the
+flax ``kernel`` [*window, in, out] laid out as torch's [out, in, *window],
+a ``LayerNorm``'s ``weight`` is its ``scale``, and every other parameter
+(embedding tables, the hybrid bias, the CLIP attention's
+``[width, heads, head_dim]`` kernels) keeps its name and shape. Arrays are
+copied, never aliased.
 
 ``variables_from_jax(model, variables)`` takes the whole variables: the
 ``params`` and the BatchNorm running statistics ``batch_stats`` (``mean``
 and ``var`` under the flax path of each ``BatchNorm1d``, whose ``weight``
-is the flax ``scale``); ``variables_to_jax(model)`` is its inverse.
+is the flax ``scale``, and of each ``FlaxBatchNorm``, which keeps flax's
+names); ``variables_to_jax(model)`` is its inverse.
 
 ``params_to_jax(model)`` and ``grads_to_jax(model)`` go the other way: the
 port's parameters, or their ``.grad``s, as a nested dict of numpy arrays
@@ -35,16 +39,33 @@ def flat_leaves(tree, prefix=()):
 
 
 def jax_leaf_key(model: nn.Module, name: str):
-    """(flax path as a tuple, transpose?) of the port parameter ``name``
-    (a key of ``model.named_parameters()``)."""
+    """(flax path as a tuple, relaid?) of the port parameter ``name`` (a
+    key of ``model.named_parameters()``): relaid leaves go through
+    ``from_flax_layout`` / ``to_flax_layout``."""
     *mod_path, attr = name.split(".")
     module = model.get_submodule(".".join(mod_path))
-    if isinstance(module, nn.Linear) and attr == "weight":
+    if (isinstance(module, (nn.Linear, nn.Conv2d, nn.Conv3d))
+            and attr == "weight"):
         return tuple(mod_path) + ("kernel",), True
     if (isinstance(module, (nn.LayerNorm, nn.BatchNorm1d))
             and attr == "weight"):
         return tuple(mod_path) + ("scale",), False
     return tuple(mod_path) + (attr,), False
+
+
+def from_flax_layout(value: np.ndarray) -> np.ndarray:
+    """A flax kernel [*window, in, out] (a ``Dense``'s [in, out]) in the
+    layout of torch's weight, [out, in, *window]."""
+    n = value.ndim
+    return np.ascontiguousarray(
+        value.transpose((n - 1, n - 2) + tuple(range(n - 2))))
+
+
+def to_flax_layout(value: np.ndarray) -> np.ndarray:
+    """The inverse of ``from_flax_layout``."""
+    n = value.ndim
+    return np.ascontiguousarray(
+        value.transpose(tuple(range(2, n)) + (1, 0)))
 
 
 def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
@@ -60,7 +81,7 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
                 raise KeyError(f"no JAX parameter {'/'.join(key)} for {name}")
             value = np.array(leaves[key], dtype=np.float32)
             if transpose:
-                value = np.ascontiguousarray(value.T)
+                value = from_flax_layout(value)
             if isinstance(param, nn.parameter.UninitializedParameter):
                 _fix_lazy_width(model, name, value)
             if tuple(value.shape) != tuple(param.shape):
@@ -99,7 +120,7 @@ def _to_jax_tree(model: nn.Module, pick) -> dict:
         node = tree
         for part in key[:-1]:
             node = node.setdefault(part, {})
-        node[key[-1]] = np.ascontiguousarray(value.T) if transpose else value
+        node[key[-1]] = to_flax_layout(value) if transpose else value
     return tree
 
 
@@ -121,11 +142,19 @@ def grads_to_jax(model: nn.Module) -> dict:
     return _to_jax_tree(model, pick)
 
 
-def batch_norm_modules(model: nn.Module):
-    """(flax path tuple, module) of every ``BatchNorm1d`` of ``model``."""
+def batch_stats_leaves(model: nn.Module):
+    """(flax ``batch_stats`` path tuple, module, buffer name) of every
+    running statistic of ``model``: ``mean`` and ``var`` of each
+    ``BatchNorm1d`` (its ``running_mean`` / ``running_var``) and of each
+    module that keeps them under flax's names (``FLAX_BATCH_STATS``)."""
     for name, module in model.named_modules():
+        path = tuple(name.split("."))
         if isinstance(module, nn.BatchNorm1d):
-            yield tuple(name.split(".")), module
+            yield path + ("mean",), module, "running_mean"
+            yield path + ("var",), module, "running_var"
+        elif getattr(module, "FLAX_BATCH_STATS", False):
+            yield path + ("mean",), module, "mean"
+            yield path + ("var",), module, "var"
 
 
 def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
@@ -141,19 +170,17 @@ def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
     leaves = dict(flat_leaves(variables.get("batch_stats", {})))
     used = set()
     with torch.no_grad():
-        for path, module in batch_norm_modules(model):
-            for leaf, buf in (("mean", module.running_mean),
-                              ("var", module.running_var)):
-                key = path + (leaf,)
-                if key not in leaves:
-                    raise KeyError(f"no JAX batch_stats {'/'.join(key)}")
-                value = np.array(leaves[key], dtype=np.float32)
-                if tuple(value.shape) != tuple(buf.shape):
-                    raise ValueError(f"{'/'.join(key)}: port shape "
-                                     f"{tuple(buf.shape)} != JAX shape "
-                                     f"{tuple(value.shape)}")
-                buf.copy_(torch.from_numpy(value))
-                used.add(key)
+        for key, module, attr in batch_stats_leaves(model):
+            buf = getattr(module, attr)
+            if key not in leaves:
+                raise KeyError(f"no JAX batch_stats {'/'.join(key)}")
+            value = np.array(leaves[key], dtype=np.float32)
+            if tuple(value.shape) != tuple(buf.shape):
+                raise ValueError(f"{'/'.join(key)}: port shape "
+                                 f"{tuple(buf.shape)} != JAX shape "
+                                 f"{tuple(value.shape)}")
+            buf.copy_(torch.from_numpy(value))
+            used.add(key)
     unused = sorted("/".join(k) for k in leaves if k not in used)
     if unused:
         raise KeyError(f"JAX batch_stats the port does not take: {unused}")
@@ -165,11 +192,10 @@ def variables_to_jax(model: nn.Module) -> dict:
     variables tree ``{"params": ..., "batch_stats": ...}`` (no
     ``batch_stats`` without a BatchNorm)."""
     out = {"params": params_to_jax(model)}
-    for path, module in batch_norm_modules(model):
+    for key, module, attr in batch_stats_leaves(model):
         node = out.setdefault("batch_stats", {})
-        for part in path:
+        for part in key[:-1]:
             node = node.setdefault(part, {})
-        for leaf, buf in (("mean", module.running_mean),
-                          ("var", module.running_var)):
-            node[leaf] = buf.detach().to("cpu", torch.float32).numpy().copy()
+        node[key[-1]] = getattr(module, attr).detach().to(
+            "cpu", torch.float32).numpy().copy()
     return out

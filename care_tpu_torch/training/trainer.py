@@ -39,8 +39,12 @@ A NAR model with a ``teacher_path`` decodes with its AR teacher
 mapping between the two corpora, and handed to the translator with every
 validation and test batch, which rescores the candidates with it.
 
+A model with ``with_backbones`` trains its image tower end to end on raw
+frames; ``backbone_weights`` fills the tower from local torch state dicts
+after the model is built (``models/backbone.py``).
+
 Not ported yet, each rejected with ``NotImplementedError``: a ``mesh``, a
-``fused_xent_backend`` other than ``auto``, ``backbone_weights``.
+``fused_xent_backend`` other than ``auto``.
 """
 
 import json
@@ -56,6 +60,7 @@ from care_tpu_torch.data.loader import prefetch
 from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.metrics import COCOScorer
 from care_tpu_torch.models import build_captioner
+from care_tpu_torch.models.backbone import maybe_load_backbone_weights
 from care_tpu_torch.models.common import set_dropout_generator, unsupported
 from care_tpu_torch.models.decoders import (is_rnn_decoder,
                                             set_sampling_generator)
@@ -104,8 +109,6 @@ def schedule_sampling_prob(opt: dict, epoch: int) -> float:
 
 
 def _check_opt(opt: dict) -> None:
-    if opt.get("backbone_weights"):
-        raise unsupported("backbone_weights", opt["backbone_weights"])
     # the JAX package's "xla" forces its scan form and "pallas" its kernel;
     # the port has one rule per device (the kernels on a CUDA tensor)
     if opt.get("fused_xent_backend", "auto") != "auto":
@@ -188,11 +191,14 @@ class Trainer:
     # ------------------------------------------------------------------
     def init_model(self, seed: int = None):
         """Build the Captioner on the trainer's device, weights drawn from
-        ``seed`` (default ``opt['seed']``), in training mode, with the
+        ``seed`` (default ``opt['seed']``) and the backbones' from
+        ``backbone_weights`` where given, in training mode, with the
         trainer's dropout generator."""
         seed = self.opt.get("seed", 0) if seed is None else seed
         self.model = build_captioner(self.opt, device=self.device,
                                      seed=seed).train()
+        if self.opt.get("backbone_weights"):
+            maybe_load_backbone_weights(self.model, self.opt)
         self.dropout_generator = torch.Generator(device=self.device)
         self.dropout_generator.manual_seed(self.opt.get("seed", 0) + 1)
         set_dropout_generator(self.model, self.dropout_generator)

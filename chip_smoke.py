@@ -141,6 +141,21 @@ before the last line:
    ``care_tpu_torch.translate.main -cp a b`` on the two checkpoints the
    phase writes, over a synthetic dataset with a retrieval database. No
    kernel launches.
+7i. backbone: the visual front at full width. The flagship with CLIP
+   ViT-B/32 (patch 32, width 768, 12 layers, 12 heads, output 512, 224 x
+   224; ``with_backbones`` on the image stream) serves 64 + 17 videos of 28
+   raw frames (K1 == beam steps, scores re-checked by teacher forcing, one
+   batch profiled with the backbone's share of device time, the 1.08 GB
+   frame copy timed alone, 2 videos equal to the CPU's beams) and trains 4
+   fused steps at batch 16 twice from one seed (K2, K3a, K3b == steps; ms
+   a step, peak memory; parameter gap 0.0 with cuDNN deterministic); CLIP
+   ViT-B/32, ResNet-50 and InceptionResNetV2 encode 448 frames each
+   (images/s, held to the CPU on 4 frames); the retrieval database at
+   MSRVTT's size (10 000 videos x 20 captions of 512: top-k indices equal
+   to the CPU's, evaluation metrics, ranks of 500 videos equal to the
+   CPU's); the patch encoders ``CNN1``-``CNN3`` and
+   ``SingleStreamEmbedder`` with the flagship's decoder take one fused
+   train step and decode 64 each (beams of 2 videos equal to the CPU's).
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -703,9 +718,20 @@ def _retrieved_ids(opt, n, seed):
 def _synthetic_feats(opt, n, seed):
     rs = np.random.RandomState(seed)
     feats = []
+    backbones = dict(zip(opt["modality"], opt.get("with_backbones") or []))
     for char in opt["modality"]:
         if char == "t":
             feats.append(_retrieved_ids(opt, n, seed + 7))
+            continue
+        if backbones.get(char):
+            # raw frames for the image backbone
+            feats.append(_frames(n, opt["n_frames"], seed))
+            continue
+        if opt["encoder"].startswith("CNN"):
+            # dense patch features [n, frames, layers, patches]
+            feats.append(np.random.default_rng(seed).standard_normal(
+                (n, opt["n_frames"], PATCH_LAYERS, opt[f"dim_{char}"]),
+                dtype=np.float32))
             continue
         if char == "m" and opt["feats"] == "SwinBERTDense":
             # the dense motion stream is loaded whole: 1568 patches a video
@@ -777,7 +803,7 @@ SCORE_TOL, SCORE_TOL_BF16 = 1e-3, 3e-3
 
 
 def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
-           bf16_kernels=(), profile_ranges=()) -> dict:
+           bf16_kernels=(), profile_ranges=(), time_copy=False) -> dict:
     """Caption synthetic batches of the given sizes through
     ``get_translator(opt).translate_batch`` with the launch counts set to 0
     just before and read just after; hold the counts against the beam steps
@@ -786,7 +812,8 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
     forward of the served model (the dense attention). Returns the launch
     counts, caps/s, ms per beam step and the first hypotheses.
     ``profile_ranges``: modules whose share of the profiled batch's device
-    time to print (``_profile``)."""
+    time to print (``_profile``). The first batch's feature copy is timed
+    alone at long keys, or with ``time_copy``."""
     t0 = time.perf_counter()
     model = build_captioner(opt, seed=SEED)
     translator = get_translator(opt)
@@ -864,7 +891,7 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
              f"; control, against the f32 model's teacher forcing: max "
              f"|diff| {control:.2e}"))
     print(f"serve {label}: first caption tokens {results[0][0][0][0][:12]}")
-    if flash:
+    if flash or time_copy:
         # what of a batch's wall time is the copy of its features
         n_bytes = sum(f.nbytes for f in batches[0])
         torch.cuda.synchronize()
@@ -1903,6 +1930,308 @@ def phase_ensemble(scratch) -> dict:
           f"scoring included): CIDEr {scores['CIDEr']:.6f}; kernel "
           f"launches in the phase 0")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# the visual front: the CLIP backbone inside the flagship, the towers'
+# pretreatment, the retrieval database, the patch encoders
+# ---------------------------------------------------------------------------
+
+BACKBONE = "clip~ViT-B/32"
+FRAME_SIDE = 224
+BACKBONE_TRAIN_BATCH, BACKBONE_TRAIN_BATCHES = 16, 2
+TOWERS = (("clip ViT-B/32", 224), ("resnet50", 224),
+          ("inceptionresnetv2", 299))
+TOWER_FRAMES = 448
+TOWER_CPU_FRAMES = 4
+# MSRVTT's size: 10 000 videos x 20 captions, CLIP ViT-B/32's 512 wide
+RETRIEVAL_VIDEOS, RETRIEVAL_CAPTIONS, RETRIEVAL_DIM = 10000, 20, 512
+RETRIEVAL_TOPK, RETRIEVAL_CPU_RANK_ROWS = 20, 500
+PATCH_LAYERS, PATCH_SIDE = 4, 7
+PATCH_ENCODERS = (("CNN1", "m"), ("CNN2", "m"), ("CNN3", "m"),
+                  ("SingleStreamEmbedder", "ami"))
+
+
+def backbone_opt() -> dict:
+    """The flagship with CLIP ViT-B/32 on its image stream: raw frames
+    [B, 28, 224, 224, 3] in, the tower's 512-wide features to
+    ``Encoder_I`` (the flagship's ``amir`` streams, ``with_backbones``
+    ``["", "", "clip~ViT-B/32", ""]``)."""
+    opt = flagship_opt()
+    opt["with_backbones"] = ["" if c != "i" else BACKBONE
+                             for c in opt["modality"]]
+    assert opt["modality"] == "amir" and opt["dim_i"] == 512
+    return opt
+
+
+def _frames(n, n_frames, seed, side=FRAME_SIDE):
+    """Raw frames of normalized values [n, n_frames, side, side, 3]."""
+    return np.random.default_rng(seed).standard_normal(
+        (n, n_frames, side, side, 3), dtype=np.float32)
+
+
+def _tower(name, seed):
+    from care_tpu_torch.models.cnn import create_cnn
+    from care_tpu_torch.pretreatment.clip import CLIPVisionTransformer
+    g = torch.Generator().manual_seed(seed)
+    model = (CLIPVisionTransformer(generator=g) if name.startswith("clip")
+             else create_cnn(name, g))
+    return model.eval()
+
+
+def _backbone_train(opt, loader, scratch, label):
+    """``Trainer.fit`` with the counts set to 0 just before: (trainer,
+    counts, seconds, peak MiB allocated above what was resident)."""
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    trainer = Trainer(dict(opt, checkpoint_path=os.path.join(scratch,
+                                                             label)), loader)
+    trainer.fit()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - resident) / 2**20
+    return trainer, _launch_counts(), seconds, peak
+
+
+def phase_backbone(scratch) -> dict:
+    """The visual front at full width, on raw frames of normalized values
+    from the seed. (1) Serve: the flagship with CLIP ViT-B/32 (patch 32,
+    width 768, 12 layers, 12 heads, output 512, 224 x 224; random weights)
+    captions 64 + 17 videos of 28 frames through ``translate_batch``
+    (``_serve``: K1 == beam steps, scores re-checked by teacher forcing,
+    one batch profiled with the backbone's share of device time, the 1.08
+    GB frame copy of a batch timed alone), and 2 videos are decoded on the
+    card and on the CPU (beams equal). (2) Train: ``Trainer.fit`` with ``fused_xent:
+    True`` at batch 16 (448 frames a step through the tower), K2, K3a and
+    K3b once per step, ms a step and the peak of allocated memory; then
+    the run again from one seed with cuDNN deterministic: losses equal and
+    a parameter gap of exactly 0.0. (3) Pretreatment: ``encode_images`` of
+    CLIP ViT-B/32, ResNet-50 and InceptionResNetV2 on 448 frames each
+    (images/s from numpy and of the device forward alone), held to the CPU
+    port on 4 frames; ``retrieve_topk`` and ``evaluate_retrieval`` on
+    MSRVTT's size (10 000 videos x 20 captions of 512), indices equal to
+    the CPU's (all top-k rows; the ranks of 500 videos). (4) The patch
+    encoders (``CNN1``, ``CNN2``, ``CNN3`` on 28 frames of 4 layers x 49
+    patches; ``SingleStreamEmbedder`` on ``ami``) with the flagship's
+    decoder (``Transformer Base``, H 512, V 11 000): one fused train step
+    and one decode of 64 each (K2, K3a, K3b == 1, K1 == beam steps), beams
+    of 2 videos equal to the CPU's. Returns the launch counts of (1), (2)
+    and (4), each read right after its own run."""
+    from care_tpu_torch.models.backbone import BackboneManager
+    from care_tpu_torch.models.cnn import encode_images as encode_cnn
+    from care_tpu_torch.models.weights import params_to_jax
+    from care_tpu_torch.pretreatment import retrieval
+    from care_tpu_torch.pretreatment.clip import encode_images as encode_clip
+
+    opt = backbone_opt()
+    totals = dict.fromkeys(KERNELS, 0)
+
+    # (1) serving
+    served = _serve("backbone", opt, [BATCH, RAGGED], False,
+                    ["fused_head_topk"], time_copy=True,
+                    profile_ranges=(("backbone", BackboneManager),))
+    for k, n in served["counts"].items():
+        totals[k] += n
+    feats = _synthetic_feats(opt, 2, SEED + 70)
+    beams = []
+    for device in ("cuda", "cpu"):
+        model = build_captioner(opt, device=device, seed=SEED)
+        beams.append(get_translator(opt, device=device).translate_batch(
+            model, {"feats": feats}))
+    assert beams[0][0] == beams[1][0], beams
+    gap = float(np.max(np.abs(np.asarray(beams[0][1])
+                              - np.asarray(beams[1][1]))))
+    assert gap <= 1e-4, gap
+    print(f"backbone: 2 videos decoded on the card and on the CPU: beams "
+          f"equal, scores within {gap:.2e}")
+
+    # (2) training, twice from one seed
+    cudnn = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        loader = SyntheticLoader(opt, BACKBONE_TRAIN_BATCHES,
+                                 BACKBONE_TRAIN_BATCH, SEED + 80)
+        train_opt = dict(opt, fused_xent=True, epochs=2,
+                         batch_size=BACKBONE_TRAIN_BATCH)
+        steps = 2 * BACKBONE_TRAIN_BATCHES
+        runs = []
+        for label in ("backbone_train", "backbone_repeat"):
+            trainer, counts, seconds, peak = _backbone_train(
+                train_opt, loader, scratch, label)
+            assert trainer._fused_xent and trainer.global_step == steps
+            for name, n in counts.items():
+                assert n == (steps if name in (
+                    "vocab_argmax_lse", "fused_xent_bwd_dh",
+                    "fused_xent_bwd_dw") else 0), (name, counts)
+            losses = _step_losses(trainer)
+            assert all(np.isfinite(losses)), losses
+            ms = 1e3 * trainer.history[-1]["epoch_time"] / len(loader)
+            runs.append((losses, params_to_jax(trainer.model), counts))
+            print(f"backbone: train {steps} steps of batch "
+                  f"{BACKBONE_TRAIN_BATCH} ({BACKBONE_TRAIN_BATCH * 28} "
+                  f"frames a step through the tower), fused_xent on, "
+                  f"dropout on, in {seconds:.2f} s with model build; epoch "
+                  f"1 {ms:.1f} ms a step (host clock); peak device memory "
+                  f"{peak / 1024:.3f} GiB allocated; losses "
+                  f"{[round(l, 4) for l in losses]}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            del trainer
+        (loss_a, params_a, counts), (loss_b, params_b, _) = runs
+        assert loss_a == loss_b, (loss_a, loss_b)
+
+        def leaves(tree, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, prefix + k + "/")
+                else:
+                    yield prefix + k, v
+        b = dict(leaves(params_b))
+        param_gap = max(float(np.abs(v - b[k]).max())
+                        for k, v in leaves(params_a))
+        assert param_gap == 0.0, param_gap
+        for k, n in counts.items():
+            totals[k] += n
+        print(f"backbone: the run repeated from one seed (cuDNN "
+              f"deterministic): losses equal, parameter gap {param_gap}")
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark \
+            = cudnn
+
+    # (3) pretreatment: the towers, then the retrieval database
+    for name, side in TOWERS:
+        model = _tower(name.split()[0], SEED + 90)
+        frames = _frames(1, TOWER_FRAMES, SEED + 91, side)[0]
+        encode = encode_clip if name.startswith("clip") else encode_cnn
+        want = encode(model, frames[:TOWER_CPU_FRAMES])
+        model = model.cuda()
+        encode(model, frames[:64])                             # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = encode(model, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        on_card = torch.as_tensor(frames, device="cuda")
+        with torch.no_grad():
+            fwd_ms = _time_ms(lambda: model(on_card), n=3, warm=1)
+        atol = 5e-4 if name == "inceptionresnetv2" else 2e-4
+        err = float(np.max(np.abs(got[:TOWER_CPU_FRAMES] - want)))
+        np.testing.assert_allclose(got[:TOWER_CPU_FRAMES], want, rtol=1e-3,
+                                   atol=atol)
+        assert np.isfinite(got).all() and got.shape[0] == TOWER_FRAMES
+        print(f"pretreatment {name} at {side}x{side}: encode_images of "
+              f"{TOWER_FRAMES} frames from numpy {wall:.3f} s "
+              f"({TOWER_FRAMES / wall:.1f} images/s); the device forward "
+              f"of the {TOWER_FRAMES} alone {fwd_ms:.2f} ms "
+              f"({1e3 * TOWER_FRAMES / fwd_ms:.1f} images/s); features "
+              f"{list(got.shape)}, |max| {float(np.abs(got).max()):.3g}, "
+              f"against the CPU on {TOWER_CPU_FRAMES} frames max |diff| "
+              f"{err:.2e} (atol {atol:g}, rtol 1e-3)")
+        del model, on_card
+
+    rs = np.random.default_rng(SEED + 100)
+    n_text = RETRIEVAL_VIDEOS * RETRIEVAL_CAPTIONS
+    image = rs.standard_normal((RETRIEVAL_VIDEOS, RETRIEVAL_DIM),
+                               dtype=np.float32)
+    # each video's captions near its embedding, as CLIP places them
+    text = (np.repeat(image, RETRIEVAL_CAPTIONS, axis=0)
+            + 10.0 * rs.standard_normal((n_text, RETRIEVAL_DIM),
+                                        dtype=np.float32))
+    own = [(RETRIEVAL_CAPTIONS * i, RETRIEVAL_CAPTIONS * (i + 1))
+           for i in range(RETRIEVAL_VIDEOS)]
+    refs = [f"caption {j % (n_text * 3 // 4)}" for j in range(n_text)]
+    k = RETRIEVAL_TOPK * 20 + 64
+    retrieval.sims_topk(image[:64], text, k)                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    top_card = retrieval.sims_topk(image, text, k)
+    topk_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    top_cpu = retrieval.sims_topk(image, text, k, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    assert np.array_equal(top_card, top_cpu), \
+        int((top_card != top_cpu).any(axis=1).sum())
+    t0 = time.perf_counter()
+    ids = retrieval.retrieve_topk(image, text, RETRIEVAL_TOPK,
+                                  own_ranges=own, refs=refs, unique=True)
+    filter_s = time.perf_counter() - t0
+    assert all(len(r) == RETRIEVAL_TOPK for r in ids)
+    assert all(not s <= i < e for r, (s, e) in zip(ids, own) for i in r)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = retrieval.evaluate_retrieval(image, text, own)
+    eval_s = time.perf_counter() - t0
+    rows = RETRIEVAL_CPU_RANK_ROWS
+    ranks_card = retrieval.own_caption_ranks(image[:rows], text, own[:rows])
+    ranks_cpu = retrieval.own_caption_ranks(image[:rows], text, own[:rows],
+                                            device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(ranks_card, ranks_cpu))
+    print(f"pretreatment retrieval: {RETRIEVAL_VIDEOS} videos x "
+          f"{n_text} captions of {RETRIEVAL_DIM}: similarity top-{k} on the "
+          f"card {topk_s:.3f} s, on the CPU {cpu_s:.3f} s, indices equal "
+          f"(all rows, ties lowest index first); retrieve_topk with the "
+          f"own-range and duplicate filters {filter_s:.3f} s; "
+          f"evaluate_retrieval {eval_s:.3f} s: "
+          f"{ {m: round(v, 4) for m, v in metrics.items()} }; own-caption "
+          f"ranks of {rows} videos equal to the CPU's")
+
+    # (4) the patch encoders with the flagship's decoder
+    for encoder, modality in PATCH_ENCODERS:
+        popt = get_opt({"dataset": "MSRVTT", "method": "Transformer",
+                        "task": "Base", "feats": "ViT", "modality": modality,
+                        "encoder": encoder, "vocab_size": 11000},
+                       read_vocab=False, resolve_paths=False)
+        popt.update(dim_a=128, dim_m=2048, dim_i=512)
+        if encoder.startswith("CNN"):
+            popt["dim_m"] = PATCH_SIDE ** 2
+        loader = SyntheticLoader(popt, 1, BATCH, SEED + 110)
+        trainer, counts, seconds, peak = _backbone_train(
+            dict(popt, fused_xent=True, epochs=1), loader, scratch,
+            f"patch_{encoder}")
+        for name, n in counts.items():
+            assert n == (1 if name in ("vocab_argmax_lse",
+                                       "fused_xent_bwd_dh",
+                                       "fused_xent_bwd_dw") else 0), counts
+            totals[name] += n
+        loss = _step_losses(trainer)[0]
+        assert np.isfinite(loss)
+        model = trainer.model.eval()
+        translator = get_translator(popt)
+        feats = _synthetic_feats(popt, BATCH, SEED + 120)
+        _zero_launch_counts()
+        translator.beam_steps = 0
+        t0 = time.perf_counter()
+        hyps, scores = translator.translate_batch(model, {"feats": feats})
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        counts, steps = _launch_counts(), translator.beam_steps
+        assert counts["fused_head_topk"] == steps > 0, (counts, steps)
+        totals["fused_head_topk"] += counts["fused_head_topk"]
+        assert all(np.isfinite(s[0]) for s in scores)
+        cpu_model = build_captioner(popt, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   model.state_dict().items()})
+        few = [f[:2] for f in feats]
+        want_h, want_s = get_translator(popt, device="cpu").translate_batch(
+            cpu_model, {"feats": few})
+        got_h, got_s = translator.translate_batch(model, {"feats": few})
+        assert got_h == want_h, (got_h, want_h)
+        gap = float(np.max(np.abs(np.asarray(got_s) - np.asarray(want_s))))
+        assert gap <= 1e-4, gap
+        print(f"patch encoder {encoder} ({type(model.encoder).__name__}, "
+              f"modality {modality}, stream "
+              f"{list(feats[0].shape)}): one fused train step of {BATCH} "
+              f"(loss {loss:.4f}, {seconds:.2f} s with model build, peak "
+              f"{peak / 1024:.3f} GiB), a decode of {BATCH} in "
+              f"{decode_s:.3f} s with K1 == {steps} beam steps; 2 videos "
+              f"on the CPU: beams equal, scores within "
+              f"{gap:.2e}")
+        del trainer, model, cpu_model
+    return totals
 
 
 def _xent_scratch(opt) -> None:
@@ -2977,6 +3306,8 @@ def main() -> None:
         for k, n in phase_pointer(scratch).items():
             counts[k] += n
         for k, n in phase_ensemble(scratch).items():
+            counts[k] += n
+        for k, n in phase_backbone(scratch).items():
             counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -102,7 +102,10 @@ def test_port_imports_neither_jax_nor_care_tpu():
         "          'models.framework', 'models.weights',\n"
         "          'models.pointer', 'models.ensemble',\n"
         "          'models.loading', 'decoding.nar', 'decoding.translator',\n"
-        "          'config.loader'):\n"
+        "          'config.loader', 'models.cnn', 'models.backbone',\n"
+        "          'pretreatment.clip', 'pretreatment.bpe',\n"
+        "          'pretreatment.frames', 'pretreatment.retrieval',\n"
+        "          'pretreatment_cli'):\n"
         "    assert 'care_tpu_torch.' + m in mods, m\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -126,11 +129,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 UNSUPPORTED = [
-    ("encoder", "CNN3"), ("encoder", "CNN2"),
-    ("encoder", "CNN1"),
     ("fused_head_backend", "xla"), ("compute_dtype_decode", "float16"),
-    ("with_backbones", True),
-    ("encoder", "SingleStreamEmbedder"), ("compute_dtype_decode", "fp8"),
+    ("compute_dtype_decode", "fp8"),
 ]
 
 
@@ -140,6 +140,39 @@ def test_unsupported_options_raise(key, value):
     with pytest.raises(NotImplementedError, match=key):
         build_captioner(opt, device="cpu")
         get_translator(opt, device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [
+    ("encoder", "CNN3"), ("encoder", "CNN2"), ("encoder", "CNN1"),
+    ("with_backbones", True), ("encoder", "SingleStreamEmbedder")])
+def test_visual_front_options_build_and_serve(key, value):
+    """The patch encoders and ``with_backbones`` used to raise; each now
+    builds and decodes (``with_backbones`` as ResNet-18 on the image
+    stream's raw frames; ``tests/test_torch_backbone.py`` and
+    ``tests/test_torch_patch_encoders.py`` hold them to ``care_tpu``)."""
+    opt = port_get_opt({**TINY, "modality": "m" if key == "encoder"
+                        and value != "SingleStreamEmbedder" else "mi",
+                        key: value if key == "encoder" else []},
+                       read_vocab=False, resolve_paths=False)
+    opt.update(dim_m=16, dim_i=512 if key == "with_backbones" else 16,
+               n_frames=8)
+    rs = np.random.RandomState(1)
+    if key == "with_backbones":
+        opt["with_backbones"] = ["", "resnet18"]
+        feats = [rs.randn(2, 8, 16), rs.randn(2, 8, 32, 32, 3)]
+    elif value == "SingleStreamEmbedder":
+        feats = [rs.randn(2, 8, 16), rs.randn(2, 8, 16)]
+    else:
+        feats = [rs.randn(2, 8, 3, 16)]
+    feats = [f.astype(np.float32) for f in feats]
+    model = build_captioner(opt, device="cpu")
+    assert type(model.encoder).__name__ == (
+        "MultipleStreams" if key == "with_backbones" else
+        value if value == "SingleStreamEmbedder" else "CNNPatchEncoder")
+    assert (model.backbone is not None) == (key == "with_backbones")
+    hyps, scores = get_translator(opt, device="cpu").translate_batch(
+        model, {"feats": feats})
+    assert len(hyps) == len(scores) == 2 and all(len(h[0]) for h in hyps)
 
 
 @pytest.mark.parametrize("key,value", [

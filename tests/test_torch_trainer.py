@@ -318,12 +318,21 @@ def test_dropout_keeps_the_mean():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("key,value", [
-    ("backbone_weights", "resnet.pth"), ("fused_xent_backend", "xla"),
-    ("fused_xent_backend", "pallas")])
+    ("fused_xent_backend", "xla"), ("fused_xent_backend", "pallas")])
 def test_rejected_options_raise_naming_themselves(key, value):
     opt = _opt(**{key: value})
     with pytest.raises(NotImplementedError, match=key):
         Trainer(opt, ListLoader([]), device="cpu")
+
+
+@pytest.mark.parametrize("key,value", [("backbone_weights", "resnet.pth")])
+def test_backbone_weights_are_accepted(key, value):
+    """``backbone_weights`` used to raise. Without ``with_backbones`` it
+    names no tower and the model builds as without it, as in the JAX
+    package (``tests/test_torch_backbone.py`` loads a ``.pth`` into a
+    backbone)."""
+    tr = Trainer(_opt(**{key: value}), ListLoader([]), device="cpu")
+    assert tr.init_model().backbone is None
 
 
 @pytest.mark.parametrize("key,value", [
