@@ -45,3 +45,48 @@ FLAG2MODALITY = {
     "A": "a",
     "T": "r",
 }
+# coarse POS-tag mapping (Penn Treebank tag -> universal-ish coarse tag)
+POS_TAG_MAPPING = {}
+_content = [
+    [["``", "''", ",", "-LRB-", "-RRB-", ".", ":", "HYPH", "NFP"], "PUNCT"],
+    [["$", "SYM"], "SYM"],
+    [["VB", "VBD", "VBG", "VBN", "VBP", "VBZ", "MD"], "VERB"],
+    [["WDT", "WP$", "PRP$", "DT", "PDT"], "DET"],
+    [["NN", "NNP", "NNPS", "NNS"], "NOUN"],
+    [["WP", "EX", "PRP"], "PRON"],
+    [["JJ", "JJR", "JJS", "AFX"], "ADJ"],
+    [["ADD", "FW", "GW", "LS", "NIL", "XX"], "X"],
+    [["SP", "_SP"], "SPACE"],
+    [["RB", "RBR", "RBS", "WRB"], "ADV"],
+    [["IN", "RP"], "ADP"],
+    [["CC"], "CCONJ"],
+    [["CD"], "NUM"],
+    [["POS", "TO"], "PART"],
+    [["UH"], "INTJ"],
+]
+for _ks, _v in _content:
+    for _k in _ks:
+        POS_TAG_MAPPING[_k] = _v
+
+INDEX2CATEGORY = {
+    0: "music",
+    1: "people",
+    2: "gaming",
+    3: "sports/actions",
+    4: "news/events/politics",
+    5: "education",
+    6: "tv-shows",
+    7: "movie/comedy",
+    8: "animation",
+    9: "vehicles/autos",
+    10: "how-to",
+    11: "travel",
+    12: "science/technology",
+    13: "animals/pets",
+    14: "kids/family",
+    15: "documentary",
+    16: "food/drink",
+    17: "cooking",
+    18: "beauty/fashion",
+    19: "advertisement",
+}

@@ -10,7 +10,8 @@ teacher's parameters of matching shape into a fresh student and remaps the
 vocabulary rows of the word embeddings and the head through the id
 mapping). It reads the port's own checkpoints (``training/checkpoints.py``:
 the variables under the flax tree's names and the ``.json`` side-car's
-opt). Several checkpoints load as an ensemble (``models/ensemble.py``).
+opt) and those ``care_tpu`` saved (flax msgpack of the same tree). Several
+checkpoints load as an ensemble (``models/ensemble.py``).
 """
 
 import os

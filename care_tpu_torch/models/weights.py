@@ -124,12 +124,16 @@ def _to_jax_tree(model: nn.Module, pick) -> dict:
     return tree
 
 
-def params_to_jax(model: nn.Module) -> dict:
+def params_to_jax(model: nn.Module, values: dict = None) -> dict:
     """The port's parameters as the flax ``params`` tree (numpy copies,
     Linear weights transposed back to ``[in, out]`` kernels). Raises on a
     parameter that has no flax name (one held by the model itself rather
-    than a named submodule)."""
-    return _to_jax_tree(model, lambda name, param: param)
+    than a named submodule). ``values`` (parameter name -> tensor of that
+    parameter's shape) gives the tree of other values under the model's
+    names, say a mean teacher's copy of the parameters."""
+    if values is None:
+        return _to_jax_tree(model, lambda name, param: param)
+    return _to_jax_tree(model, lambda name, param: values[name])
 
 
 def grads_to_jax(model: nn.Module) -> dict:

@@ -2,11 +2,15 @@
 artifacts (image features, caption embeddings, the retrieval database).
 
 Port of ``pretreatment_cli.py`` (reference ``pretreatment/``
-``extract_frames_from_videos.py``, ``extract_image_feats_from_frames.py``,
-``clip_feats.py``, ``clip_text_embs.py``, ``clip_retrieval.py``), with the
-same flags and HDF5 layout. Every input (videos, frames, CLIP and CNN
-checkpoints, the BPE merges file) is a local file.
+``prepare_corpora.py``, ``extract_frames_from_videos.py``,
+``extract_image_feats_from_frames.py``, ``clip_feats.py``,
+``clip_text_embs.py``, ``bert_text_embs.py``, ``clip_retrieval.py``), with
+the same flags and files. Every input (annotation files, videos, frames,
+CLIP, CNN and BERT checkpoints, the BPE merges file, the BERT vocabulary,
+GloVe vectors) is a local file.
 
+    python -m care_tpu_torch.pretreatment_cli corpora --dataset MSRVTT \\
+        --annotation videodatainfo.json --out_dir data/MSRVTT
     python -m care_tpu_torch.pretreatment_cli frames --video_dir vids/ \\
         --out_dir frames/
     python -m care_tpu_torch.pretreatment_cli image_feats \\
@@ -18,15 +22,20 @@ checkpoints, the BPE merges file) is a local file.
     python -m care_tpu_torch.pretreatment_cli text_embs \\
         --corpus_dir data/MSRVTT --clip_ckpt ViT-B-32.pt \\
         --bpe bpe_simple_vocab_16e6.txt.gz --out text_embs/CLIP_ViT-B-32.hdf5
+    python -m care_tpu_torch.pretreatment_cli text_embs --arch bert \\
+        --corpus_dir data/MSRVTT --bert_ckpt bert-base-uncased.pth \\
+        --vocab vocab.txt --mode max --out text_embs/BERT_max.hdf5
     python -m care_tpu_torch.pretreatment_cli retrieval \\
         --corpus_dir data/MSRVTT --image_embs feats/CLIP_ViT-B-32.hdf5 \\
         --text_embs text_embs/CLIP_ViT-B-32.hdf5 \\
         --out retrieval/CLIP_ViT-B-32_unique.hdf5
+    python -m care_tpu_torch.pretreatment_cli glove \\
+        --glove_txt glove.6B.300d.txt --corpus_dir data/MSRVTT \\
+        --out data/MSRVTT/glove_embs.npy
 
-The towers and the retrieval similarities run on the CUDA card;
-``--device cpu`` runs them on the host. ``corpora``, ``glove`` and
-``text_embs --arch bert`` are not ported yet and raise
-``NotImplementedError``.
+The towers, BERT and the retrieval similarities run on the CUDA card;
+``--device cpu`` runs them on the host. ``corpora`` and ``glove`` run on
+the host.
 """
 
 import argparse
@@ -35,15 +44,74 @@ import pickle
 
 import numpy as np
 
-from care_tpu_torch.models.common import unsupported
-
 
 def cmd_corpora(args):
-    raise unsupported("pretreatment corpora")
+    """Annotations -> ``info_corpus.pkl`` and ``refs.pkl`` (reference
+    ``prepare_corpora.py``)."""
+    from care_tpu_torch.pretreatment import dataset_annotations as da
+    from care_tpu_torch.pretreatment.corpora import (build_references,
+                                                     prepare_corpus,
+                                                     save_corpus)
+    if args.dataset == "MSRVTT":
+        out = da.preprocess_msrvtt(args.annotation)
+    elif args.dataset == "MSVD":
+        out = da.preprocess_msvd(args.annotation, args.mapping)
+    else:
+        out = da.preprocess_vatex(args.annotation, args.val_annotation,
+                                  args.mapping, args.frames_root)
+
+    corpus = prepare_corpus(out["raw_caps_train"], out["raw_caps_all"],
+                            out["split"], count_thr=args.count_thr,
+                            itoc=out.get("itoc"),
+                            attribute_first=not args.no_attribute_first)
+    if "vid2id" in out:
+        corpus["info"]["vid2id"] = out["vid2id"]
+    if "split_category" in out:
+        corpus["info"]["split_category"] = out["split_category"]
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    save_corpus(os.path.join(args.out_dir, "info_corpus.pkl"), corpus)
+    refs = out.get("references") or build_references(out["raw_caps_all"])
+    with open(os.path.join(args.out_dir, "refs.pkl"), "wb") as f:
+        pickle.dump(refs, f)
+    print("- wrote", os.path.join(args.out_dir, "info_corpus.pkl"),
+          f"(vocab={len(corpus['info']['itow'])})")
 
 
 def cmd_glove(args):
-    raise unsupported("pretreatment glove")
+    """Per-vocabulary-word GloVe vectors -> ``.npy`` aligned with ``itow``
+    (reference ``utils_corpora.py:347-421``), and optionally the MSRVTT
+    category embeddings, also stored in ``info_corpus.pkl``."""
+    from care_tpu_torch.data.corpus import load_info_corpus
+    from care_tpu_torch.pretreatment.corpora import (
+        prepare_category_embeddings, save_corpus)
+    corpus = load_info_corpus(os.path.join(args.corpus_dir,
+                                           "info_corpus.pkl"))
+    itow = corpus["info"]["itow"]
+    vectors = {}
+    with open(args.glove_txt, encoding="utf-8") as f:
+        for line in f:
+            parts = line.rstrip().split(" ")
+            vectors[parts[0]] = np.asarray(parts[1:], np.float32)
+    dim = len(next(iter(vectors.values())))
+    table = np.zeros((len(itow), dim), np.float32)
+    missing = 0
+    for i in range(len(itow)):
+        w = itow[i]
+        if w in vectors:
+            table[i] = vectors[w]
+        else:
+            missing += 1
+    np.save(args.out, table)
+    print(f"- wrote {args.out} ({missing} OOV rows left zero)")
+
+    if args.categories_out:
+        cat = prepare_category_embeddings(args.glove_txt, dim)
+        # into the corpus, where `use_category_embs` finds them
+        corpus["info"]["category_embeddings"] = cat
+        save_corpus(os.path.join(args.corpus_dir, "info_corpus.pkl"), corpus)
+        np.save(args.categories_out, cat)
+        print(f"- wrote {args.categories_out} and updated info_corpus.pkl")
 
 
 def cmd_frames(args):
@@ -154,9 +222,24 @@ def cmd_image_feats(args):
 
 def cmd_text_embs(args):
     """Every reference caption -> (n_captions, d) HDF5 per video, by CLIP's
-    text tower (reference ``clip_text_embs.py``)."""
+    text tower (reference ``clip_text_embs.py``) or by BERT with mean or max
+    token pooling (reference ``bert_text_embs.py``)."""
     if args.arch == "bert":
-        raise unsupported("pretreatment text_embs --arch", "bert")
+        from care_tpu_torch.pretreatment.bert import (
+            WordPieceTokenizer, convert_hf_bert_state_dict,
+            extract_text_embs, load_bert)
+        assert args.bert_ckpt and args.vocab, \
+            "--bert_ckpt and --vocab are required for --arch bert"
+        state, config = convert_hf_bert_state_dict(
+            _load_state_dict(args.bert_ckpt))
+        model = load_bert(state, config, args.device)
+        tok = WordPieceTokenizer(args.vocab)
+        with open(os.path.join(args.corpus_dir, "refs.pkl"), "rb") as f:
+            refs = pickle.load(f)
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        extract_text_embs(model, refs, tok, args.out, mode=args.mode)
+        print("- wrote", args.out)
+        return
     import h5py
     from care_tpu_torch.pretreatment.bpe import ClipTokenizer
     from care_tpu_torch.pretreatment.clip import encode_texts

@@ -11,6 +11,8 @@ runs on the CUDA card; ``--device cpu`` runs on the host. With
 ``load_model_weights_from`` (which the NACF commands get from their
 ``teacher_path``) the model starts from that checkpoint's weights where
 their shapes fit (``models/loading.py:load_teacher_weights_into_student``).
+``wrapper: InterplayModel`` trains with the mean teacher
+(``training/mean_teacher.py``).
 ``--mesh`` is not ported yet and raises.
 """
 
@@ -87,8 +89,6 @@ def run(opt, device=None):
     from care_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
-    if opt.get("wrapper") == "InterplayModel":
-        raise unsupported("wrapper", opt["wrapper"])
     seed_everything(opt["seed"])
 
     info_corpus = load_info_corpus(opt["info_corpus"])
@@ -107,7 +107,11 @@ def run(opt, device=None):
                              batch_size=opt.get("eval_batch_size", 128),
                              pad_to_batch=True)
 
-    trainer = Trainer(
+    trainer_cls = Trainer
+    if opt.get("wrapper") == "InterplayModel":
+        from care_tpu_torch.training.mean_teacher import MeanTeacherTrainer
+        trainer_cls = MeanTeacherTrainer
+    trainer = trainer_cls(
         opt, train_loader=train_loader, val_loader=val_loader,
         test_loader=test_loader, references=references, vocab=vocab,
         log_dir=os.path.join(opt["checkpoint_path"], "tb"), device=device)

@@ -11,7 +11,9 @@ Format: ``torch.save`` of the variables tree, a nested dict of CPU tensors
 under the flax tree's names and layouts (``models/weights.py``:
 ``variables_to_jax(model)``, the ``params`` and any ``batch_stats``), plus
 the same side-car JSON as the JAX package (``{"opt", "metadata"}``).
-Loading the JAX package's msgpack checkpoints is not ported.
+``load_checkpoint`` also reads a checkpoint that ``care_tpu`` saved (flax's
+msgpack of the same tree), told apart by its first bytes, so that a model
+trained with the JAX package loads and serves in the port.
 """
 
 import json
@@ -64,13 +66,57 @@ def _check_like(tree, template, path=""):
                          f"template shape {np.shape(template)}")
 
 
+# flax's msgpack extension types of an array and a numpy scalar
+# (``flax/serialization.py:_MsgpackExtType``)
+_MSGPACK_NDARRAY, _MSGPACK_NPSCALAR = 1, 3
+
+
+def _is_msgpack(head: bytes) -> bool:
+    """Whether a checkpoint's first bytes open a msgpack map, the top of
+    the tree ``care_tpu`` saves (a fixmap of 1-15 entries, a map16 or a
+    map32). A ``torch.save`` file opens a zip archive (``PK``) or, in the
+    legacy format, a pickle (``0x80``)."""
+    return bool(head) and (0x81 <= head[0] <= 0x8f or head[0] in (0xde,
+                                                                  0xdf))
+
+
+def read_msgpack_variables(data: bytes) -> Dict[str, Any]:
+    """The variables tree of a ``care_tpu`` checkpoint (flax's
+    ``serialization.to_bytes``) as nested numpy arrays. Needs the
+    ``msgpack`` package."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError("reading a care_tpu (msgpack) checkpoint needs "
+                          "the msgpack package, which is not installed"
+                          ) from e
+
+    def ext_hook(code, payload):
+        if code not in (_MSGPACK_NDARRAY, _MSGPACK_NPSCALAR):
+            raise ValueError(f"unsupported msgpack extension type {code}")
+        shape, dtype_name, buffer = msgpack.unpackb(payload, raw=True)
+        array = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())
+                              ).reshape(shape).copy()
+        return array if code == _MSGPACK_NDARRAY else array[()]
+
+    return msgpack.unpackb(data, ext_hook=ext_hook, raw=False)
+
+
 def load_checkpoint(path: str, variables_template: Dict[str, Any] = None
                     ) -> Tuple[Dict[str, Any], dict, dict]:
     """Returns (variables, opt, metadata); variables as nested numpy
-    arrays. A template (a nested dict of arrays) must have the same tree
-    and shapes, or this raises."""
-    variables = _to_numpy(torch.load(path, map_location="cpu",
-                                     weights_only=True))
+    arrays. The file is the port's (``torch.save``) or ``care_tpu``'s
+    (msgpack), told apart by its first bytes. A template (a nested dict of
+    arrays) must have the same tree and shapes, or this raises."""
+    with open(path, "rb") as f:
+        head = f.read(1)
+        if _is_msgpack(head):
+            variables = read_msgpack_variables(head + f.read())
+        else:
+            variables = None
+    if variables is None:
+        variables = _to_numpy(torch.load(path, map_location="cpu",
+                                         weights_only=True))
     if variables_template is not None:
         _check_like(variables, variables_template)
     meta_path = path + ".json"

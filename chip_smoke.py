@@ -156,6 +156,30 @@ before the last line:
    CPU's); the patch encoders ``CNN1``-``CNN3`` and
    ``SingleStreamEmbedder`` with the flagship's decoder take one fused
    train step and decode 64 each (beams of 2 videos equal to the CPU's).
+7j. mean_teacher: ``wrapper: InterplayModel`` on the flagship at full
+   width with the pipeline's synthetic data (405 videos: 81 validated and
+   81 tested, 64 + 17 each): 2 epochs of 4 batches of 64 with validation
+   every epoch (the student decodes), top-1 checkpoints of the teacher,
+   ``load_best`` and ``test`` (the teacher in memory decodes). K1 ==
+   beam steps, K2 / K3a / K3b == 0 (the dense step, as in ``care_tpu``);
+   the teacher after the first step equals ``0.999 * t0 + 0.001 * s1``
+   recomputed here; ``best.ckpt`` holds its epoch's teacher; the test's
+   first 17 beams equal the host's decode of ``last.ckpt``; a second run
+   from the seed gives a parameter gap of exactly 0.0 for the student and
+   the teacher; ms a step and peak memory beside the plain ``Trainer``'s
+   on the same batches.
+7k. convert: a reference-layout Lightning checkpoint of the flagship
+   (``tests/reference_layout.py``, seeded noise) converted by
+   ``care_tpu_torch.tools.convert_reference_ckpt`` (seconds printed) and
+   served through ``care_tpu_torch.translate`` over 64 + 17 test videos
+   on the card and on the host: equal captions and COCO dict, K1 == beam
+   steps.
+7l. bert: ``BertEncoder`` at bert-base-uncased's published widths
+   (random weights from the seed, a vocabulary file the phase writes)
+   encodes 20 000 synthetic captions of 8-20 words and pools them by mean
+   and max (captions/s with and without the tokenizer); 256 captions held
+   to the host's (f32, TF32 off, 1e-4); none of the seven kernels
+   launches.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
    used nowhere in the port), warm launches timed with CUDA events, beside
@@ -2294,31 +2318,31 @@ def _synthetic_stores(opt, corpus, n_videos, seed):
     return stores
 
 
-def _pipeline_data(opt, root):
-    """Write the synthetic dataset under ``root`` (HDF5 when ``h5py``
-    imports, else the same arrays in memory), widen the written corpus's
-    vocabulary to ``opt["vocab_size"]`` with unused words, and point the
-    options at it. Returns (opt, loaders, corpus, references, a
-    ``get_loader`` over the store)."""
+def _pipeline_data(opt, root, n_videos=PIPELINE_VIDEOS, label="pipeline"):
+    """Write the synthetic dataset of ``n_videos`` under ``root`` (HDF5
+    when ``h5py`` imports, else the same arrays in memory), widen the
+    written corpus's vocabulary to ``opt["vocab_size"]`` with unused words,
+    and point the options at it. Returns (opt, loaders, corpus, references,
+    a ``get_loader`` over the store)."""
     import pickle
     opt = dict(opt)
     hdf5 = importlib.util.find_spec("h5py") is not None
     if hdf5:
         data_dir, paths, _, _ = corpus_lib.write_synthetic_dataset(
-            root, opt, n_videos=PIPELINE_VIDEOS, seed=SEED)
+            root, opt, n_videos=n_videos, seed=SEED)
         for char, path in paths.items():
             opt[f"feats_{char}"] = [path]
     else:
         data_dir = os.path.join(root, opt["dataset"])
         os.makedirs(data_dir, exist_ok=True)
         corpus = corpus_lib.build_synthetic_corpus(
-            n_videos=PIPELINE_VIDEOS, seed=SEED, max_len=opt["max_len"],
+            n_videos=n_videos, seed=SEED, max_len=opt["max_len"],
             attribute_k=opt["attribute_prediction_k"])
         for name, obj in (("info_corpus.pkl", corpus), ("refs.pkl",
                           corpus_lib.build_synthetic_references(corpus))):
             with open(os.path.join(data_dir, name), "wb") as f:
                 pickle.dump(obj, f)
-        stores = _synthetic_stores(opt, corpus, PIPELINE_VIDEOS, SEED)
+        stores = _synthetic_stores(opt, corpus, n_videos, SEED)
 
         class InMemoryJointDataset(JointDataset):
             """``JointDataset`` over the feature stores held in memory:
@@ -2331,7 +2355,7 @@ def _pipeline_data(opt, root):
 
         for char in opt["modality"]:
             opt[f"feats_{char}"] = [f"memory:{char}"]
-    print(f"pipeline: feature store: "
+    print(f"{label}: feature store: "
           f"{'hdf5' if hdf5 else 'dict (h5py absent)'}")
     opt["info_corpus"] = os.path.join(data_dir, "info_corpus.pkl")
     opt["reference"] = os.path.join(data_dir, "refs.pkl")
@@ -2346,7 +2370,7 @@ def _pipeline_data(opt, root):
         pickle.dump(corpus, f)
     split = [len(corpus["info"]["split"][m])
              for m in ("train", "validate", "test")]
-    print(f"pipeline: {PIPELINE_VIDEOS} videos, split {split}, {used} words "
+    print(f"{label}: {n_videos} videos, split {split}, {used} words "
           f"used of the {len(itow)} in the vocabulary")
 
     def loader(opt, mode, specific=-1, batch_size=None, not_shuffle=False,
@@ -2811,6 +2835,369 @@ def phase_entry(opt, loader_fn, corpus, refs, scratch) -> dict:
           f" launches { {k: v for k, v in counts.items() if v} }: K1 == "
           f"{steps} beam steps")
     return {"fused_head_topk": counts["fused_head_topk"]}
+
+
+# ---------------------------------------------------------------------------
+# the mean teacher, reference-checkpoint conversion, BERT caption embeddings
+# ---------------------------------------------------------------------------
+
+# 405 videos: 243 train, 81 validation and 81 test (64 + 17 a pass)
+MT_VIDEOS, MT_BATCHES, MT_EPOCHS, MT_CPU_VIDEOS = 405, 4, 2, 17
+
+
+class _FirstBatches:
+    """The first ``n`` batches of a train loader, every epoch."""
+
+    def __init__(self, loader, n):
+        self.loader, self.n = loader, n
+
+    def __iter__(self):
+        return iter([b for _, b in zip(range(self.n), self.loader)])
+
+    def __len__(self):
+        return self.n
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+
+def _params_gap(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def _fit_cost(make):
+    """``make()``'s trainer fitted; returns (trainer, ms a step of its last
+    epoch on the host clock, the peak of allocated device memory in MiB
+    above what was allocated before ``make`` ran)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tr = make()
+    tr.fit()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+    last = tr.history[-1]
+    return tr, 1e3 * last["epoch_time"] / last["n_steps"], peak
+
+
+def _cpu_beams(ckpt, batch, n):
+    """The beams ``load_model`` + the translator give on the host for the
+    first ``n`` videos of ``batch`` (the plain kernel versions)."""
+    from care_tpu_torch.models.loading import load_model
+    models, opt = load_model(ckpt, do_replace_paths=False, device="cpu")
+    hyps, _ = get_translator(opt, device="cpu").translate_batch(
+        models[0], {"feats": [f[:n] for f in batch["feats"]]})
+    return hyps
+
+
+def phase_mean_teacher(opt, scratch) -> tuple:
+    """The mean teacher (``wrapper: InterplayModel``) on the flagship at
+    full width with the pipeline's synthetic data: 2 epochs of 4 batches
+    of 64 with validation every epoch (the student decodes), top-1
+    checkpoints of the teacher, ``load_best`` and ``test`` (the teacher in
+    memory decodes), the launch counts set to 0 just before and read just
+    after; then the same training again from the seed, and the plain
+    ``Trainer`` on the same batches. Returns the launch counts and what the
+    convert phase needs."""
+    from care_tpu_torch.models.weights import flat_leaves, params_to_jax
+    from care_tpu_torch.training import checkpoints as ckpt_lib
+    from care_tpu_torch.training.mean_teacher import MeanTeacherTrainer
+    root = os.path.join(scratch, "mean_teacher")
+    base = dict(opt, wrapper="InterplayModel", epochs=MT_EPOCHS,
+                batch_size=BATCH, eval_batch_size=BATCH,
+                checkpoint_path=os.path.join(root, "exps"))
+    t0 = time.perf_counter()
+    base, loaders, corpus, refs, loader_fn = _pipeline_data(
+        base, root, MT_VIDEOS, label="mean_teacher")
+    print(f"mean_teacher: dataset written and loaders built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    vocab = corpus["info"]["itow"]
+    train = _FirstBatches(loaders["train_loader"], MT_BATCHES)
+    ema = base["ema_weight"]
+
+    def trainer(**kw):
+        tr = MeanTeacherTrainer(base, train_loader=train, references=refs,
+                                vocab=vocab, **kw)
+        tr.init_model()
+        return tr
+
+    tr = trainer(val_loader=loaders["val_loader"],
+                 test_loader=loaders["test_loader"])
+    names = [n for n, _ in tr.model.named_parameters()]
+    t_start = {n: t.clone() for n, t in tr.teacher_params.items()}
+    first = {}
+    make = tr._make_train_step
+
+    def make_watched():
+        step = make()
+
+        def watched(*args):
+            out = step(*args)
+            if not first:
+                first["student"] = {n: p.detach().clone() for n, p in
+                                    tr.model.named_parameters()}
+                first["teacher"] = {n: t.clone()
+                                    for n, t in tr.teacher_params.items()}
+            return out
+        return watched
+
+    tr._make_train_step = make_watched
+    saved = {}
+    on_epoch_end = tr.ckpt_manager.on_epoch_end
+
+    def keep(epoch, variables, *args):
+        saved[epoch] = (variables, params_to_jax(tr.model))
+        return on_epoch_end(epoch, variables, *args)
+
+    tr.ckpt_manager.on_epoch_end = keep
+    test_batches = []
+    inner_translate = tr.translator.translate_batch
+
+    def translate(model, batch, **kw):
+        out = inner_translate(model, batch, **kw)
+        test_batches.append((batch, out[0]))
+        return out
+
+    tr.translator.translate_batch = translate
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    tr.fit()
+    final = ({n: p.detach().clone() for n, p in tr.model.named_parameters()},
+             {n: t.clone() for n, t in tr.teacher_params.items()})
+    tr.load_best()
+    test_batches.clear()
+    test_scores = tr.test(info_corpus=corpus)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    beam_steps = tr.translator.beam_steps
+    n_val, n_test = len(loaders["val_loader"]), len(loaders["test_loader"])
+    assert tr.global_step == MT_EPOCHS * MT_BATCHES, tr.global_step
+    assert beam_steps > 0 and counts["fused_head_topk"] == beam_steps, \
+        (counts, beam_steps)
+    assert beam_steps <= (MT_EPOCHS * n_val + n_test) * (base["max_len"] - 1)
+    for name, n in counts.items():
+        assert name == "fused_head_topk" or n == 0, (name, counts)
+    assert not tr._fused_xent
+    losses = [l for h in tr.history for l in h["step_losses"]]
+    assert all(np.isfinite(losses)), losses
+    # the EMA after the first step, recomputed here: ema * t0 + (1 - ema) * s1
+    for n in names:
+        want = ema * t_start[n] + (1 - ema) * first["student"][n]
+        assert torch.equal(first["teacher"][n], want), n
+    # every checkpoint holds the teacher (with the student's statistics);
+    # the best one is the teacher of its epoch
+    best, _, meta = ckpt_lib.load_checkpoint(os.path.join(
+        base["checkpoint_path"], "best.ckpt"))
+    teacher_tree, student_tree = (dict(flat_leaves(t)) for t in saved[
+        meta["epoch"]])
+    best_leaves = dict(flat_leaves(best))
+    assert best_leaves.keys() == teacher_tree.keys()
+    assert all(np.array_equal(v, teacher_tree[k])
+               for k, v in best_leaves.items())
+    assert not all(np.array_equal(best_leaves[("params",) + k], v)
+                   for k, v in student_tree.items())
+    # test decoded the final teacher: its first batch's beams against the
+    # host's decode of last.ckpt (the final teacher)
+    batch, hyps = test_batches[0]
+    cpu = _cpu_beams(os.path.join(base["checkpoint_path"], "last.ckpt"),
+                     batch, MT_CPU_VIDEOS)
+    assert hyps[:MT_CPU_VIDEOS] == cpu, "card and host beams differ"
+    print(f"mean_teacher: {seconds:.1f} s for fit + load_best + test; steps "
+          f"{[round(l, 4) for l in losses]}; validation "
+          f"{[round(h['scores']['CIDEr'], 6) for h in tr.history]} CIDEr "
+          f"(student); test {test_scores['CIDEr']:.6f} CIDEr (teacher); "
+          f"launches { {k: v for k, v in counts.items() if v} }: K1 == "
+          f"{beam_steps} beam steps over {MT_EPOCHS * n_val} validation and "
+          f"{n_test} test batches, K2 == K3a == K3b == 0 (dense step)")
+    print(f"mean_teacher: teacher after step 1 == {ema} * t0 + {1 - ema:.6g}"
+          f" * s1 on all {len(names)} leaves (torch.equal); best.ckpt (epoch "
+          f"{meta['epoch']}) == that epoch's teacher; test beams of "
+          f"{MT_CPU_VIDEOS} videos == the host's from last.ckpt")
+
+    # the same training again from the seed (no validation): bit for bit;
+    # then the plain Trainer on the same batches
+    del tr
+    again, step_ms, peak = _fit_cost(trainer)
+    gaps = (_params_gap(final[0], {n: p.detach() for n, p in
+                                   again.model.named_parameters()}),
+            _params_gap(final[1], again.teacher_params))
+    assert gaps == (0.0, 0.0), gaps
+    del again
+    plain, plain_ms, plain_peak = _fit_cost(lambda: Trainer(
+        dict(base, wrapper="Model", checkpoint_path=os.path.join(
+            root, "plain")), train))
+    assert not plain._fused_xent
+    print(f"mean_teacher: a second run from the seed: parameter gap "
+          f"{gaps[0]} (student), {gaps[1]} (teacher); {step_ms:.3f} ms a "
+          f"step (teacher forward + student step + EMA) against the plain "
+          f"Trainer's dense {plain_ms:.3f} ms on the same batches (host "
+          f"clock, warm epoch); peak allocated {peak:.1f} MiB against "
+          f"{plain_peak:.1f} MiB (model, optimizer and activations: above "
+          f"what was allocated before the trainer was built)")
+    return ({"fused_head_topk": counts["fused_head_topk"]}, base, loader_fn,
+            corpus)
+
+
+def phase_convert(base, loader_fn, corpus, scratch) -> dict:
+    """A reference-layout Lightning checkpoint of the flagship
+    (``tests/reference_layout.py``: the reference's key names and torch
+    layouts, seeded noise), converted by
+    ``care_tpu_torch.tools.convert_reference_ckpt`` and served through
+    ``care_tpu_torch.translate`` over the 81 test videos (64 + 17) on the
+    card, then on the host: equal predictions; K1 == beam steps."""
+    import care_tpu_torch.data as data_pkg
+    import care_tpu_torch.decoding as decoding_pkg
+    from care_tpu_torch import translate
+    from care_tpu_torch.models.weights import variables_to_jax
+    from care_tpu_torch.tools.convert_reference_ckpt import convert
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from reference_layout import lightning_checkpoint, reference_state_dict
+    root = os.path.join(scratch, "convert")
+    os.makedirs(root)
+    opt = {k: v for k, v in base.items() if k != "wrapper"}
+    template = variables_to_jax(build_captioner(opt, device="cpu"))
+    ref = os.path.join(root, "reference.ckpt")
+    lightning_checkpoint(ref, opt, reference_state_dict(opt, template, SEED))
+    out = os.path.join(root, "converted.ckpt")
+    t0 = time.perf_counter()
+    report = convert(ref, out, verbose=False)
+    convert_s = time.perf_counter() - t0
+    assert report["unmapped"] == [], report["unmapped"][:5]
+
+    translators = []
+    inner_get = decoding_pkg.get_translator
+
+    def get_translator_counted(*args, **kwargs):
+        translators.append(inner_get(*args, **kwargs))
+        return translators[-1]
+
+    inner_loader = data_pkg.get_loader
+    data_pkg.get_loader = loader_fn
+    decoding_pkg.get_translator = get_translator_counted
+    common = ["-cp", out, "--base_data_path", os.path.join(
+        scratch, "mean_teacher"), "--batch_size", str(BATCH)]
+    try:
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        (card,) = translate.main(common + ["--json_path",
+                                           os.path.join(root, "card")])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = _launch_counts()
+        t0 = time.perf_counter()
+        (host,) = translate.main(common + ["--device", "cpu", "--json_path",
+                                           os.path.join(root, "host")])
+        host_s = time.perf_counter() - t0
+    finally:
+        data_pkg.get_loader = inner_loader
+        decoding_pkg.get_translator = inner_get
+    assert len(translators) == 2, len(translators)
+    steps = translators[0].beam_steps
+    assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
+    for name, n in counts.items():
+        assert name == "fused_head_topk" or n == 0, (name, counts)
+    preds = {}
+    for side in ("card", "host"):
+        with open(os.path.join(root, side, "preds.json")) as f:
+            preds[side] = {v: [e["caption"] for e in p]
+                           for v, p in json.load(f).items()}
+    n_test = len(corpus["info"]["split"]["test"])
+    assert len(preds["card"]) == n_test, len(preds["card"])
+    assert preds["card"] == preds["host"], "card and host beams differ"
+    assert card == host, (card, host)
+    print(f"convert: {len(report['consumed'])} reference tensors mapped "
+          f"({len(report['buffers_skipped'])} buffers skipped, 0 unmapped) "
+          f"in {convert_s:.3f} s ({os.path.getsize(ref)} bytes in, "
+          f"{os.path.getsize(out)} out); translate served {n_test} videos "
+          f"({BATCH} + {n_test - BATCH}) in {card_s:.3f} s on the card, "
+          f"{host_s:.3f} s on the host: captions and COCO dict equal "
+          f"(CIDEr {card['CIDEr']:.6f}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }: K1 == {steps} beam "
+          f"steps")
+    return {"fused_head_topk": counts["fused_head_topk"]}
+
+
+# bert-base-uncased's published widths
+BERT_BASE = dict(vocab_size=30522, hidden=768, layers=12, heads=12,
+                 intermediate=3072, max_position=512, type_vocab=2)
+BERT_CAPTIONS, BERT_BATCH, BERT_CPU_CAPTIONS = 20000, 512, 256
+
+
+def _bert_vocab(path, n_words=2000):
+    """A WordPiece vocabulary of bert-base's size: the special tokens, the
+    synthetic words the captions use, then unused entries."""
+    words = [f"w{i}" for i in range(n_words)]
+    lines = (["[PAD]"] + [f"[unused{i}]" for i in range(99)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words)
+    lines += [f"[unused{i}]" for i in range(99, 99 + BERT_BASE["vocab_size"]
+                                            - len(lines))]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return words
+
+
+def phase_bert(scratch) -> None:
+    """``BertEncoder`` at bert-base-uncased's widths (random weights from
+    the seed) encodes 20 000 synthetic captions of 8-20 words and pools
+    them by mean and max; 256 captions' pooled vectors held to the host's
+    (f32, TF32 off); none of the seven kernels launches."""
+    from care_tpu_torch.pretreatment.bert import (BertEncoder,
+                                                  WordPieceTokenizer,
+                                                  embed_captions)
+    os.makedirs(os.path.join(scratch, "bert"))
+    words = _bert_vocab(os.path.join(scratch, "bert", "vocab.txt"))
+    tok = WordPieceTokenizer(os.path.join(scratch, "bert", "vocab.txt"))
+    assert len(tok.vocab) == BERT_BASE["vocab_size"]
+    rs = np.random.RandomState(SEED)
+    captions = [" ".join(words[i] for i in rs.randint(0, len(words), n))
+                for n in rs.randint(8, 21, BERT_CAPTIONS)]
+    model = BertEncoder(**BERT_BASE,
+                        generator=torch.Generator().manual_seed(SEED)).eval()
+    host = BertEncoder(**BERT_BASE)
+    host.load_state_dict(model.state_dict())
+    model = model.cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    embed_captions(model, tok, captions[:BERT_BATCH], ("mean", "max"),
+                   BERT_BATCH)                        # warm
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.perf_counter()
+    embs = embed_captions(model, tok, captions, ("mean", "max"), BERT_BATCH)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _launch_counts()
+    assert not any(counts.values()), counts
+    for mode, e in embs.items():
+        assert e.shape == (BERT_CAPTIONS, BERT_BASE["hidden"]), e.shape
+        assert bool(torch.isfinite(e).all()), mode
+    ids = [tok.encode_batch(captions[i:i + BERT_BATCH])
+           for i in range(0, BERT_CAPTIONS, BERT_BATCH)]
+    t0 = time.perf_counter()
+    for batch_ids, mask, _ in ids:
+        with torch.no_grad():
+            model(torch.as_tensor(batch_ids, device="cuda").long(),
+                  torch.as_tensor(mask, device="cuda"))
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    tokens = sum(int(m.sum()) for _, m, _ in ids)
+    want = embed_captions(host, tok, captions[:BERT_CPU_CAPTIONS],
+                          ("mean", "max"), BERT_BATCH)
+    errs = {}
+    for mode in ("mean", "max"):
+        got = embs[mode][:BERT_CPU_CAPTIONS].cpu()
+        errs[mode] = float((got - want[mode]).abs().max())
+        torch.testing.assert_close(got, want[mode], rtol=1e-4, atol=1e-4)
+    print(f"bert: bert-base widths ({n_params} parameters, 12 x 768, 12 "
+          f"heads, FFN 3072, vocab 30 522), {BERT_CAPTIONS} captions of "
+          f"8-20 words ({tokens} tokens with [CLS]/[SEP]) pooled by mean "
+          f"and max in batches of {BERT_BATCH}: {seconds:.3f} s, "
+          f"{BERT_CAPTIONS / seconds:.1f} captions/s with tokenization; the "
+          f"encoder alone {encode_s:.3f} s, {BERT_CAPTIONS / encode_s:.1f} "
+          f"captions/s (f32, TF32 off); {BERT_CPU_CAPTIONS} captions against "
+          f"the host: max |d| mean {errs['mean']:.3e}, max {errs['max']:.3e} "
+          f"(<= 1e-4); launches of the seven kernels: 0")
 
 
 # ---------------------------------------------------------------------------
@@ -3309,6 +3696,14 @@ def main() -> None:
             counts[k] += n
         for k, n in phase_backbone(scratch).items():
             counts[k] += n
+        mt_counts, mt_base, mt_loader_fn, mt_corpus = phase_mean_teacher(
+            opt, scratch)
+        for k, n in mt_counts.items():
+            counts[k] += n
+        for k, n in phase_convert(mt_base, mt_loader_fn, mt_corpus,
+                                  scratch).items():
+            counts[k] += n
+        phase_bert(scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     kernels = phase_time(opt, errors, counts, family_opt(NAR_STUDENT[0]),
