@@ -16,12 +16,16 @@ JAX package has ``lax.while_loop``:
 * ``prev_k = flat_id // vocab``.
 
 The loop stops as soon as every instance has filled its finished buffer
-(one host sync per step reads that condition).
+(one host sync per step reads that condition). On a mesh's model axis the
+processes of a model group decode the same rows in lockstep, so that
+condition is all-reduced over the group and every one of them leaves at
+the same step.
 """
 
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from care_tpu_torch import constants
@@ -45,6 +49,7 @@ def beam_search(
     bos_id: int = constants.BOS,
     eos_id: int = constants.EOS,
     fused_head: Optional[Tuple[torch.Tensor, Optional[torch.Tensor]]] = None,
+    model_axis=None,
 ):
     """Run beam search; returns (hyp_tokens [N, topk, max_len],
     hyp_scores [N, topk], hyp_lengths [N, topk], hyp_valid [N, topk]).
@@ -58,8 +63,18 @@ def beam_search(
     ``fused_head=(W [V, H], b [V] or None)`` switches the expansion to
     ``fused_head_beam_topk``: ``step_fn`` then returns the decoder hidden
     states ``[N*K, H]`` and the ``[N*K, V]`` logits are never formed.
+    ``model_axis`` (a mesh ``Axis``): the decode runs on every process of
+    that model group, in lockstep; a ``W`` of ``V / size`` rows is this
+    process's block of the vocabulary, merged over the group.
     """
+    sync = model_axis is not None and model_axis.size > 1
     N, K, V = batch_size, beam_size, vocab_size
+    vocab_axis = None
+    if fused_head is not None and fused_head[0].shape[0] != V:
+        if not sync or fused_head[0].shape[0] * model_axis.size != V:
+            raise ValueError(f"head of {fused_head[0].shape[0]} rows for a "
+                             f"vocabulary of {V}")
+        vocab_axis = model_axis
     Fb = max(K, topk)
     long = dict(dtype=torch.long, device=device)
 
@@ -78,13 +93,19 @@ def beam_search(
     carry = init_carry
 
     for t in range(1, max_len):
-        if not bool((fin_count < Fb).any()):
+        live = (fin_count < Fb).any()
+        if sync:
+            live = live.int()
+            dist.all_reduce(live, op=dist.ReduceOp.MAX,
+                            group=model_axis.group())
+        if not bool(live):
             break
         out, carry = step_fn(last_tokens.reshape(N * K), t - 1, carry)
         eos_row = last_tokens == eos_id
         if fused_head is not None:
             best_scores, best_ids = fused_head_beam_topk(
-                out, fused_head[0], fused_head[1], scores, eos_row, K)
+                out, fused_head[0], fused_head[1], scores, eos_row, K,
+                vocab_axis=vocab_axis)
         else:
             # clamp -inf masks to the finite DEAD score
             logp = torch.clamp_min(out.reshape(N, K, V), DEAD)

@@ -63,6 +63,7 @@ from care_tpu_torch.models.framework import Captioner
 from care_tpu_torch.models.heads import NaiveHead
 from care_tpu_torch.models.weights import batch_stats_leaves
 from care_tpu_torch.ops.fused_head_topk import vocab_argmax_lse
+from care_tpu_torch.parallel.mesh import gather_full, is_split, model_axis
 from care_tpu_torch.utils.device import resolve_device
 
 # what ``compute_dtype_decode`` may say: argparse delivers the string
@@ -330,12 +331,15 @@ class TranslatorARFormer(Translator):
             self.beam_steps += 1
             return model.decode_step_hidden(tokens, position, state)
 
+        # on a model axis: this process's vocab rows (when they split),
+        # merged in the head
         return beam_search(
             step_fn, carry, batch_size=N, vocab_size=self.opt["vocab_size"],
             gather_carry=_gather_self_kv, device=self.device,
             beam_size=self.beam_size, max_len=self.max_len,
             beam_alpha=self.beam_alpha, topk=self.topk,
-            fused_head=(model.cls_head.tgt_word_prj.weight, None))
+            fused_head=(model.cls_head.tgt_word_prj.weight, None),
+            model_axis=model_axis(model))
 
     def _dispatch_dense(self, members, N: int):
         """The dense step of one model or an ensemble: each member's carry
@@ -387,7 +391,8 @@ class TranslatorARFormer(Translator):
             step_fn, carries, batch_size=N,
             vocab_size=self.opt["vocab_size"], gather_carry=gather_carry,
             device=self.device, beam_size=beam, max_len=self.max_len,
-            beam_alpha=self.beam_alpha, topk=self.topk)
+            beam_alpha=self.beam_alpha, topk=self.topk,
+            model_axis=model_axis(members[0][0]))
 
     def collect(self, out) -> Tuple[List[List[List[int]]], List[List[float]]]:
         """Host side of one decode: fetch the outputs and collect the
@@ -414,6 +419,17 @@ class TranslatorARFormer(Translator):
             all_hyp.append(hyps[:n_best])
             all_scores.append(scores[:n_best])
         return all_hyp, all_scores
+
+
+def _whole_head_weight(model):
+    """The vocab projection [V, H]; on a mesh's model axis the blocks of
+    every process gathered (the NAR passes take the argmax/lse kernel over
+    the whole vocabulary)."""
+    layer = model.cls_head.tgt_word_prj
+    ax = model_axis(model)
+    if ax is None or not is_split(layer):
+        return layer.weight
+    return gather_full(layer.weight, 0, ax)
 
 
 def _last(x):
@@ -467,7 +483,7 @@ class TranslatorNARFormer(Translator):
 
         if not self.fused_head:
             return forward_logits, None
-        W = model.cls_head.tgt_word_prj.weight
+        W = _whole_head_weight(model)
 
         def forward_stats(tokens):
             self.decoder_passes += 1
@@ -511,8 +527,8 @@ class TranslatorNARFormer(Translator):
                                          compute_logits=not fused)
             if fused:
                 _, _, lse, tok = vocab_argmax_lse(
-                    _last(out["hidden_states"]),
-                    teacher.cls_head.tgt_word_prj.weight, None,
+                    _last(out["hidden_states"]), _whole_head_weight(teacher),
+                    None,
                     token_ids=toks, chunk_size=self.fused_chunk)
                 p = torch.exp(tok - lse)
             else:

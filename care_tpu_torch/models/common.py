@@ -13,6 +13,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from care_tpu_torch import constants
+from care_tpu_torch.parallel import tensor_parallel as tp
 
 
 class Dense(nn.Linear):
@@ -55,9 +56,14 @@ class FlaxBatchNorm(nn.Module):
     and its *biased* variance ``E[x^2] - E[x]^2`` (clipped at 0, in f32)
     and moves the running ones by ``momentum`` as flax does:
     ``new = momentum * old + (1 - momentum) * batch``; torch's
-    ``BatchNorm`` would move them by the unbiased variance."""
+    ``BatchNorm`` would move them by the unbiased variance. On a mesh's
+    data axis (``_data_axis``, set by ``parallel/mesh.py:shard_params``) the
+    sums are taken over the whole global batch, as the JAX package's
+    statistics are under its mesh."""
 
     FLAX_BATCH_STATS = True
+    SYNC_BATCH_STATS = True
+    _data_axis = None
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.99, frozen: bool = False, dim: int = 1):
@@ -77,9 +83,17 @@ class FlaxBatchNorm(nn.Module):
         else:
             axes = [d for d in range(x.dim()) if d != self.dim % x.dim()]
             x32 = x.float()
-            mean = x32.mean(dim=axes)
-            var = torch.clamp(x32.square().mean(dim=axes) - mean.square(),
-                              min=0.0)
+            if tp.axis_active(self._data_axis):
+                ax = self._data_axis
+                n = (x32.numel() // x32.shape[self.dim]) * ax.size
+                sums = tp.all_reduce_sum(torch.stack(
+                    [x32.sum(dim=axes), x32.square().sum(dim=axes)]), ax)
+                mean = sums[0] / n
+                var = torch.clamp(sums[1] / n - mean.square(), min=0.0)
+            else:
+                mean = x32.mean(dim=axes)
+                var = torch.clamp(x32.square().mean(dim=axes)
+                                  - mean.square(), min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -271,8 +271,7 @@ class TransformerDecoder(nn.Module):
         if isinstance(encoder_hidden_states, (list, tuple)):
             encoder_hidden_states = encoder_hidden_states[0]
         opt = self.opt
-        h = opt["num_attention_heads"]
-        dh = opt["dim_hidden"] // h
+        dh = opt["dim_hidden"] // opt["num_attention_heads"]
         cache_len = max_len + self.prefix_len
 
         def rep(x):
@@ -285,7 +284,9 @@ class TransformerDecoder(nn.Module):
             inter_kv, attr_kv = layer.init_step(
                 encoder_hidden_states, semantic_embs=semantic_embs,
                 preds_attr=preds_attr)
-            shape = (batch_size, h, cache_len, dh)
+            # this process's heads on a model axis
+            shape = (batch_size, layer.intra_attention.local_heads(),
+                     cache_len, dh)
             layers_state.append({
                 "inter_kv": inter_kv, "attr_kv": attr_kv,
                 "self_k": encoder_hidden_states.new_zeros(shape),

@@ -40,6 +40,7 @@ from care_tpu_torch.models.common import (Dense, Dropout, FlaxBatchNorm,
                                           LayerNorm, dense, flax_init_)
 from care_tpu_torch.models.embeddings import PositionalEmbedding
 from care_tpu_torch.models.layers import EncoderLayer
+from care_tpu_torch.parallel import tensor_parallel as tp
 
 
 class HighWay(nn.Module):
@@ -62,7 +63,12 @@ class BN1d(nn.Module):
     (reference ``Encoder.py:229-241``): ``bn`` is a ``BatchNorm1d``
     (momentum 0.1, eps 1e-5). Evaluation normalises with the running
     statistics as the JAX package writes it, in the promoted dtype of the
-    input and the module's tensors."""
+    input and the module's tensors. On a mesh's data axis (``_data_axis``)
+    training takes the mean and the variance of the whole global batch
+    (two all-reduces: the sums, then the squared deviations)."""
+
+    SYNC_BATCH_STATS = True
+    _data_axis = None
 
     def __init__(self, hidden_size: int):
         super().__init__()
@@ -72,7 +78,9 @@ class BN1d(nn.Module):
     def forward(self, x):
         flat = x.reshape(-1, self.hidden_size)
         bn = self.bn
-        if self.training:
+        if self.training and tp.axis_active(self._data_axis):
+            out = self._global_batch_norm(flat)
+        elif self.training:
             out = F.batch_norm(flat, bn.running_mean, bn.running_var,
                                bn.weight, bn.bias, training=True,
                                momentum=bn.momentum, eps=bn.eps)
@@ -80,6 +88,21 @@ class BN1d(nn.Module):
             inv = torch.rsqrt(bn.running_var + bn.eps)
             out = (flat - bn.running_mean) * inv * bn.weight + bn.bias
         return out.reshape(x.shape)
+
+    def _global_batch_norm(self, flat):
+        """``F.batch_norm`` in training mode over the rows of every process
+        of the data axis: normalised by the biased variance, the running
+        variance moved by the unbiased one."""
+        bn, ax = self.bn, self._data_axis
+        n = flat.shape[0] * ax.size
+        mean = tp.all_reduce_sum(flat.sum(dim=0), ax) / n
+        centred = flat - mean
+        var = tp.all_reduce_sum(centred.square().sum(dim=0), ax) / n
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1 - m).add_(m * mean)
+            bn.running_var.mul_(1 - m).add_(m * var * (n / (n - 1)))
+        return centred * torch.rsqrt(var + bn.eps) * bn.weight + bn.bias
 
 
 class TransformerEncoderBase(nn.Module):

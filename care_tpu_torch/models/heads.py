@@ -4,11 +4,16 @@ import torch
 from torch import nn
 
 from care_tpu_torch.models.common import Dropout, dense
+from care_tpu_torch.parallel import tensor_parallel as tp
 
 
 class NaiveHead(nn.Module):
     """One bias-free linear map to the vocab (reference ``Head.py:26-32``).
-    ``tgt_word_prj.weight`` [V, H] is what the fused beam head streams."""
+    ``tgt_word_prj.weight`` [V, H] is what the fused beam head streams. On
+    a mesh's model axis it holds this process's vocab rows [V/tp, H], and
+    the logits come back whole (gathered over the model group), so that
+    every consumer of a logits row (the cross-entropy, its word accuracy,
+    the dense decodes) reads it as without the mesh."""
 
     def __init__(self, opt: dict, generator: torch.Generator):
         super().__init__()
@@ -16,7 +21,7 @@ class NaiveHead(nn.Module):
                                   generator, bias=False)
 
     def forward(self, hidden_states):
-        return self.tgt_word_prj(hidden_states)
+        return tp.column_whole(self.tgt_word_prj, hidden_states)
 
 
 class MLPHead(nn.Module):
@@ -33,7 +38,7 @@ class MLPHead(nn.Module):
                                   generator)
 
     def forward(self, hidden_states):
-        return self.tgt_word_prj(self.dropout(torch.tanh(
+        return tp.column_whole(self.tgt_word_prj, self.dropout(torch.tanh(
             self.dense(hidden_states))))
 
 

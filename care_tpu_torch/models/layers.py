@@ -11,6 +11,15 @@ compositional), a self-attention encoder layer, and a decoder layer
 with a full forward and a KV-cached one-token step whose cross attention
 takes the flash kernel once the key axis is long. Masks are additive f32
 biases (0 / -1e9).
+
+On a mesh's model axis (``parallel/mesh.py:shard_params``) the q/k/v
+projections and ``ffn.dense1`` are column-parallel and the attention
+output ``dense`` and ``ffn.dense2`` row-parallel: each process attends
+over its block of heads, the number of which it reads off its split
+``query`` weight, with its block of any per-head bias (RPE, the hybrid
+bias), and the row-parallel layers sum the blocks' products
+(``parallel/tensor_parallel.py``). The attention probabilities a caller
+asks for come back whole.
 """
 
 import torch
@@ -20,6 +29,7 @@ from care_tpu_torch.models.common import (CompositionalLinear, Dropout,
                                           LayerNorm, dense, get_activation)
 from care_tpu_torch.models.embeddings import RelativePositionBias
 from care_tpu_torch.ops.attention import dot_product_attention
+from care_tpu_torch.parallel import tensor_parallel as tp
 
 
 def split_heads(x, num_heads: int):
@@ -69,6 +79,8 @@ class MultiHeadAttention(nn.Module):
                  dim_factor_scale: int = 2, projections_only: bool = False):
         super().__init__()
         self.num_attention_heads = num_attention_heads
+        self.head_dim = dim_hidden // num_attention_heads
+        self.projections_only = projections_only
         self.pre_ln = pre_ln
         self.skip_connection = skip_connection
         self.attend_to_video = attend_to_video
@@ -106,27 +118,55 @@ class MultiHeadAttention(nn.Module):
                           if has_ln and not projections_only else None)
         self.attn_dropout = Dropout(attention_probs_dropout_prob)
         self.out_dropout = Dropout(hidden_dropout_prob)
+        self.heads_axis = None
+
+    def record_split(self):
+        """Fix ``heads_axis``, the model axis this attention's heads are
+        split over, once ``parallel/mesh.py:shard_params`` has cut the
+        projections; None when every process holds them all: the
+        compositional projections are never split, the pointer's
+        projections (``projections_only``) and heads that do not divide
+        over the axis come back whole."""
+        ax = tp.axis_of(self.query) if not self.compositional else None
+        if ax is None or self.projections_only \
+                or self.query.weight.shape[0] % self.head_dim:
+            ax = None
+        self.heads_axis = ax
+
+    def local_heads(self) -> int:
+        ax = self.heads_axis
+        return self.num_attention_heads // (ax.size if ax else 1)
 
     def _project(self, layer, x, preds_attr):
-        return layer(x, preds_attr) if self.compositional else layer(x)
+        if self.compositional:
+            return layer(x, preds_attr)
+        y, ax = tp.column(layer, x)
+        if ax is not None and self.heads_axis is None:
+            y = tp.gather_from_model(y, ax)
+        return y
+
+    def _split(self, y):
+        return split_heads(y, y.shape[-1] // self.head_dim)
 
     def project_q(self, x, preds_attr=None):
-        return split_heads(self._project(self.query, x, preds_attr),
-                           self.num_attention_heads)
+        return self._split(self._project(self.query, x, preds_attr))
 
     def project_kv(self, x, preds_attr=None):
-        """Keys and values in head form [B, H, L, Dh]."""
-        h = self.num_attention_heads
-        return (split_heads(self._project(self.key, x, preds_attr), h),
-                split_heads(self._project(self.value, x, preds_attr), h))
+        """Keys and values in head form [B, H, L, Dh] (this process's
+        heads on a model axis)."""
+        return (self._split(self._project(self.key, x, preds_attr)),
+                self._split(self._project(self.value, x, preds_attr)))
 
     def project_qkv(self, x, preds_attr=None):
         """Self-attention q/k/v in one [3D, D] product for the decode step;
         each output element is the same dot product as in the separate
         projections. The weights take the input's dtype, as the JAX
         package's fused projection casts its kernel. The compositional
-        projections stay three. Returns (q, (k, v)) in head form."""
-        if self.compositional:
+        projections stay three, as do split ones whose heads do not
+        divide. Returns (q, (k, v)) in head form."""
+        ax = self.heads_axis
+        if self.compositional or (ax is None
+                                  and tp.axis_of(self.query) is not None):
             return (self.project_q(x, preds_attr),
                     self.project_kv(x, preds_attr))
         w = torch.cat([self.query.weight, self.key.weight,
@@ -134,9 +174,9 @@ class MultiHeadAttention(nn.Module):
         b = (None if self.query.bias is None else
              torch.cat([self.query.bias, self.key.bias,
                         self.value.bias]).to(x.dtype))
-        q, k, v = nn.functional.linear(x, w, b).chunk(3, dim=-1)
-        h = self.num_attention_heads
-        return split_heads(q, h), (split_heads(k, h), split_heads(v, h))
+        q, k, v = nn.functional.linear(tp.copy_to_model(x, ax), w,
+                                       b).chunk(3, dim=-1)
+        return self._split(q), (self._split(k), self._split(v))
 
     def _make_bias(self, attention_mask, length_q: int, length_k: int,
                    decoding_type: str, n_frames: int,
@@ -162,9 +202,11 @@ class MultiHeadAttention(nn.Module):
             if rpe_query_position is not None:
                 rpe_bias = rpe_bias[:, :, rpe_query_position:
                                     rpe_query_position + 1]
+            rpe_bias = tp.local_block(rpe_bias, self.heads_axis, 1)
             bias = rpe_bias if bias is None else bias + rpe_bias
         if self.hybrid_bias is not None:
-            hb = self.hybrid_bias[None, :, None, :]
+            hb = tp.local_block(self.hybrid_bias, self.heads_axis,
+                                0)[None, :, None, :]
             bias = hb if bias is None else bias + hb
         return bias
 
@@ -199,8 +241,13 @@ class MultiHeadAttention(nn.Module):
             if probs is not None:
                 probs = probs.transpose(1, 2).reshape(bq, nh, 1,
                                                       probs.shape[-1])
+        ax = self.heads_axis
+        if probs is not None:
+            probs = tp.gather_from_model(probs, ax, dim=1)
+        context = merge_heads(context)
         context = self.out_dropout(
-            self._project(self.dense, merge_heads(context), preds_attr))
+            self.dense(context, preds_attr) if self.compositional
+            else tp.row(self.dense, context, ax))
         if early_return:
             return context, probs, context
         hidden_states = (context + input_tensor if self.skip_connection
@@ -292,7 +339,8 @@ class PositionwiseFeedForward(nn.Module):
         if self.compositional:
             x = self.dense2(self.act(self.dense1(x, preds_attr)), preds_attr)
         else:
-            x = self.dense2(self.act(self.dense1(x)))
+            h, ax = tp.column(self.dense1, x)
+            x = tp.row(self.dense2, self.act(h), ax)
         out = self.dropout(x) + hidden_states
         return out if self.pre_ln else self.LayerNorm(out)
 

@@ -19,6 +19,7 @@ from torch import nn
 from care_tpu_torch.models.common import Dropout, LayerNorm, dense
 from care_tpu_torch.models.embeddings import NaiveEmbeddings
 from care_tpu_torch.ops.topk import top_k
+from care_tpu_torch.parallel import tensor_parallel as tp
 
 
 def prepare_merged_probs(scores, mask=None):
@@ -49,7 +50,10 @@ class AttributePrjHeads(nn.Module):
     ``pred_attribute.py:61-70``): one ``prj`` when
     ``attribute_prediction_share_prj`` or a single flag, else one
     ``prj_<flag>`` each. ``V`` reads the encoder side (``dim_in_v`` wide),
-    every other flag a ``dim_hidden``-wide text-side stream."""
+    every other flag a ``dim_hidden``-wide text-side stream. On a mesh's
+    model axis each projection holds this process's block of the concepts
+    and the scores come back whole, before the noisy-OR merge and the
+    top-k slot selection, which need all concepts."""
 
     def __init__(self, opt: dict, dim_in_v: int, generator: torch.Generator):
         super().__init__()
@@ -67,8 +71,8 @@ class AttributePrjHeads(nn.Module):
                     dim_in_v if f == "V" else dim, k, generator))
 
     def by_flag(self, feats, flag: str):
-        return self.prj(feats) if self.shared else getattr(
-            self, f"prj_{flag}")(feats)
+        return tp.column_whole(self.prj if self.shared else getattr(
+            self, f"prj_{flag}"), feats)
 
 
 class PredictorAttribute(nn.Module):

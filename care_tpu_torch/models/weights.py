@@ -68,10 +68,13 @@ def to_flax_layout(value: np.ndarray) -> np.ndarray:
         value.transpose(tuple(range(2, n)) + (1, 0)))
 
 
-def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
+def params_from_jax(model: nn.Module, params: dict,
+                    cut=None) -> nn.Module:
     """Copy ``params`` into ``model`` in place and return it. Raises on a
     shape mismatch, on a port parameter with no JAX leaf, and on a JAX leaf
-    that no port parameter takes."""
+    that no port parameter takes. ``cut(name, whole tensor)`` gives the
+    part a parameter holds (a model split over a mesh:
+    ``parallel/mesh.py:local_cut``); default: the whole."""
     leaves = dict(flat_leaves(params))
     used = set()
     with torch.no_grad():
@@ -84,10 +87,13 @@ def params_from_jax(model: nn.Module, params: dict) -> nn.Module:
                 value = from_flax_layout(value)
             if isinstance(param, nn.parameter.UninitializedParameter):
                 _fix_lazy_width(model, name, value)
+            value = torch.from_numpy(value)
+            if cut is not None:
+                value = cut(name, value)
             if tuple(value.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: port shape {tuple(param.shape)} "
                                  f"!= JAX shape {tuple(value.shape)}")
-            param.copy_(torch.from_numpy(value))
+            param.copy_(value)
             used.add(key)
     unused = sorted("/".join(k) for k in leaves if k not in used)
     if unused:
@@ -161,16 +167,17 @@ def batch_stats_leaves(model: nn.Module):
             yield path + ("var",), module, "var"
 
 
-def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
-    """``params_from_jax`` of ``variables["params"]``, then the running
-    mean and variance of every ``BatchNorm1d`` from
+def variables_from_jax(model: nn.Module, variables: dict,
+                       cut=None) -> nn.Module:
+    """``params_from_jax`` of ``variables["params"]`` (``cut`` as there),
+    then the running mean and variance of every ``BatchNorm1d`` from
     ``variables["batch_stats"]``. Raises, as ``params_from_jax`` does, on
     a shape mismatch, a running statistic with no JAX leaf, a JAX leaf no
     module takes, and a collection other than these two."""
     other = sorted(set(variables) - {"params", "batch_stats"})
     if other:
         raise KeyError(f"JAX collections the port does not take: {other}")
-    params_from_jax(model, variables["params"])
+    params_from_jax(model, variables["params"], cut)
     leaves = dict(flat_leaves(variables.get("batch_stats", {})))
     used = set()
     with torch.no_grad():
@@ -191,11 +198,12 @@ def variables_from_jax(model: nn.Module, variables: dict) -> nn.Module:
     return model
 
 
-def variables_to_jax(model: nn.Module) -> dict:
+def variables_to_jax(model: nn.Module, values: dict = None) -> dict:
     """The port's parameters and BatchNorm running statistics as the flax
     variables tree ``{"params": ..., "batch_stats": ...}`` (no
-    ``batch_stats`` without a BatchNorm)."""
-    out = {"params": params_to_jax(model)}
+    ``batch_stats`` without a BatchNorm); ``values`` as in
+    ``params_to_jax``."""
+    out = {"params": params_to_jax(model, values)}
     for key, module, attr in batch_stats_leaves(model):
         node = out.setdefault("batch_stats", {})
         for part in key[:-1]:

@@ -20,6 +20,14 @@ Two implementations of the statistics:
 ``fused_head_beam_topk`` takes the kernel for a CUDA tensor and the plain
 version for a CPU tensor; there is no other fallback.
 
+On a mesh's model axis each process holds a block of the vocabulary rows
+``[V/tp, H]``: the kernel (or its plain version) streams that block, the
+candidate ids move by the block's first row, and the blocks' statistics
+merge over the model group (``merge_vocab_shards``): ``m = max_r m_r``,
+``s = sum_r s_r exp(m_r - m)`` and the top-K of the tp * K candidates,
+lower id first among equal values, as the kernel ranks. The merge is one
+all-reduce of the blocks' statistics into zero-filled slots.
+
 ``vocab_argmax_lse`` is the second function of the JAX module: per row the
 first-occurrence argmax, the max logit and the log-sum-exp of the vocab
 logits, optionally the logit at a given token id, again without the
@@ -39,6 +47,7 @@ import ctypes
 import functools
 
 import torch
+import torch.distributed as dist
 
 from care_tpu_torch.ops import _build
 from care_tpu_torch.ops.topk import top_k
@@ -195,8 +204,38 @@ def _finalize(cv, ids, m, s, scores, eos_row, beam_k: int, V: int):
     return best, torch.gather(flat_idx, 1, sel)
 
 
+def merge_vocab_shards(cv, ids, m, s, beam_k: int):
+    """The statistics of the whole vocabulary from those of its blocks:
+    cv, ids [rows, R, K] (ids already global), m, s [rows, R]. Returns
+    (cv, ids [rows, K], m, s [rows]). Blocks sit in vocab order and each
+    holds its candidates lower id first among ties, so the stable top-k
+    over the flattened candidates gives the lower id on a tie."""
+    rows, R, K = cv.shape
+    m_all = m.max(dim=1).values
+    s_all = (s * torch.exp(m - m_all[:, None])).sum(dim=1)
+    best, sel = top_k(cv.reshape(rows, R * K), beam_k)
+    return best, torch.gather(ids.reshape(rows, R * K), 1, sel), m_all, s_all
+
+
+def _merge_over_model(cv, ids, m, s, beam_k: int, ax):
+    """``merge_vocab_shards`` of every process's block on the model axis
+    ``ax``: one all-reduce of [cv | ids | m | s] into this process's slot
+    (ids are exact in f32 below 2**24)."""
+    rows, K = cv.shape
+    slots = cv.new_zeros((rows, ax.size, 2 * K + 2))
+    mine = slots[:, ax.rank]
+    mine[:, :K] = cv
+    mine[:, K:2 * K] = ids.float()
+    mine[:, 2 * K] = m
+    mine[:, 2 * K + 1] = s
+    dist.all_reduce(slots, group=ax.group())
+    return merge_vocab_shards(slots[:, :, :K], slots[:, :, K:2 * K].long(),
+                              slots[:, :, 2 * K], slots[:, :, 2 * K + 1],
+                              beam_k)
+
+
 def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
-                         chunk_size: int = 1024):
+                         chunk_size: int = 1024, vocab_axis=None):
     """h: [N*K, H] decoder hidden states; W: [V, H] vocab projection; b: [V]
     or None; scores: [N, K] f32 cumulative beam scores; eos_row: [N, K] bool,
     rows already finished. Returns (best_scores [N, K], best_ids [N, K]
@@ -215,6 +254,10 @@ def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
     flag) runs in f32 with no rounding of the logits; only an all-bf16
     product rounds them to bf16 before the bias. The kernel itself takes
     one dtype.
+
+    ``vocab_axis`` (a mesh ``Axis`` of more than one process): ``W`` is
+    this process's block of the vocabulary rows and ``b`` the whole bias
+    (or the block's); the result is that of the whole vocabulary.
     """
     if h.dtype != W.dtype or (b is not None and b.dtype != W.dtype):
         dtype = torch.promote_types(h.dtype, W.dtype)
@@ -227,12 +270,20 @@ def fused_head_beam_topk(h, W, b, scores, eos_row, beam_k: int,
     N, Kb = scores.shape
     if rows != N * Kb:
         raise ValueError(f"h has {rows} rows for {N} x {Kb} beams")
+    sharded = vocab_axis is not None and vocab_axis.size > 1
+    row0 = vocab_axis.rank * V if sharded else 0
+    if sharded and b is not None and b.shape[0] != V:
+        b = b[row0:row0 + V].contiguous()
     if h.device.type == "cuda":
         cv, ids, m, s = _stats_cuda(h, W, b, beam_k)
     elif h.device.type == "cpu":
         cv, ids, m, s = _stats_plain(h, W, b, beam_k, chunk_size)
     else:
         raise RuntimeError(f"no fused head path for device {h.device}")
+    if sharded:
+        cv, ids, m, s = _merge_over_model(cv, ids.long() + row0, m, s,
+                                          beam_k, vocab_axis)
+        V *= vocab_axis.size
     return _finalize(cv, ids, m, s, scores, eos_row, beam_k, V)
 
 

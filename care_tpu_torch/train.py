@@ -13,7 +13,17 @@ runs on the CUDA card; ``--device cpu`` runs on the host. With
 their shapes fit (``models/loading.py:load_teacher_weights_into_student``).
 ``wrapper: InterplayModel`` trains with the mean teacher
 (``training/mean_teacher.py``).
-``--mesh`` is not ported yet and raises.
+
+``--mesh data=2,model=2`` trains on a ``(data, model)`` mesh of processes
+(``parallel/mesh.py``), one a device, started by ``torchrun``:
+
+    torchrun --nproc_per_node 4 -m care_tpu_torch.train ... --mesh \
+        data=2,model=2 [--device cpu]
+
+Each process takes ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` from the
+environment, the card ``cuda:LOCAL_RANK`` and NCCL (gloo with
+``--device cpu``). Without ``torchrun`` the world is one process, and only
+a mesh of one fits it.
 """
 
 import argparse
@@ -23,7 +33,6 @@ import random
 
 import numpy as np
 
-from care_tpu_torch.models.common import unsupported
 
 
 def parse_args(argv=None):
@@ -45,7 +54,8 @@ def parse_args(argv=None):
     p.add_argument("-pm_flags", "--predictor_modality_flags", type=str)
     p.add_argument("--load_model_weights_from", type=str, default="")
     p.add_argument("--mesh", type=str, default="",
-                   help="device mesh (not ported yet: raises)")
+                   help="process mesh, e.g. data=2,model=2 (under "
+                        "torchrun)")
     p.add_argument("--override", type=str, default="",
                    help="JSON dict of extra opt overrides")
     p.add_argument("--devices", type=str, default="",
@@ -79,10 +89,30 @@ def load_weights_from(trainer, path: str) -> int:
     return load_teacher_weights_into_student(trainer.model, path, vm)
 
 
-def run(opt, device=None):
+def init_mesh(spec: str, device=None):
+    """(mesh, this process's device) for ``--mesh``: the default process
+    group from torchrun's environment (NCCL on the card, gloo on the CPU;
+    none for a world of one), then the mesh over it."""
+    import torch
+    import torch.distributed as dist
+    from care_tpu_torch.parallel import make_mesh, parse_mesh
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    cpu = device is not None and str(device) == "cpu"
+    if not cpu:
+        device = f"cuda:{local}"
+        if torch.cuda.is_available():
+            torch.cuda.set_device(local)
+    if world > 1 and not dist.is_initialized():
+        dist.init_process_group("gloo" if cpu else "nccl")
+    return make_mesh(parse_mesh(spec)), device
+
+
+def run(opt, device=None, mesh=None):
     """The reference's ``run``: loaders, ``Trainer.fit`` (validation and
     checkpoints every epoch), ``load_best``, ``test``. ``device`` None
-    means the CUDA card (raises without one)."""
+    means the CUDA card (raises without one); ``mesh`` this process's
+    ``parallel.Mesh``."""
     from care_tpu_torch.data import get_loader
     from care_tpu_torch.data.corpus import load_info_corpus, load_references
     from care_tpu_torch.training.trainer import Trainer
@@ -114,13 +144,15 @@ def run(opt, device=None):
     trainer = trainer_cls(
         opt, train_loader=train_loader, val_loader=val_loader,
         test_loader=test_loader, references=references, vocab=vocab,
-        log_dir=os.path.join(opt["checkpoint_path"], "tb"), device=device)
+        log_dir=os.path.join(opt["checkpoint_path"], "tb"), device=device,
+        mesh=mesh)
     if opt.get("load_model_weights_from"):
         load_weights_from(trainer, opt["load_model_weights_from"])
     trainer.fit()
     trainer.load_best()
     scores = trainer.test(info_corpus=info_corpus)
-    print("- test scores:", {k: v for k, v in scores.items()})
+    if trainer.is_main:
+        print("- test scores:", {k: v for k, v in scores.items()})
     return scores
 
 
@@ -130,18 +162,20 @@ def main(argv=None):
     from care_tpu_torch.training.checkpoints import _jsonable
 
     args = parse_args(argv)
+    mesh, device = None, args.device
     if args.mesh:
-        raise unsupported("mesh", args.mesh)
+        mesh, device = init_mesh(args.mesh, args.device)
     overrides = overrides_from_args(args, exclude=("override", "mesh",
                                                    "devices", "device"))
     if args.override:
         overrides["final_overrides"] = json.loads(args.override)
     opt = get_opt(overrides)
     os.makedirs(opt["checkpoint_path"], exist_ok=True)
-    with open(os.path.join(opt["checkpoint_path"], "opt_info.json"),
-              "w") as f:
-        json.dump(_jsonable(opt), f, indent=1)
-    return run(opt, device=args.device)
+    if mesh is None or mesh.all.rank == 0:
+        with open(os.path.join(opt["checkpoint_path"], "opt_info.json"),
+                  "w") as f:
+            json.dump(_jsonable(opt), f, indent=1)
+    return run(opt, device=device, mesh=mesh)
 
 
 if __name__ == "__main__":

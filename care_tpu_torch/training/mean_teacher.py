@@ -11,7 +11,9 @@ As in ``care_tpu``, the step runs on dense logits (the fused cross-entropy
 is never taken here), and the epoch loop is the JAX package's own: no
 dual-Adam switch, no feature bank, no resume and no profiler; validation
 every epoch decodes the student, the checkpoint it selects stores the
-teacher, and ``test`` decodes the teacher in memory.
+teacher, and ``test`` decodes the teacher in memory. On a mesh the step
+averages the student's gradients over the data axis and the checkpoint
+holds the teacher's gathered parameters, as ``Trainer`` does.
 """
 
 import contextlib
@@ -19,11 +21,14 @@ import time
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from care_tpu_torch.models.weights import params_to_jax
-from care_tpu_torch.training.trainer import (Trainer, device_batch,
-                                             schedule_sampling_prob)
+from care_tpu_torch.parallel.mesh import gather_full, split_params
+from care_tpu_torch.training.trainer import (Trainer,
+                                             schedule_sampling_prob,
+                                             sync_data_grads)
 
 
 class MeanTeacherTrainer(Trainer):
@@ -50,6 +55,7 @@ class MeanTeacherTrainer(Trainer):
         student = [p for _, p in model.named_parameters()]
         teacher = [self.teacher_params[name] for name in names]
         self._fused_xent = False
+        data_axis = None if self.mesh is None else self.mesh.data
 
         def train_step(batch, ss_prob: float = 0.0):
             # the teacher: the same module on the teacher's parameters and
@@ -76,6 +82,7 @@ class MeanTeacherTrainer(Trainer):
             losses = {**losses, "Distillation Loss": dist_loss}
             tx.zero_grad()
             total.backward()
+            sync_data_grads(student, data_axis)
             tx.step()
             # the EMA update, in care_tpu's form: ema * t + (1 - ema) * s
             with torch.no_grad():
@@ -98,8 +105,10 @@ class MeanTeacherTrainer(Trainer):
 
         # the step generators start from the run's seed, as care_tpu's
         # step key does (seed + 1)
-        self.dropout_generator.manual_seed(opt.get("seed", 0) + 1)
-        self.sampling_generator.manual_seed(opt.get("seed", 0) + 2)
+        self.dropout_generator.manual_seed(opt.get("seed", 0) + 1
+                                           + self._stream())
+        self.sampling_generator.manual_seed(opt.get("seed", 0) + 2
+                                            + self._stream())
         step_fn = self._make_train_step()
         for epoch in range(epochs):
             self.model.train()
@@ -108,7 +117,7 @@ class MeanTeacherTrainer(Trainer):
             t0 = time.time()
             step_stats = []
             for batch in self.train_loader:
-                step_stats.append(step_fn(device_batch(batch, self.device),
+                step_stats.append(step_fn(self._device_batch(batch),
                                           ss_prob))
                 self.global_step += 1
             step_losses = [lv for lv, _, _ in
@@ -119,15 +128,19 @@ class MeanTeacherTrainer(Trainer):
             scores = {}
             if self.val_loader is not None:
                 scores = self.validate(epoch)
-            self.ckpt_manager.on_epoch_end(epoch, self._eval_variables(),
-                                           opt, scores)
+            variables = self._eval_variables()
+            if self.is_main:
+                self.ckpt_manager.on_epoch_end(epoch, variables, opt, scores)
             self.history.append({"epoch": epoch, "train_loss": loss,
                                  "epoch_time": epoch_time,
                                  "n_steps": len(step_losses),
                                  "step_losses": step_losses,
                                  "scores": dict(scores)})
-            print(f"- epoch {epoch}: loss={loss:.4f} "
-                  f"{self._fmt_scores(scores)}")
+            if self.is_main:
+                print(f"- epoch {epoch}: loss={loss:.4f} "
+                      f"{self._fmt_scores(scores)}")
+        if self._world > 1:
+            dist.barrier(group=self.mesh.all.group())
         return self.best_scores
 
     def _eval_variables(self):
@@ -136,8 +149,12 @@ class MeanTeacherTrainer(Trainer):
         student's."""
         variables = self.variables()
         if self.opt.get("eval_model", "teacher") == "teacher":
-            variables["params"] = params_to_jax(self.model,
-                                                self.teacher_params)
+            teacher = self.teacher_params
+            # on a mesh's model axis the teacher's split blocks, gathered
+            for name, (dim, ax) in split_params(self.model).items():
+                teacher = {**teacher,
+                           name: gather_full(teacher[name], dim, ax)}
+            variables["params"] = params_to_jax(self.model, teacher)
         return variables
 
     @contextlib.contextmanager

@@ -27,9 +27,11 @@ import math
 from typing import Callable, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from care_tpu_torch.models.weights import jax_leaf_key
+from care_tpu_torch.parallel.mesh import model_axis, split_params
 
 
 def make_lr_schedule(opt: dict, steps_per_epoch: int,
@@ -171,6 +173,10 @@ class ChainedAdam:
     everything and ``count`` advances. A parameter without a gradient counts
     as a zero gradient, as in a functional update. Nothing here reads a
     value back from the device.
+
+    On a mesh's model axis a split parameter's squared sum counts the
+    blocks of every process of the model group (one all-reduce a chain);
+    a replicated one counts once.
     """
 
     def __init__(self, opt: dict, model: nn.Module, chains: List[tuple]):
@@ -182,6 +188,8 @@ class ChainedAdam:
         else:
             decays = {name: bool(wd) for name in params}
         frozen = freeze_mask(model, opt) or {}
+        split = split_params(model)
+        self.model_axis = model_axis(model)
         self.max_norm = opt.get("gradient_clip_val", 0.0)
         self.count = 0
         self.chains = []
@@ -190,7 +198,9 @@ class ChainedAdam:
             chain = {"params": [params[n] for n in names],
                      "frozen": [params[n] for n in names
                                 if not frozen.get(n, True)],
-                     "schedule": schedule, "groups": []}
+                     "schedule": schedule, "groups": [],
+                     "split": (torch.tensor([n in split for n in names])
+                               if self.model_axis else None)}
             for decay in (True, False):
                 members = [params[n] for n in names if decays[n] == decay]
                 if members:
@@ -214,8 +224,11 @@ class ChainedAdam:
                 p.grad.zero_()
             if self.max_norm:
                 grads = [p.grad for p in chain["params"]]
-                norm = torch.linalg.vector_norm(
-                    torch.stack(torch._foreach_norm(grads)))
+                norms = torch.stack(torch._foreach_norm(grads))
+                if chain["split"] is None:
+                    norm = torch.linalg.vector_norm(norms)
+                else:
+                    norm = self._global_norm(norms, chain["split"])
                 scale = self.max_norm / torch.clamp_min(norm, self.max_norm)
                 torch._foreach_mul_(grads, scale)
             lr = chain["schedule"](self.count)
@@ -223,6 +236,15 @@ class ChainedAdam:
                 self.adam.param_groups[g]["lr"] = lr
         self.adam.step()
         self.count += 1
+
+    def _global_norm(self, norms, split):
+        """The norm of a chain whose ``split`` leaves hold blocks over the
+        model axis."""
+        sq = norms.square()
+        split = split.to(sq.device)
+        blocks = torch.where(split, sq, 0.0).sum().reshape(1)
+        dist.all_reduce(blocks, group=self.model_axis.group())
+        return torch.sqrt(blocks[0] + torch.where(split, 0.0, sq).sum())
 
     def set_constant_lr(self, lr: float) -> None:
         """Every chain at the constant ``lr`` from now on; the moments and

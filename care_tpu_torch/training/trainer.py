@@ -43,8 +43,21 @@ A model with ``with_backbones`` trains its image tower end to end on raw
 frames; ``backbone_weights`` fills the tower from local torch state dicts
 after the model is built (``models/backbone.py``).
 
-Not ported yet, each rejected with ``NotImplementedError``: a ``mesh``, a
-``fused_xent_backend`` other than ``auto``.
+On a ``mesh`` (``parallel/mesh.py:make_mesh``; one process a device) the
+parameters are split over its model axis after ``init_model`` and every
+process trains on its rows of each batch over the data axis (a world of
+more than one process reads through ``HostShardedBatches``). After the
+backward the gradients are averaged over the data axis, explicitly, before
+the clip; a model axis turns the fused cross-entropy off, as in the JAX
+package, and the head's logits come back whole. No feature bank is built.
+Validation and test decode each process's rows; the first process gathers
+the captions, scores them and sends the scores to every process, so that
+all take the same checkpoint, plateau and early-stop decisions.
+Checkpoints hold the whole parameters (and Adam moments), written by the
+first process; loading one cuts them again. Only the first process logs.
+
+A ``fused_xent_backend`` other than ``auto`` is rejected with
+``NotImplementedError``.
 """
 
 import json
@@ -55,6 +68,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from care_tpu_torch.data.loader import prefetch
 from care_tpu_torch.decoding import get_translator
@@ -66,6 +80,9 @@ from care_tpu_torch.models.decoders import (is_rnn_decoder,
                                             set_sampling_generator)
 from care_tpu_torch.models.weights import (variables_from_jax,
                                            variables_to_jax)
+from care_tpu_torch.parallel import input as parallel_input
+from care_tpu_torch.parallel import mesh as mesh_lib
+from care_tpu_torch.parallel import tensor_parallel as tp
 from care_tpu_torch.training import optim as optim_lib
 from care_tpu_torch.training.checkpoints import (CheckpointManager,
                                                  TrainStateCheckpointer,
@@ -93,9 +110,26 @@ def device_batch(batch: Dict[str, Any], device) -> Dict[str, Any]:
             continue
         if isinstance(v, np.ndarray):
             out[k] = put(v)
+        elif isinstance(v, torch.Tensor):
+            # already placed (HostShardedBatches)
+            out[k] = v.to(device, non_blocking=True)
         elif isinstance(v, list) and v and isinstance(v[0], np.ndarray):
             out[k] = [put(x) for x in v]
+        elif isinstance(v, list) and v and isinstance(v[0], torch.Tensor):
+            out[k] = [x.to(device, non_blocking=True) for x in v]
     return out
+
+
+def sync_data_grads(params, data_axis) -> None:
+    """Average the gradients over a mesh's data axis (a parameter without
+    a gradient counts as zeros, as the optimizer takes it); nothing runs on
+    an axis of one."""
+    if not tp.axis_active(data_axis):
+        return
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    tp.all_reduce_grads_mean(params, data_axis)
 
 
 def schedule_sampling_prob(opt: dict, epoch: int) -> float:
@@ -135,16 +169,29 @@ class Trainer:
     ``labels``, ``labels_attr``; validation and test batches also
     ``video_ids`` and, from a padding loader, ``batch_mask``).
     ``device`` None means the CUDA card (raises without one); the CPU only
-    when asked for by name."""
+    when asked for by name. ``mesh`` a ``parallel.Mesh`` this process
+    belongs to (``device`` is then this process's device)."""
 
     def __init__(self, opt: dict, train_loader=None, val_loader=None,
                  test_loader=None, references=None, vocab=None,
                  log_dir: Optional[str] = None, mesh=None, device=None):
-        if mesh is not None:
-            raise unsupported("mesh")
         _check_opt(opt)
+        if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+            raise TypeError(f"mesh must be a care_tpu_torch.parallel.Mesh "
+                            f"(make_mesh), not {type(mesh).__name__}")
         self.opt = opt
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_main = mesh is None or mesh.all.rank == 0
+        # the processes of the mesh, which gather and share evaluation
+        self._world = 1 if mesh is None else mesh.all.size
+        if mesh is not None:
+            parallel_input.set_default_mesh(mesh)
+            if self._world > 1 and train_loader is not None and not \
+                    isinstance(train_loader,
+                               parallel_input.HostShardedBatches):
+                train_loader = parallel_input.HostShardedBatches(
+                    train_loader, mesh, self.device)
         self.criterion = Criterion(opt, override_opt={"calculate_mAP": False})
         self.eval_criterion = Criterion(opt, skip_crit_list=["lang"],
                                         override_opt={"calculate_mAP": True},
@@ -163,7 +210,7 @@ class Trainer:
             start_saving_epoch=opt.get("start_saving_epoch", 0))
 
         self.tb = None
-        if log_dir:
+        if log_dir and self.is_main:
             try:
                 from tensorboardX import SummaryWriter
             except ImportError:
@@ -199,14 +246,25 @@ class Trainer:
                                      seed=seed).train()
         if self.opt.get("backbone_weights"):
             maybe_load_backbone_weights(self.model, self.opt)
+        if self.mesh is not None:
+            mesh_lib.shard_params(self.model, self.mesh)
         self.dropout_generator = torch.Generator(device=self.device)
-        self.dropout_generator.manual_seed(self.opt.get("seed", 0) + 1)
+        self.dropout_generator.manual_seed(self.opt.get("seed", 0) + 1
+                                           + self._stream())
         set_dropout_generator(self.model, self.dropout_generator)
         # the scheduled sampling of an RNN decoder: coins and samples
         self.sampling_generator = torch.Generator(device=self.device)
-        self.sampling_generator.manual_seed(self.opt.get("seed", 0) + 2)
+        self.sampling_generator.manual_seed(self.opt.get("seed", 0) + 2
+                                            + self._stream())
         set_sampling_generator(self.model, self.sampling_generator)
         return self.model
+
+    def _stream(self) -> int:
+        """The offset of this process's generator seeds: on a mesh the
+        processes of one model group draw the same masks (their replicated
+        activations must stay equal), those of other data coordinates their
+        own."""
+        return 0 if self.mesh is None else 7919 * self.mesh.data.rank
 
     @property
     def translator(self):
@@ -217,15 +275,33 @@ class Trainer:
     def variables(self) -> Dict[str, Any]:
         """The model's parameters (and BatchNorm running statistics) as the
         flax ``{"params": ..., "batch_stats": ...}`` tree, the layout of the
-        checkpoints."""
-        return variables_to_jax(self.model)
+        checkpoints; on a mesh the whole parameters (collective: every
+        process calls it)."""
+        if self.mesh is None:
+            return variables_to_jax(self.model)
+        return variables_to_jax(self.model, mesh_lib.full_values(self.model))
+
+    def load_variables(self, variables: Dict[str, Any]) -> None:
+        """Fill the model from a whole ``variables`` tree (a checkpoint's,
+        ``care_tpu``'s); on a mesh each process keeps its blocks."""
+        variables_from_jax(self.model, variables,
+                           None if self.mesh is None
+                           else mesh_lib.local_cut(self.model))
 
     # ------------------------------------------------------------------
     # the device feature bank
     # ------------------------------------------------------------------
     def _device_batch(self, batch):
         """A train batch on the device: its features gathered from the
-        bank when it covers the batch, else shipped from the host."""
+        bank when it covers the batch, else shipped from the host; on a
+        mesh this process's rows (a batch of ``HostShardedBatches`` holds
+        them already, as tensors)."""
+        if self.mesh is not None:
+            feats = batch["feats"]
+            lead = feats[0] if isinstance(feats, (list, tuple)) else feats
+            if not isinstance(lead, torch.Tensor):
+                batch = mesh_lib.shard_batch(batch, self.mesh)
+            return device_batch(batch, self.device)
         bank = self._feature_bank
         served = self._bank_serve(bank, batch)
         if served is not None:
@@ -257,8 +333,10 @@ class Trainer:
     def _maybe_val_bank(self, loader):
         """Feature bank of an eval loader's dataset (built on first use,
         kept per dataset). Unlike the train bank it never sets
-        ``skip_feats``: the host features stay the fall-back."""
-        if not self.opt.get("device_feature_cache", True):
+        ``skip_feats``: the host features stay the fall-back. None on a
+        mesh, as in the JAX package."""
+        if not self.opt.get("device_feature_cache", True) \
+                or self.mesh is not None:
             return None
         ds = getattr(loader, "dataset", None)
         if ds is None:
@@ -279,6 +357,7 @@ class Trainer:
         opt = self.opt
         if self._feature_bank is not None \
                 or not opt.get("device_feature_cache", True) \
+                or self.mesh is not None \
                 or self.train_loader is None \
                 or not hasattr(self.train_loader, "dataset"):
             return
@@ -355,7 +434,11 @@ class Trainer:
                          * opt.get("vocab_size", 11000) * 4 * 2) / 2**20
             fx_opt = logits_mb >= float(
                 opt.get("fused_xent_auto_threshold_mb", 512))
+        # under a model axis the vocab head is split: the dense step's
+        # gathered logits, as the JAX package keeps its dense CE there
+        tp_mesh = self.mesh is not None and self.mesh.model.size > 1
         fused_xent = (bool(fx_opt)
+                      and not tp_mesh
                       and "lang" in opt.get("crits", [])
                       and opt.get("cls_head") == "NaiveHead"
                       and not opt.get("pointer")
@@ -364,6 +447,8 @@ class Trainer:
         self._fused_xent = fused_xent
 
         collect_aux = self._needs_aux
+        data_axis = None if self.mesh is None else self.mesh.data
+        params = list(model.parameters())
 
         def train_step(batch, ss_prob: float = 0.0):
             # training mode: the BatchNorm running statistics move here
@@ -377,6 +462,7 @@ class Trainer:
                                                model.project_attribute)
             tx.zero_grad()
             total.backward()
+            sync_data_grads(params, data_axis)
             tx.step()
             mask = outputs.get("scheduled_sampling_mask")
             if mask is not None:
@@ -391,11 +477,11 @@ class Trainer:
         return train_step
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _drain_step_stats(step_stats):
+    def _drain_step_stats(self, step_stats):
         """Fetch an epoch's worth of per-step device scalars in ONE stacked
         device->host transfer; yields (loss, losses_dict, metrics_dict) as
-        python floats per step."""
+        python floats per step. On a data axis the losses (batch means) are
+        averaged and the recorders (sums) summed over its processes."""
         if not step_stats:
             return
         _, losses0, metrics0 = step_stats[0]
@@ -403,7 +489,15 @@ class Trainer:
         flat = [x.float().reshape(()) for loss, losses, metrics in step_stats
                 for x in ([loss] + [losses[k] for k in lk]
                           + [metrics[k] for k in mk])]
-        mat = torch.stack(flat).reshape(len(step_stats), -1).cpu().numpy()
+        mat = torch.stack(flat).reshape(len(step_stats), -1)
+        ax = None if self.mesh is None else self.mesh.data
+        if tp.axis_active(ax):
+            mat = mat.contiguous()
+            dist.all_reduce(mat, group=ax.group())
+            means = [True] * (1 + len(lk)) + [k == "ss_share" for k in mk]
+            mat = torch.where(torch.tensor(means, device=mat.device),
+                              mat / ax.size, mat)
+        mat = mat.cpu().numpy()
         for row in mat:
             yield (float(row[0]),
                    {k: float(v) for k, v in zip(lk, row[1:1 + len(lk)])},
@@ -509,15 +603,20 @@ class Trainer:
                     self.tx.set_constant_lr(
                         self._plateau.current_lr(opt["learning_rate"]))
 
-            self.ckpt_manager.on_epoch_end(epoch, self.variables(), opt,
-                                           scores)
+            variables = self.variables()
+            if self.is_main:
+                self.ckpt_manager.on_epoch_end(epoch, variables, opt, scores)
             if opt.get("resume"):
                 self._save_train_state(epoch)
             self.history.append({"epoch": epoch, **log, "n_steps": n_steps,
                                  "step_losses": step_losses,
                                  "scores": dict(scores)})
-            print(f"- epoch {epoch}: loss={log['train_loss']:.4f} "
-                  f"{self._fmt_scores(scores)} ({epoch_time:.1f}s)")
+            if self.is_main:
+                print(f"- epoch {epoch}: loss={log['train_loss']:.4f} "
+                      f"{self._fmt_scores(scores)} ({epoch_time:.1f}s)")
+        if self._world > 1:
+            # the first process's checkpoints are on disk for every process
+            dist.barrier(group=self.mesh.all.group())
         return self.best_scores
 
     @staticmethod
@@ -545,6 +644,46 @@ class Trainer:
                 if isinstance(getattr(dataset, attr, None),
                               np.random.RandomState)}
 
+    def _adam_params(self):
+        """The parameters in the index order of the optimizer's state
+        dict."""
+        return [p for g in self.tx.adam.param_groups for p in g["params"]]
+
+    def _optimizer_state(self, whole: bool, sd: dict = None) -> dict:
+        """The optimizer's state dict with the moments of split parameters
+        gathered whole (``whole``) or, from ``sd``, cut to this process's
+        blocks."""
+        sd = self.tx.state_dict() if sd is None else sd
+        split = mesh_lib.split_params(self.model)
+        if not split:
+            return sd
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        state = dict(sd["adam"]["state"])
+        for idx, p in enumerate(self._adam_params()):
+            name = names[id(p)]
+            if name not in split or idx not in state:
+                continue
+            dim, ax = split[name]
+            st = dict(state[idx])
+            for k in ("exp_avg", "exp_avg_sq"):
+                n = st[k].shape[dim]
+                st[k] = (mesh_lib.gather_full(st[k], dim, ax) if whole else
+                         st[k].narrow(dim, ax.rank * (n // ax.size),
+                                      n // ax.size).contiguous())
+            state[idx] = st
+        return {**sd, "adam": {**sd["adam"], "state": state}}
+
+    def _generator_states(self) -> dict:
+        """Every process's dropout and sampling generator states, by
+        rank."""
+        mine = (self.dropout_generator.get_state(),
+                self.sampling_generator.get_state())
+        if self._world == 1:
+            return {0: mine}
+        states = [None] * self._world
+        dist.all_gather_object(states, mine, group=self.mesh.all.group())
+        return dict(enumerate(states))
+
     def _save_train_state(self, epoch: int):
         meta = {"epoch": epoch, "global_step": self.global_step,
                 "switched": self._switched,
@@ -554,12 +693,24 @@ class Trainer:
             meta["plateau"] = {"best": self._plateau.best,
                                "bad_epochs": self._plateau.bad_epochs,
                                "scale": self._plateau.scale}
-        state = {"model": self.model.state_dict(),
-                 "optimizer": self.tx.state_dict(),
-                 "generator": self.dropout_generator.get_state(),
-                 "sampling_generator": self.sampling_generator.get_state(),
+        model_state = self.model.state_dict()
+        optimizer = self.tx.state_dict()
+        generators = {0: (self.dropout_generator.get_state(),
+                          self.sampling_generator.get_state())}
+        if self.mesh is not None:
+            model_state.update(mesh_lib.full_values(self.model))
+            optimizer = self._optimizer_state(whole=True)
+            generators = self._generator_states()
+        if not self.is_main:
+            return
+        state = {"model": model_state, "optimizer": optimizer,
+                 "generator": generators[0][0],
+                 "sampling_generator": generators[0][1],
                  "loader_rngs": {k: _rng_state(r)
                                  for k, r in self._loader_rngs().items()}}
+        if self.mesh is not None:
+            state["generators"] = {str(r): list(g)
+                                   for r, g in generators.items()}
         self._train_state_ckpt().save(epoch, state, meta)
 
     def _try_resume(self, training_scales) -> int:
@@ -594,15 +745,25 @@ class Trainer:
         self.ckpt_manager.load_state_dict(meta.get("ckpt_manager", {}))
 
         state = ts.restore_state(latest)
-        self.model.load_state_dict(state["model"])
-        self.tx.load_state_dict(state["optimizer"])
-        self.dropout_generator.set_state(state["generator"])
-        self.sampling_generator.set_state(state["sampling_generator"])
+        if self.mesh is None:
+            self.model.load_state_dict(state["model"])
+            self.tx.load_state_dict(state["optimizer"])
+            self.dropout_generator.set_state(state["generator"])
+            self.sampling_generator.set_state(state["sampling_generator"])
+        else:
+            self.model.load_state_dict(mesh_lib.local_values(self.model,
+                                                             state["model"]))
+            self.tx.load_state_dict(self._optimizer_state(
+                whole=False, sd=state["optimizer"]))
+            dropout, sampling = state["generators"][str(self.mesh.all.rank)]
+            self.dropout_generator.set_state(dropout)
+            self.sampling_generator.set_state(sampling)
         rngs = self._loader_rngs()
         for k, st in state["loader_rngs"].items():
             _set_rng_state(rngs[k], st)
         self._train_step_fn = None
-        print(f"- resumed train state from epoch {latest}")
+        if self.is_main:
+            print(f"- resumed train state from epoch {latest}")
         return latest + 1
 
     def _fmt_scores(self, scores):
@@ -638,6 +799,59 @@ class Trainer:
         if teacher is None:
             return {}
         return {"teacher": teacher, "vocab_mapping": vocab_mapping}
+
+    # ------------------------------------------------------------------
+    # evaluation on a mesh
+    # ------------------------------------------------------------------
+    def _local_batches(self, loader):
+        """(this process's rows of each evaluation batch, whether its
+        concept metrics count here): on a mesh the rows of its data
+        coordinate, or the whole of a batch that does not split; the
+        metrics of each batch count once, on the first process of a model
+        group that holds its rows."""
+        for b in loader:
+            if self.mesh is None:
+                yield b, True
+                continue
+            split = mesh_lib.batch_divides(b, self.mesh)
+            counts = self.mesh.model.rank == 0 and (
+                split or self.mesh.data.rank == 0)
+            yield mesh_lib.local_rows(b, self.mesh), counts
+
+    def _gather_eval(self, pred_batches, metric_rows):
+        """The captions of every batch (a dict per batch) and the concept
+        metric rows of every process, in the global row order, on the
+        first process (None on the others); as they are without a mesh."""
+        if self._world == 1:
+            preds = {}
+            for p in pred_batches:
+                preds.update(p)
+            return preds, metric_rows
+        mine = (self.mesh.data.rank, self.mesh.model.rank, pred_batches,
+                metric_rows)
+        everyone = [None] * self._world if self.is_main else None
+        dist.gather_object(mine, everyone, dst=self.mesh.root,
+                           group=self.mesh.all.group())
+        if not self.is_main:
+            return None, None
+        firsts = sorted((e for e in everyone if e[1] == 0),
+                        key=lambda e: e[0])
+        preds, rows = {}, []
+        for i in range(len(pred_batches)):
+            for e in firsts:
+                preds.update(e[2][i])
+        for e in firsts:
+            rows.extend(e[3])
+        return preds, rows
+
+    def _share(self, value):
+        """The first process's ``value`` on every process."""
+        if self._world == 1:
+            return value
+        box = [value]
+        dist.broadcast_object_list(box, src=self.mesh.root,
+                                   group=self.mesh.all.group())
+        return box[0]
 
     def translate_step(self, batch) -> Dict[str, list]:
         """Generate captions for a batch; returns dict[vid] -> preds."""
@@ -681,7 +895,7 @@ class Trainer:
         was_training = self.model.training
         self.model.eval()
         run_concept_metrics = "attribute" in self.eval_criterion.crits
-        preds = {}
+        pred_batches = []
         # per-batch metric scalars stay on the device until the pass ends
         batch_metrics = []
         # fused-K decode (the default): up to eval_fused_k decodes in
@@ -706,9 +920,9 @@ class Trainer:
 
         if fused_k > 1:
             def tagged():
-                for b in loader:
+                for b, counts in self._local_batches(loader):
                     db = to_device(b)
-                    yield (b, db), db
+                    yield (b, db, counts), db
 
             stream = self.translator.translate_batches_grouped(
                 self.model, tagged(), fused_k, **tkw)
@@ -718,42 +932,41 @@ class Trainer:
             originals = []
 
             def device_batches():
-                for b in loader:
-                    originals.append(b)
+                for b, counts in self._local_batches(loader):
+                    originals.append((b, counts))
                     yield to_device(b)
 
-            stream = (((originals.pop(0), db), out) for db, out in
-                      self.translator.translate_batches(
-                          self.model, device_batches(), **tkw))
+            def in_order():
+                for db, out in self.translator.translate_batches(
+                        self.model, device_batches(), **tkw):
+                    b, counts = originals.pop(0)
+                    yield (b, db, counts), out
+
+            stream = in_order()
 
         try:
-            for (batch, db), (hyps, scores) in stream:
-                preds.update(self._collect_preds(batch, hyps, scores))
+            for (batch, db, counts), (hyps, scores) in stream:
+                pred_batches.append(self._collect_preds(batch, hyps, scores))
                 if run_concept_metrics and "labels_attr" in batch:
                     outputs = self.model(db, compute_logits=False,
                                          collect_aux=self._needs_aux)
-                    batch_metrics.append(self.eval_criterion(
-                        {**outputs, **db}, self.model.project_attribute)[2])
+                    m = self.eval_criterion(
+                        {**outputs, **db}, self.model.project_attribute)[2]
+                    if counts:
+                        batch_metrics.append(m)
         finally:
             self.model.train(was_training)
 
-        tracker = MetricTracker()
+        rows = []
         if batch_metrics:
             keys = sorted(batch_metrics[0])
             mat = torch.stack([m[k].float().reshape(()) for m in batch_metrics
                                for k in keys]).reshape(len(batch_metrics), -1)
-            for row in mat.cpu().numpy():
-                tracker.update(dict(zip(keys, row)))
-
-        scorer = COCOScorer()
-        scores, _ = scorer.score(references, preds, list(preds.keys()))
-        for topk in (5, 10, 20, 30, 40, 50):
-            if tracker.sums.get(f"V_f1_{topk}_count"):
-                scores[f"F1-{topk:02d}"] = tracker.ratio(
-                    f"V_f1_{topk}_sum", f"V_f1_{topk}_count")
-        if tracker.sums.get("V_ap_count"):
-            scores["mAP"] = tracker.ratio("V_ap_sum", "V_ap_count")
-        scores["Sum"] = self._sum_score(scores)
+            rows = [dict(zip(keys, row)) for row in mat.cpu().numpy()]
+        preds, rows = self._gather_eval(pred_batches, rows)
+        scores = (self._score_validation(references, preds, rows)
+                  if self.is_main else None)
+        scores = self._share(scores)
 
         for key in ("Sum", "CIDEr"):
             if scores[key] > self.best_scores.get(key, float("-inf")):
@@ -765,23 +978,46 @@ class Trainer:
                                        epoch)
         return scores
 
+    def _score_validation(self, references, preds, rows) -> Dict[str, float]:
+        tracker = MetricTracker()
+        for row in rows:
+            tracker.update(row)
+        scorer = COCOScorer()
+        scores, _ = scorer.score(references, preds, list(preds.keys()))
+        for topk in (5, 10, 20, 30, 40, 50):
+            if tracker.sums.get(f"V_f1_{topk}_count"):
+                scores[f"F1-{topk:02d}"] = tracker.ratio(
+                    f"V_f1_{topk}_sum", f"V_f1_{topk}_count")
+        if tracker.sums.get("V_ap_count"):
+            scores["mAP"] = tracker.ratio("V_ap_sum", "V_ap_count")
+        scores["Sum"] = self._sum_score(scores)
+        return scores
+
     @torch.no_grad()
     def test(self, loader=None, references=None, info_corpus=None,
              save_csv_path: Optional[str] = None,
              keys_added_to_scores=("seed",)) -> Dict[str, float]:
         """Best-checkpoint evaluation + caption-quality analysis + CSV
-        (reference ``Wrapper.py:75-149``)."""
+        (reference ``Wrapper.py:75-149``). On a mesh the first process
+        scores and writes; every process returns its scores."""
         loader = loader or self.test_loader
         references = references or self.references
         was_training = self.model.training
         self.model.eval()
-        preds = {}
+        pred_batches = []
         try:
-            for batch in loader:
-                preds.update(self.translate_step(batch))
+            for batch, _ in self._local_batches(loader):
+                pred_batches.append(self.translate_step(batch))
         finally:
             self.model.train(was_training)
+        preds, _ = self._gather_eval(pred_batches, [])
+        scores = (self._score_test(references, preds, info_corpus,
+                                   save_csv_path, keys_added_to_scores)
+                  if self.is_main else None)
+        return self._share(scores)
 
+    def _score_test(self, references, preds, info_corpus, save_csv_path,
+                    keys_added_to_scores) -> Dict[str, float]:
         # VATEX missing-video completion from an I3D model's predictions
         # (reference ``Wrapper.py:94-105``)
         if (self.opt.get("dataset") == "VATEX"
@@ -839,5 +1075,5 @@ class Trainer:
         path = self.ckpt_manager.best_path
         if path:
             variables, _, _ = load_checkpoint(path, self.variables())
-            variables_from_jax(self.model, variables)
+            self.load_variables(variables)
         return self.model

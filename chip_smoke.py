@@ -168,6 +168,22 @@ before the last line:
    from the seed gives a parameter gap of exactly 0.0 for the student and
    the teacher; ms a step and peak memory beside the plain ``Trainer``'s
    on the same batches.
+7m. parallel: the flagship at full width on meshes of processes
+   (``care_tpu_torch.parallel``). A world of one over NCCL, mesh
+   ``{data: 1}``: 4 fused train steps at batch 64 (K2, K3a, K3b once a
+   step) give parameters ``torch.equal`` to the mesh-less ``Trainer``'s on
+   the same batches; 64 + 17 videos served (K1 once a beam step) decode
+   the mesh-less beams; ms a step with and without the mesh, caps/s. Then
+   K1 on the two vocab halves [5 500, 512], merged, against K1 on the whole
+   vocabulary; and a world of two processes over gloo sharing the card,
+   mesh ``{data: 1, model: 2}``: the 64 videos through K1 on each
+   process's [5 500, 512] rows, merged over the model group (beams
+   token-identical to the world of one, scores within 1e-4; K1 launches ==
+   beam steps on each process), and one dense train step (the fused
+   cross-entropy is off on a model axis: no K2 / K3 launch) whose loss is
+   within 1e-5 of the unsharded step's and whose update follows it (each
+   leaf's change within 1e-2 of the unsharded change in the 2-norm, the
+   attention key biases aside); caps/s and ms a step.
 7k. convert: a reference-layout Lightning checkpoint of the flagship
    (``tests/reference_layout.py``, seeded noise) converted by
    ``care_tpu_torch.tools.convert_reference_ckpt`` (seconds printed) and
@@ -192,7 +208,8 @@ before the last line:
    beside), event-timed and as device time. K2 also at the NAR decode's
    shape (11 520 rows, with and without token ids, f32 and bf16) beside
    the unfused library sequence and its bound, under ``nar_`` keys of its
-   line.
+   line. K1 also at the vocab shard of the ``parallel`` phase (rows
+   [320, 512] x [5 500, 512]) under ``shard_`` keys of its line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -1246,6 +1263,287 @@ def phase_train(opt, scratch) -> dict:
              ms / 1e3, trained)
     _xent_scratch(opt)
     return {name: counts[name] for name in trained}
+
+
+# ---------------------------------------------------------------------------
+# data and tensor parallelism
+# ---------------------------------------------------------------------------
+
+PARALLEL_STEPS = 4
+QUIET = {"hidden_dropout_prob": 0.0, "encoder_dropout_prob": 0.0,
+         "attention_probs_dropout_prob": 0.0}
+
+
+def _serve_rows(translator, model, feats, rows):
+    """(hyps, scores, seconds) of one decode of ``feats``' rows."""
+    batch = {"feats": [f[rows] for f in feats]}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hyps, scores = translator.translate_batch(model, batch)
+    torch.cuda.synchronize()
+    return hyps, scores, time.perf_counter() - t0
+
+
+def _check_vocab_shards(opt) -> None:
+    """K1 on each half of the vocabulary, merged (``merge_vocab_shards``),
+    against K1 on the whole at the serving shape: equal ids, scores within
+    1e-5."""
+    K, H, V = opt["beam_size"], opt["dim_hidden"], opt["vocab_size"]
+    h, W = _head_inputs(BATCH * K, H, V, torch.float32, False, 11)
+    g = torch.Generator().manual_seed(12)
+    scores = torch.randn((BATCH, K), generator=g).cuda()
+    eos = torch.zeros((BATCH, K), dtype=torch.bool, device="cuda")
+    n = V // 2
+    parts = [fht._stats_cuda(h, W[r * n:(r + 1) * n].contiguous(), None, K)
+             for r in range(2)]
+    stack = lambda i: torch.stack([p[i] for p in parts], 1)
+    ids = torch.stack([p[1].long() + r * n for r, p in enumerate(parts)], 1)
+    got = fht._finalize(*fht.merge_vocab_shards(stack(0), ids, stack(2),
+                                                stack(3), K),
+                        scores, eos, K, V)
+    want = fht.fused_head_beam_topk(h, W, None, scores, eos, K)
+    assert torch.equal(got[1], want[1]), "merged shards pick other ids"
+    err = float((got[0] - want[0]).abs().max())
+    assert err <= 1e-5, err
+    for r, p in enumerate(parts):
+        plain = fht._stats_plain(h, W[r * n:(r + 1) * n], None, K, 1024)
+        assert torch.equal(p[1].long(), plain[1]), r
+    print(f"parallel: K1 on the vocab halves [{BATCH * K}, {H}] x [{n}, {H}]"
+          f" merged == K1 on [{V}, {H}] (ids equal, scores within {err:.2e})"
+          "; each half's ids == its plain version's")
+
+
+def _parallel_child(rank, init_file, payload_path, out_dir) -> None:
+    """One process of the world of two on the card (gloo): serve the
+    payload's videos and take one dense train step on the mesh
+    ``{data: 1, model: 2}``; writes its readings to ``out_dir``."""
+    import torch.distributed as dist
+    from care_tpu_torch.models.weights import variables_from_jax
+    from care_tpu_torch.parallel import make_mesh, shard_params
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=2)
+    try:
+        payload = torch.load(payload_path, weights_only=False)
+        opt = payload["opt"]
+        mesh = make_mesh({"data": 1, "model": 2})
+        model = build_captioner(opt, device="cuda", seed=SEED)
+        variables_from_jax(model, payload["variables"])
+        shard_params(model, mesh)
+        model.eval()
+        translator = get_translator(opt)
+        feats = payload["feats"]
+        _zero_launch_counts()
+        hyps, scores, _ = _serve_rows(translator, model, feats,
+                                      slice(0, BATCH))
+        served = dict(_launch_counts(), beam_steps=translator.beam_steps)
+        dist.barrier()
+        _, _, seconds = _serve_rows(translator, model, feats,
+                                    slice(0, BATCH))
+
+        class One(list):
+            def set_epoch(self, epoch):
+                pass
+
+        trainer = Trainer(opt, One([payload["batch"]]), mesh=mesh)
+        trainer.init_model()
+        trainer.load_variables(payload["variables"])
+        trainer._build_tx(1)
+        step = trainer._make_train_step()
+        _zero_launch_counts()
+        loss = float(step(trainer._device_batch(payload["batch"]))[0])
+        trained = _launch_counts()
+        after = trainer.variables()["params"]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        step(trainer._device_batch(payload["batch"]))
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        torch.save({"hyps": hyps, "scores": scores, "served": served,
+                    "seconds": seconds, "loss": loss, "trained": trained,
+                    "after": after,
+                    "fused": trainer._fused_xent, "step_ms": step_ms,
+                    "head_rows": tuple(
+                        model.cls_head.tgt_word_prj.weight.shape)},
+                   os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_parallel(opt, scratch) -> dict:
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from care_tpu_torch.models.weights import variables_to_jax
+    from care_tpu_torch.parallel import make_mesh
+    base = dict(opt, fused_xent=True,
+                checkpoint_path=os.path.join(scratch, "parallel"))
+    loader = SyntheticLoader(opt, PARALLEL_STEPS, BATCH, SEED + 50)
+    feats = _synthetic_feats(opt, BATCH + RAGGED, SEED + 51)
+    trained = ("vocab_argmax_lse", "fused_xent_bwd_dh", "fused_xent_bwd_dw")
+    counts = {name: 0 for name in KERNELS}
+
+    # a world of one over NCCL: the mesh {data: 1} against no mesh
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(scratch, "nccl_world"),
+        rank=0, world_size=1)
+    try:
+        mesh = make_mesh({"data": 1})
+        runs = {}
+        for label, m in (("no mesh", None), ("data=1", mesh)):
+            trainer = Trainer(base, loader, mesh=m)
+            trainer.init_model()
+            trainer._build_tx(len(loader))
+            step = trainer._make_train_step()
+            assert trainer._fused_xent
+            _zero_launch_counts()
+            losses = [step(trainer._device_batch(b))[0]
+                      for b in loader.batches]
+            torch.cuda.synchronize()
+            launched = _launch_counts()
+            for name, n in launched.items():
+                assert n == (PARALLEL_STEPS if name in trained else 0), (
+                    label, launched)
+            runs[label] = (trainer, step, [float(x) for x in losses])
+            if m is not None:
+                for name in trained:
+                    counts[name] += launched[name]
+        (plain, plain_step, plain_losses), (meshed, mesh_step,
+                                           mesh_losses) = runs.values()
+        gap = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+            plain.model.parameters(), meshed.model.parameters()))
+        assert gap == 0.0 and plain_losses == mesh_losses, (gap,
+                                                            plain_losses,
+                                                            mesh_losses)
+        # ms a step, the two in turns, the parameters moving on
+        ms = {"no mesh": [], "data=1": []}
+        for label in ("no mesh", "data=1", "data=1", "no mesh"):
+            trainer, step, _ = runs[label]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for b in loader.batches:
+                step(trainer._device_batch(b))
+            torch.cuda.synchronize()
+            ms[label].append(1e3 * (time.perf_counter() - t0)
+                             / PARALLEL_STEPS)
+        rounded = [round(l, 4) for l in mesh_losses]
+        print(f"parallel: world of 1 over NCCL, mesh {{data: 1}}: "
+              f"{PARALLEL_STEPS} fused steps at batch {BATCH} equal the "
+              f"mesh-less trainer's (losses {rounded}, parameter gap {gap});"
+              f" K2, K3a, K3b == {PARALLEL_STEPS}; ms a step (two turns "
+              f"each) without the mesh {ms['no mesh']}, with "
+              f"{ms['data=1']}")
+
+        # serving 64 + 17 on the mesh, beside the mesh-less model
+        translator = get_translator(base)
+        beams = {}
+        for label in ("no mesh", "data=1"):
+            model = runs[label][0].model.eval()
+            _zero_launch_counts()
+            steps0 = translator.beam_steps
+            out = [_serve_rows(translator, model, feats, rows) for rows in
+                   (slice(0, BATCH), slice(BATCH, BATCH + RAGGED))]
+            launched = _launch_counts()
+            steps = translator.beam_steps - steps0
+            assert launched["fused_head_topk"] == steps > 0, (launched,
+                                                              steps)
+            if label == "data=1":
+                counts["fused_head_topk"] += launched["fused_head_topk"]
+            _, _, seconds = _serve_rows(translator, model, feats,
+                                        slice(0, BATCH))
+            beams[label] = ([o[:2] for o in out], seconds)
+        assert beams["no mesh"][0] == beams["data=1"][0], "beams differ"
+        print(f"parallel: world of 1 served {BATCH} + {RAGGED} videos, "
+              f"beams == the mesh-less model's; caps/s at batch {BATCH}: "
+              f"no mesh {BATCH / beams['no mesh'][1]:.1f}, mesh "
+              f"{BATCH / beams['data=1'][1]:.1f}")
+        world1 = beams["data=1"][0][0]
+        world1_caps = BATCH / beams["data=1"][1]
+        variables = variables_to_jax(meshed.model)
+
+        # the unsharded dense step's loss on the trained weights, dropout
+        # off: what the model-parallel step must reproduce
+        quiet = dict(opt, fused_xent=False, **QUIET)
+        ref = Trainer(quiet, loader)
+        ref.init_model()
+        ref.load_variables(variables)
+        ref._build_tx(1)
+        ref_loss = float(ref._make_train_step()(ref._device_batch(
+            loader.batches[0]))[0])
+        ref_after = variables_to_jax(ref.model)["params"]
+        del runs, plain, meshed, ref
+    finally:
+        dist.destroy_process_group()
+    _check_vocab_shards(opt)
+
+    # a world of two over gloo on the same card: {data: 1, model: 2}
+    payload = os.path.join(scratch, "parallel_payload.pt")
+    torch.save({"opt": quiet, "variables": variables,
+                "feats": [f[:BATCH] for f in feats],
+                "batch": loader.batches[0]}, payload)
+    out_dir = os.path.join(scratch, "parallel_out")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.start_processes(_parallel_child, args=(
+        os.path.join(scratch, "gloo_world"), payload, out_dir), nprocs=2,
+        start_method="spawn")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    hyps, scores = ranks[0]["hyps"], ranks[0]["scores"]
+    assert hyps == world1[0], "the model-parallel beams differ"
+    err = max(abs(a - b) for row, want in zip(scores, world1[1])
+              for a, b in zip(row, want))
+    assert err <= 1e-4, err
+    for r in ranks:
+        served, launched = r["served"], r["trained"]
+        assert r["head_rows"] == (opt["vocab_size"] // 2, opt["dim_hidden"])
+        assert served["fused_head_topk"] == served["beam_steps"] > 0, served
+        assert not r["fused"] and all(launched[k] == 0 for k in trained), (
+            launched)
+        counts["fused_head_topk"] += served["fused_head_topk"]
+        assert r["loss"] == ranks[0]["loss"]
+    rel = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
+    assert rel <= 1e-5, (ranks[0]["loss"], ref_loss)
+    gap, change_err = _step_agreement(variables["params"], ref_after,
+                                      ranks[0]["after"])
+    assert change_err[0] <= 1e-2, change_err
+    k1 = [r["served"]["fused_head_topk"] for r in ranks]
+    print(f"parallel: world of 2 over gloo on one card, mesh {{data: 1, "
+          f"model: 2}} ({wall:.1f} s with the processes' start): {BATCH} "
+          f"videos through K1 on each process's {ranks[0]['head_rows']} "
+          f"rows, merged: beams == the world of 1's, scores within "
+          f"{err:.2e}; K1 launches {k1} == beam steps; caps/s {BATCH / ranks[0]['seconds']:.1f} (world "
+          f"of 1: {world1_caps:.1f}); one dense step (fused CE off on a "
+          f"model axis, no K2/K3 launch): loss {ranks[0]['loss']:.6f} vs "
+          f"unsharded {ref_loss:.6f} (relative {rel:.2e}), parameters "
+          f"after it within {gap:.2e} of the unsharded step's (worst "
+          f"leaf's change off by {change_err[0]:.2e} of itself, "
+          f"{change_err[1]}), "
+          f"{ranks[0]['step_ms']:.1f} ms a step")
+    return counts
+
+
+def _step_agreement(before, want, got) -> tuple:
+    """(largest gap between the parameter trees ``want`` and ``got``,
+    (worst leaf's ``|got change - want change| / |want change|`` from
+    ``before`` in the 2-norm, that leaf's name)). The attention key biases
+    are left out of the second: their true gradient is 0, so Adam steps
+    f32 noise on either side."""
+    leaves = lambda t, pre="": [
+        x for k, v in t.items()
+        for x in (leaves(v, f"{pre}{k}/") if isinstance(v, dict)
+                  else [(pre + k, np.asarray(v))])]
+    b, w, g = (dict(leaves(t)) for t in (before, want, got))
+    assert sorted(w) == sorted(g) == sorted(b)
+    gap = max(float(np.abs(g[k] - w[k]).max()) for k in w)
+    err = max((float(np.linalg.norm(g[k] - w[k])
+                     / max(np.linalg.norm(w[k] - b[k]), 1e-30)), k)
+              for k in w if not k.endswith("/key/bias"))
+    return gap, err
 
 
 # ---------------------------------------------------------------------------
@@ -3507,6 +3805,22 @@ def phase_time(opt, errors, counts, nar_opt, nar_counts) -> list:
     h, W = _head_inputs(rows, H, V, torch.bfloat16, False, 1)
     _entry_bf16(entries[0], *_time_head(h, W, K), flops,
                 2 * (rows * H + V * H) + out_bytes)
+    # the vocab shard of a model axis of two (the parallel phase)
+    n = V // 2
+    h, W = _head_inputs(rows, H, n, torch.float32, False, 1)
+    shard_ms, shard_plain_ms, shard_unfused_ms = _time_head(h, W, K)
+    shard_flops, shard_bytes = 2 * rows * H * n, 4 * (rows * H + n * H) \
+        + out_bytes
+    shard_bound, shard_by = _bound(shard_flops, shard_bytes)
+    entries[0].update(
+        shard_shape=f"[{rows}, {H}] x [{n}, {H}]", shard_ms=shard_ms,
+        shard_plain_ms=shard_plain_ms,
+        shard_unfused_torch_ms=shard_unfused_ms,
+        shard_bound_ms=shard_bound, shard_bound_by=shard_by)
+    print(f"time fused_head_topk at the vocab shard [{rows}, {H}] x [{n}, "
+          f"{H}] f32: kernel {shard_ms:.4f} ms, plain {shard_plain_ms:.4f} "
+          f"ms, unfused {shard_unfused_ms:.4f} ms, bound {shard_bound:.4f} "
+          f"ms ({shard_by}: {shard_flops} flop, {shard_bytes} bytes)")
 
     # the training shape: batch 64 x 29 positions, no bias
     rows = BATCH * (opt["max_len"] - 1)
@@ -3704,6 +4018,8 @@ def main() -> None:
                                   scratch).items():
             counts[k] += n
         phase_bert(scratch)
+        for k, n in phase_parallel(opt, scratch).items():
+            counts[k] += n
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     kernels = phase_time(opt, errors, counts, family_opt(NAR_STUDENT[0]),

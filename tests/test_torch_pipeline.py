@@ -312,8 +312,12 @@ def test_run_defaults_to_the_card(data, tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,name", [
     (["--mesh", "data=2"], "mesh")])
 def test_cli_refuses_what_is_not_ported(argv, name, tmp_path, monkeypatch):
+    """``--mesh`` is ported; a mesh of two processes in a world of one
+    (no ``torchrun``) is refused, naming the mesh and both sizes."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=name):
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(ValueError, match=name):
         port_train.main(["--method", "Transformer", "--task", "CARE",
                          "-dm_flags", "VA", "-pm_flags", "VAT",
                          "--device", "cpu", *argv])

@@ -349,7 +349,9 @@ def test_teacher_options_are_accepted(key, value):
 
 @pytest.mark.parametrize("name", ["mesh"])
 def test_rejected_arguments_raise_naming_themselves(name):
-    with pytest.raises(NotImplementedError, match=name):
+    """A mesh is taken since the parallel slice; what is not a
+    ``care_tpu_torch.parallel.Mesh`` is refused by name."""
+    with pytest.raises(TypeError, match=name):
         Trainer(_opt(), ListLoader([]), device="cpu", **{name: object()})
 
 
