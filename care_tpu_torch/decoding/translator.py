@@ -40,6 +40,14 @@ stream before it fetches their outputs; and ``translate_batches_grouped``,
 the ``--fused_k`` / ``eval_fused_k`` path of serving and validation, keeps
 up to K decodes in flight over a stream.
 
+Spans (``utils/profiling.trace_annotation``, recorded only while a
+profiler runs): every way through a batch opens ``care.dispatch`` around
+its dispatch and ``care.collect`` around its collection (a dispatch and
+its collection pair up in order); the AR translator adds ``care.encode``
+(the encoders and the decoder's inputs), ``care.beam.init`` (the decode
+state) and ``care.collect.fetch`` (the outputs' copy to the host), and
+``decoding/beam_search.py`` the spans of the beam loop.
+
 Half-precision serving (``compute_dtype_decode: bfloat16``) decodes with a
 bf16 copy of the model's parameters (``decode_head_f32`` keeps the vocab
 head in f32) and bf16 feature streams; the caller's model is untouched.
@@ -65,6 +73,7 @@ from care_tpu_torch.models.weights import batch_stats_leaves
 from care_tpu_torch.ops.fused_head_topk import vocab_argmax_lse
 from care_tpu_torch.parallel.mesh import gather_full, is_split, model_axis
 from care_tpu_torch.utils.device import resolve_device
+from care_tpu_torch.utils.profiling import trace_annotation
 
 # what ``compute_dtype_decode`` may say: argparse delivers the string
 _DECODE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
@@ -242,11 +251,19 @@ class Translator:
                 out[k] = t if t.is_floating_point() else t.long()
         return out
 
+    def _dispatch(self, models, batch, kwargs):
+        with trace_annotation("care.dispatch"):
+            return self.dispatch(models, batch, **kwargs)
+
+    def _collect(self, out):
+        with trace_annotation("care.collect"):
+            return self.collect(out)
+
     def translate_batch(self, models, batch: Dict[str, Any], **kwargs):
         """models: a Captioner (or a one-element list of it); batch:
         {"feats": [per-modality [B, T, dim] arrays]}. Returns (hyps, scores)
         shaped like the reference: hyps[n] = list of topk token-id lists."""
-        return self.collect(self.dispatch(models, batch, **kwargs))
+        return self._collect(self._dispatch(models, batch, kwargs))
 
     def translate_batches(self, models, batches, depth: int = 2, **kwargs):
         """Decode an iterable of batches, keeping up to ``depth`` decodes'
@@ -260,21 +277,21 @@ class Translator:
     def _pipelined(self, models, tagged_batches, depth: int, kwargs):
         pending = deque()
         for tag, batch in tagged_batches:
-            pending.append((tag, self.dispatch(models, batch, **kwargs)))
+            pending.append((tag, self._dispatch(models, batch, kwargs)))
             while len(pending) > depth:
                 t, out = pending.popleft()
-                yield t, self.collect(out)
+                yield t, self._collect(out)
         while pending:
             t, out = pending.popleft()
-            yield t, self.collect(out)
+            yield t, self._collect(out)
 
     def translate_batches_fused(self, models, batches: List[Dict[str, Any]],
                                 **kwargs):
         """Decode K batches back to back on the card's stream, then fetch
         and collect their outputs; returns a list of per-batch (hyps,
         scores), identical to per-batch :meth:`translate_batch`."""
-        outs = [self.dispatch(models, b, **kwargs) for b in batches]
-        return [self.collect(out) for out in outs]
+        outs = [self._dispatch(models, b, kwargs) for b in batches]
+        return [self._collect(out) for out in outs]
 
     def translate_batches_grouped(self, models, tagged_batches,
                                   fused_k: int, **kwargs):
@@ -296,8 +313,17 @@ class TranslatorARFormer(Translator):
         super().__init__(opt, device)
         self.beam_size = opt.get("beam_size", 5)
         self.topk = opt.get("topk", 1)
-        # beam steps run by this translator, all batches together
+        # beam steps run by this translator, all batches together; an
+        # instance counts in each step it takes part in, and is live there
+        # while its finished buffer is not yet full (instances that have
+        # finished stay in the beam's rows, masked)
         self.beam_steps = 0
+        self.instance_steps = 0
+        self.live_instance_steps = 0
+
+    def _count_live(self, instances: int, live: int) -> None:
+        self.instance_steps += instances
+        self.live_instance_steps += live
 
     @torch.no_grad()
     def dispatch(self, models, batch: Dict[str, Any], **unused):
@@ -314,10 +340,11 @@ class TranslatorARFormer(Translator):
         aux = self._batch_inputs(batch)
         N = (feats[0][0] if per_model else feats[0]).shape[0]
         members = []
-        for i, model in enumerate(models):
-            enc = model.encoding_phase(feats[i] if per_model else feats)
-            members.append((model,
-                            model.prepare_inputs_for_decoder(enc, aux)))
+        with trace_annotation("care.encode"):
+            for i, model in enumerate(models):
+                enc = model.encoding_phase(feats[i] if per_model else feats)
+                members.append((model,
+                                model.prepare_inputs_for_decoder(enc, aux)))
         if self.fused_head and len(members) == 1:
             return self._dispatch_fused(*members[0], N)
         return self._dispatch_dense(members, N)
@@ -325,7 +352,9 @@ class TranslatorARFormer(Translator):
     def _dispatch_fused(self, model, inputs, N: int):
         """One model through the fused head + top-k: the step returns the
         decoder's hidden states."""
-        carry = model.init_decode_state(inputs, self.max_len, self.beam_size)
+        with trace_annotation("care.beam.init"):
+            carry = model.init_decode_state(inputs, self.max_len,
+                                            self.beam_size)
 
         def step_fn(tokens, position, state):
             self.beam_steps += 1
@@ -339,7 +368,7 @@ class TranslatorARFormer(Translator):
             beam_size=self.beam_size, max_len=self.max_len,
             beam_alpha=self.beam_alpha, topk=self.topk,
             fused_head=(model.cls_head.tgt_word_prj.weight, None),
-            model_axis=model_axis(model))
+            model_axis=model_axis(model), count_live=self._count_live)
 
     def _dispatch_dense(self, members, N: int):
         """The dense step of one model or an ensemble: each member's carry
@@ -349,20 +378,21 @@ class TranslatorARFormer(Translator):
         members."""
         beam = self.beam_size
         carries, step_inputs = [], []
-        for model, inputs in members:
-            if model.is_rnn:
-                inputs = auto_enlarge(inputs, beam)
-                carries.append(model.init_rnn_carry(inputs))
-            else:
-                carries.append(model.init_decode_state(inputs, self.max_len,
-                                                       beam))
-                # the pointer reads the retrieved captions at every beam
-                # row, as the JAX package enlarges them
-                inputs = (auto_enlarge({k: inputs[k] for k in
-                                        ("ret_text_embs", "ret_input_ids")},
-                                       beam)
-                          if model.pointer is not None else None)
-            step_inputs.append(inputs)
+        with trace_annotation("care.beam.init"):
+            for model, inputs in members:
+                if model.is_rnn:
+                    inputs = auto_enlarge(inputs, beam)
+                    carries.append(model.init_rnn_carry(inputs))
+                else:
+                    carries.append(model.init_decode_state(
+                        inputs, self.max_len, beam))
+                    # the pointer reads the retrieved captions at every
+                    # beam row, as the JAX package enlarges them
+                    inputs = (auto_enlarge(
+                        {k: inputs[k] for k in ("ret_text_embs",
+                                                "ret_input_ids")}, beam)
+                              if model.pointer is not None else None)
+                step_inputs.append(inputs)
 
         def step_fn(tokens, position, carry):
             self.beam_steps += 1
@@ -392,12 +422,14 @@ class TranslatorARFormer(Translator):
             vocab_size=self.opt["vocab_size"], gather_carry=gather_carry,
             device=self.device, beam_size=beam, max_len=self.max_len,
             beam_alpha=self.beam_alpha, topk=self.topk,
-            model_axis=model_axis(members[0][0]))
+            model_axis=model_axis(members[0][0]), count_live=self._count_live)
 
     def collect(self, out) -> Tuple[List[List[List[int]]], List[List[float]]]:
         """Host side of one decode: fetch the outputs and collect the
         hypotheses as the reference does."""
-        return self._collect_arrays(tuple(t.cpu().numpy() for t in out))
+        with trace_annotation("care.collect.fetch"):
+            arrays = tuple(t.cpu().numpy() for t in out)
+        return self._collect_arrays(arrays)
 
     def _collect_arrays(self, arrays):
         hyp_tokens, hyp_scores, hyp_lengths, hyp_valid = arrays

@@ -60,6 +60,7 @@ A ``fused_xent_backend`` other than ``auto`` is rejected with
 ``NotImplementedError``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -89,6 +90,7 @@ from care_tpu_torch.training.checkpoints import (CheckpointManager,
                                                  load_checkpoint)
 from care_tpu_torch.training.losses import Criterion
 from care_tpu_torch.utils.device import resolve_device
+from care_tpu_torch.utils.profiling import profile_trace
 from care_tpu_torch.utils.logger import (MetricTracker,
                                          analyze_length_novel_unique,
                                          save_dict_to_csv, to_sentence)
@@ -503,12 +505,6 @@ class Trainer:
                    {k: float(v) for k, v in zip(lk, row[1:1 + len(lk)])},
                    {k: float(v) for k, v in zip(mk, row[1 + len(lk):])})
 
-    def _profiler(self):
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if self.device.type == "cuda":
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        return torch.profiler.profile(activities=activities)
-
     # ------------------------------------------------------------------
     def fit(self, epochs: Optional[int] = None):
         opt = self.opt
@@ -541,21 +537,18 @@ class Trainer:
             # per-step stats stay ON DEVICE during the epoch and drain in
             # one stacked fetch at its end, so steps queue back to back
             step_stats = []
-            prof = None
-            for step_in_epoch, batch in enumerate(prefetch(
-                    self.train_loader, n=opt.get("prefetch_batches", 2))):
-                # a profiler trace over steps 5-10 of epoch 0
-                if profile_dir and epoch == 0 and step_in_epoch == 5:
-                    prof = self._profiler()
-                    prof.start()
-                if prof is not None and step_in_epoch == 10:
-                    self._stop_profiler(prof, profile_dir)
-                    prof = None
-                step_stats.append(self._train_step_fn(
-                    self._device_batch(batch), ss_prob))
-                self.global_step += 1
-            if prof is not None:
-                self._stop_profiler(prof, profile_dir)
+            # a profiler trace over steps 5-10 of epoch 0
+            with contextlib.ExitStack() as trace:
+                for step_in_epoch, batch in enumerate(prefetch(
+                        self.train_loader,
+                        n=opt.get("prefetch_batches", 2))):
+                    if profile_dir and epoch == 0 and step_in_epoch == 5:
+                        trace.enter_context(profile_trace(profile_dir))
+                    if step_in_epoch == 10:
+                        trace.close()
+                    step_stats.append(self._train_step_fn(
+                        self._device_batch(batch), ss_prob))
+                    self.global_step += 1
 
             step_losses, loss_sums, metric_sums = [], {}, {}
             for lv, ld, md in self._drain_step_stats(step_stats):
@@ -618,12 +611,6 @@ class Trainer:
             # the first process's checkpoints are on disk for every process
             dist.barrier(group=self.mesh.all.group())
         return self.best_scores
-
-    @staticmethod
-    def _stop_profiler(prof, profile_dir: str) -> None:
-        prof.stop()
-        os.makedirs(profile_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
 
     # ------------------------------------------------------------------
     # mid-run resume (beyond the reference, which restarts from scratch)

@@ -191,6 +191,7 @@ def main(argv=None):
                                                modify_opt_if_necessary)
     from care_tpu_torch.utils.device import resolve_device
     from care_tpu_torch.utils.logger import save_dict_to_csv
+    from care_tpu_torch.utils.profiling import LatencyRecorder
 
     args = parse_args(argv)
     device = resolve_device(args.device)
@@ -273,12 +274,12 @@ def main(argv=None):
                 save_dict_to_csv(csv_dir, args.csv_name, row)
 
             if args.latency:
-                avg = total / max(n, 1)
-                with open("latency.txt", "a") as f:
-                    f.write(f"{opt.get('method', '')}\t"
-                            f"{opt.get('task', '')}\t{total}\t{n}\t{avg}\n")
+                rec = LatencyRecorder(opt.get("method", ""),
+                                      opt.get("task", ""))
+                rec.total, rec.n = total, n
+                rec.append_to("latency.txt")
                 print(f"- latency: total={total:.2f}s n={n} "
-                      f"avg={avg * 1000:.2f}ms")
+                      f"avg={rec.avg * 1000:.2f}ms")
 
             if args.json_path:
                 os.makedirs(args.json_path, exist_ok=True)
