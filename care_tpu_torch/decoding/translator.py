@@ -10,7 +10,10 @@ and scores.
 cross-attention K/V at [B] rows and the self-attention cache at [B*beam]
 rows, and runs the beam loop. With the default ``fused_head_topk`` each
 step's vocab expansion goes through the fused head + top-k kernel, so the
-[B*beam, V] logits never exist. Every other decode takes the dense step,
+[B*beam, V] logits never exist; on the card such a decode of one model
+keeps its tensors at fixed addresses between batches of one shape
+(``_StaticDecode``) and replays each beam step as one CUDA graph
+(``decoding/step_graphs.py``). Every other decode takes the dense step,
 as the JAX package rules (``care_tpu/decoding/translator.py:225-230``): an
 RNN decoder steps its carry (``init_rnn_carry`` on the beam-enlarged
 inputs, ``rnn_decode_step``, the nested carry reordered with the beams), a
@@ -56,7 +59,9 @@ as the JAX package's flax modules do, and the beam scores stay f32.
 """
 
 import copy
-from collections import deque
+import itertools
+import weakref
+from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +70,7 @@ import torch
 from care_tpu_torch import constants
 from care_tpu_torch.decoding import nar
 from care_tpu_torch.decoding.beam_search import beam_search
+from care_tpu_torch.decoding.step_graphs import StepGraphs, kernel_counters
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.decoders import is_rnn_decoder
 from care_tpu_torch.models.framework import Captioner
@@ -78,6 +84,11 @@ from care_tpu_torch.utils.profiling import trace_annotation
 # what ``compute_dtype_decode`` may say: argparse delivers the string
 _DECODE_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
                   torch.bfloat16: torch.bfloat16}
+
+# the fused decode shapes whose static state and step graphs a translator
+# keeps: a test set's batches and its last, shorter one, and the models
+# they decode with
+_GRAPH_SHAPES = 4
 
 
 def get_translator(opt: dict, device=None):
@@ -146,6 +157,67 @@ def _gather_self_kv(state, row_idx):
         st["self_k"] = st["self_k"].index_select(0, row_idx)
         st["self_v"] = st["self_v"].index_select(0, row_idx)
     return state
+
+
+def _shapes(tree):
+    """The shapes and dtypes of a nested carry of tensors (None kept)."""
+    if isinstance(tree, dict):
+        return tuple((k, _shapes(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return tuple(_shapes(v) for v in tree)
+    return None if tree is None else (tuple(tree.shape), tree.dtype)
+
+
+def _step_ptrs(model):
+    """Where the tensors a decode step reads of ``model`` sit: its
+    decoder's and vocab head's parameters and buffers."""
+    return tuple(t.data_ptr() for part in (model.decoder, model.cls_head)
+                 for t in itertools.chain(part.parameters(), part.buffers()))
+
+
+class _StaticDecode:
+    """What a fused decode of one model at one shape keeps between batches
+    when its steps run as CUDA graphs: the carry at fixed addresses (the
+    cross and concept K/V, the decoder's per-row inputs and the
+    self-attention cache), a second slot of each layer's self-attention
+    cache, and the step graphs. Valid while the model lives and each tensor
+    of it that a step reads sits where it sat at the first batch: the
+    addresses the graphs read."""
+
+    def __init__(self, model, carry, graphs: StepGraphs):
+        self.model = weakref.ref(model)
+        self.ptrs = _step_ptrs(model)
+        self.graphs = graphs
+        self.carry = graphs.static("carry", carry)
+        # step t (position t - 1) reads and appends to slot (t - 1) % 2 of
+        # each layer's self-attention cache, and its beam reorder writes
+        # the other: index_select may not write its own input, and a copy
+        # back would move the cache twice
+        self.kv_slots = [{key: (st[key], torch.empty_like(st[key]))
+                          for key in ("self_k", "self_v")}
+                         for st in self.carry["layers"]]
+
+    def valid(self, model) -> bool:
+        return self.model() is model and _step_ptrs(model) == self.ptrs
+
+    def point(self, slot: int) -> None:
+        """Point the carry at each self-attention cache's ``slot``."""
+        for st, slots in zip(self.carry["layers"], self.kv_slots):
+            for key, pair in slots.items():
+                st[key] = pair[slot]
+
+    def load(self, carry):
+        """A batch's fresh carry copied into the static one."""
+        self.point(0)
+        return self.graphs.static("carry", carry)
+
+    def gather(self, state, row_idx):
+        """``_gather_self_kv`` into the other slot."""
+        for st, slots in zip(state["layers"], self.kv_slots):
+            for key, (a, b) in slots.items():
+                st[key] = torch.index_select(st[key], 0, row_idx,
+                                             out=b if st[key] is a else a)
+        return state
 
 
 class Translator:
@@ -320,6 +392,10 @@ class TranslatorARFormer(Translator):
         self.beam_steps = 0
         self.instance_steps = 0
         self.live_instance_steps = 0
+        # beam steps run by a replay of their CUDA graph
+        self.graph_steps = 0
+        # _StaticDecode by (model, carry shapes), the latest used last
+        self._static = OrderedDict()
 
     def _count_live(self, instances: int, live: int) -> None:
         self.instance_steps += instances
@@ -349,26 +425,73 @@ class TranslatorARFormer(Translator):
             return self._dispatch_fused(*members[0], N)
         return self._dispatch_dense(members, N)
 
+    def _graphs_engage(self, model) -> bool:
+        """Whether a fused decode of ``model`` runs each beam step as the
+        replay of a CUDA graph: on a CUDA device, unless a model axis of
+        several processes merges the vocabulary inside the step (an
+        all-reduce)."""
+        ax = model_axis(model)
+        return self.device.type == "cuda" and (ax is None or ax.size == 1)
+
+    def _count_graph_step(self) -> None:
+        self.graph_steps += 1
+
+    def _static_decode(self, model, carry) -> _StaticDecode:
+        """The static state and step graphs of ``model`` at this carry's
+        shapes, the carry loaded into it. The first batch's carry becomes
+        the static one; a model whose tensors moved (another model, a
+        loaded state whose tensors were replaced) starts anew, so a graph
+        never reads a stale address."""
+        key = (id(model), _shapes(carry))
+        entry = self._static.pop(key, None)
+        if entry is not None and not entry.valid(model):
+            entry = None
+        if entry is None:
+            # drop the static decodes of models gone and the least recently
+            # used beyond the bound, once the card has run their graphs
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            for k in [k for k, e in self._static.items()
+                      if e.model() is None]:
+                del self._static[k]
+            while len(self._static) >= _GRAPH_SHAPES:
+                self._static.popitem(last=False)
+            entry = _StaticDecode(model, carry, StepGraphs(
+                self.device, [(self, "beam_steps")] + kernel_counters(),
+                on_replay=self._count_graph_step))
+        self._static[key] = entry
+        entry.load(carry)
+        return entry
+
     def _dispatch_fused(self, model, inputs, N: int):
         """One model through the fused head + top-k: the step returns the
-        decoder's hidden states."""
+        decoder's hidden states. Where ``_graphs_engage``, the decode runs
+        over a ``_StaticDecode``'s tensors and each step replays a CUDA
+        graph."""
+        static = None
         with trace_annotation("care.beam.init"):
             carry = model.init_decode_state(inputs, self.max_len,
                                             self.beam_size)
+            if self._graphs_engage(model):
+                static = self._static_decode(model, carry)
+                carry = static.carry
 
         def step_fn(tokens, position, state):
             self.beam_steps += 1
+            if static is not None:
+                static.point(position % 2)
             return model.decode_step_hidden(tokens, position, state)
 
         # on a model axis: this process's vocab rows (when they split),
         # merged in the head
         return beam_search(
             step_fn, carry, batch_size=N, vocab_size=self.opt["vocab_size"],
-            gather_carry=_gather_self_kv, device=self.device,
-            beam_size=self.beam_size, max_len=self.max_len,
-            beam_alpha=self.beam_alpha, topk=self.topk,
+            gather_carry=_gather_self_kv if static is None else static.gather,
+            device=self.device, beam_size=self.beam_size,
+            max_len=self.max_len, beam_alpha=self.beam_alpha, topk=self.topk,
             fused_head=(model.cls_head.tgt_word_prj.weight, None),
-            model_axis=model_axis(model), count_live=self._count_live)
+            model_axis=model_axis(model), count_live=self._count_live,
+            graphs=None if static is None else static.graphs)
 
     def _dispatch_dense(self, members, N: int):
         """The dense step of one model or an ensemble: each member's carry

@@ -14,6 +14,7 @@ from care_tpu.decoding import beam_search as jax_beam_search
 from care_tpu.decoding import get_translator as jax_get_translator
 from care_tpu_torch.decoding import beam_search as port_beam_search
 from care_tpu_torch.decoding import get_translator as port_get_translator
+from care_tpu_torch.decoding.step_graphs import StepGraphs
 from care_tpu_torch.models.weights import params_from_jax
 
 from test_torch_support import (flagship_pair, flagship_small_opt,
@@ -32,9 +33,19 @@ def _table(N, max_len, V, seed):
     return logits.astype(np.float32)
 
 
-@pytest.mark.parametrize("beam_size,topk,alpha", [(3, 1, 1.0), (3, 4, 0.7),
-                                                  (4, 2, 1.3)])
-def test_beam_search_matches_jax(beam_size, topk, alpha):
+def _cases(*cases):
+    """``cases`` under their plain ids, then each again on the static step
+    body (``decoding/step_graphs.py``, run eagerly on the CPU) as
+    ``<id>-static``."""
+    ids = ["-".join(map(str, c)) for c in cases]
+    return ([pytest.param(*c, False, id=i) for c, i in zip(cases, ids)]
+            + [pytest.param(*c, True, id=i + "-static")
+               for c, i in zip(cases, ids)])
+
+
+@pytest.mark.parametrize("beam_size,topk,alpha,static",
+                         _cases((3, 1, 1.0), (3, 4, 0.7), (4, 2, 1.3)))
+def test_beam_search_matches_jax(beam_size, topk, alpha, static):
     N, V, max_len = 4, 11, 9
     table = _table(N, max_len, V, seed=beam_size + topk)
     rows = np.repeat(np.arange(N), beam_size)
@@ -49,7 +60,7 @@ def test_beam_search_matches_jax(beam_size, topk, alpha):
     got = port_beam_search(
         lambda tok, pos, inst: (tt[inst, pos, tok], inst),
         torch.as_tensor(rows), gather_carry=lambda inst, idx: inst[idx],
-        device="cpu", **kw)
+        device="cpu", graphs=StepGraphs("cpu") if static else None, **kw)
     hyp_tokens, hyp_scores, hyp_lengths, hyp_valid = (
         np.asarray(x) for x in want)
     np.testing.assert_array_equal(got[0].numpy(), hyp_tokens)
@@ -76,8 +87,8 @@ def flagship():
     return opt, jmodel, variables, port
 
 
-@pytest.mark.parametrize("batch_size,topk", [(4, 1), (3, 2)])
-def test_translate_batch_matches_jax(flagship, batch_size, topk):
+@pytest.mark.parametrize("batch_size,topk,static", _cases((4, 1), (3, 2)))
+def test_translate_batch_matches_jax(flagship, batch_size, topk, static):
     """Token-identical hypotheses and scores within 1e-4 on the same
     weights; batch 3 is the ragged tail of a batch-4 stream."""
     opt, jmodel, variables, port = flagship
@@ -85,8 +96,11 @@ def test_translate_batch_matches_jax(flagship, batch_size, topk):
     feats = synthetic_feats(opt, batch_size, seed=batch_size)
     want_h, want_s = jax_get_translator(opt).translate_batch(
         [(jmodel, variables)], {"feats": feats})
-    got_h, got_s = port_get_translator(opt, device="cpu").translate_batch(
-        port, {"feats": feats})
+    tr = port_get_translator(opt, device="cpu")
+    if static:
+        tr._graphs_engage = lambda model: True
+    got_h, got_s = tr.translate_batch(port, {"feats": feats})
+    assert len(tr._static) == static
     assert got_h == want_h
     for g, w in zip(got_s, want_s):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
