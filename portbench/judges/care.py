@@ -4,7 +4,10 @@ against the plain reference (``reference/care.py``), and the same numbers
 for the control (the reference in a lower precision put in the program's
 place). A driver takes from its judge the reference's parameter shapes
 (``param_shapes``), its precisions (``precision``) and the comparisons of
-its kind (``serve_readings``).
+its kind (``serve_readings``); the harness's tests take from it the
+reference's forward check against the program at test size
+(``check_forward``) and the faults its comparisons must catch
+(``FAULTS``).
 
 Serving. For each sampled caption the reference encodes the video with the
 others of its batch (the batch the program encoded), embeds its concepts,
@@ -28,6 +31,7 @@ import itertools
 
 import torch
 
+from portbench import lookup, program
 from portbench.reference import care
 
 TIE = 1e-6
@@ -137,3 +141,71 @@ def _kth_gap(logp, clogp, beam):
     alt = torch.topk(clogp, beam, dim=-1).indices[:, -1]
     got = logp.gather(1, alt[:, None])[:, 0]
     return float(torch.clamp_min(kth - got, 0).max())
+
+
+def _feats(m, B, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    return {c: torch.randn(B, m["rows"][c], m["dims"][c], generator=g)
+            for c in m["modality"]}
+
+
+@torch.no_grad()
+def check_forward(cfg: dict, seed: int) -> None:
+    """At test size on the CPU (``cfg`` at test widths): the program's
+    concept scores, concept labels, decoder inputs and logits on the
+    weights drawn from ``seed`` against the reference's; raises on a
+    mismatch."""
+    m = cfg["model"]
+    P = lookup.module("weights", cfg["weights"]).make(
+        care.param_shapes(m), seed, "cpu", m)
+    model = program.build_model(program.program_opt(cfg), P, "cpu")
+    feats = _feats(m, 3)
+    ids = torch.randint(6, m["vocab_size"], (3, 7))
+    ids[:, 0] = care.BOS
+    enc = model.encoding_phase([feats[c] for c in m["modality"]])
+    states, preds = care.concept_scores(P, m, feats)
+    assert torch.equal(preds, enc["preds_attr"])
+    labels = care.concept_order(preds, m["use_attr_topk"])
+    assert torch.equal(labels, enc["semantic_labels"])
+    ref_enc, gsg = care.decoder_inputs(P, m, states, preds, labels)
+    inputs = model.prepare_inputs_for_decoder(enc, {})
+    torch.testing.assert_close(ref_enc, inputs["encoder_hidden_states"],
+                               rtol=0, atol=1e-6)
+    got = model.decoding_phase(ids, inputs)["logits"]
+    want = care.linear(care.decode(P, m, ids, ref_enc, gsg),
+                       P["cls_head.tgt_word_prj.weight"])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _stale_cache(driver, setattr):
+    """The decode step returns its KV cache unchanged."""
+    from care_tpu_torch.models import decoders
+
+    step = decoders.TransformerDecoder.decode_step
+
+    def unchanged(self, token_ids, position, state):
+        copy = {"layers": [dict(l, self_k=l["self_k"].clone(),
+                                self_v=l["self_v"].clone())
+                           for l in state["layers"]],
+                "aux": state["aux"]}
+        h, _ = step(self, token_ids, position, copy)
+        return h, state
+    setattr(decoders.TransformerDecoder, "decode_step", unchanged)
+
+
+def _altered_token(driver, setattr):
+    """A token altered where K1's beam top-k produces it."""
+    import importlib
+    bs = importlib.import_module("care_tpu_torch.decoding.beam_search")
+    topk = bs.fused_head_beam_topk
+
+    def altered(*args, **kwargs):
+        scores, ids = topk(*args, **kwargs)
+        return scores, ids + 1
+    setattr(bs, "fused_head_beam_topk", altered)
+
+
+# each fault a serving cell of this kind can have, planted under a run at
+# test size (``setattr`` undoes itself after the test): a run on one chip
+# exchanges nothing between chips, and a serving cell has no batch mean
+FAULTS = {"stale_cache": _stale_cache, "altered_token": _altered_token}

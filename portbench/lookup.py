@@ -5,12 +5,31 @@ by the name that ``BENCHMARK.json``, a configuration or a mix gives it:
 * ``generators/<mix["generator"]>.py``: the inputs, from the seed (``make``);
 * ``weights/<configuration["weights"]>.py``: the weights, from the seed
   (``make``);
-* ``judges/<configuration["judge"]>.py``: the plain reference's parameter
-  shapes and the comparisons that decide ``correct``;
+* ``judges/<configuration["judge"]>.py``: everything that depends on the
+  kind of model (see below);
 * ``metrics/<name>.py``: a metric's reader (``read``), else the reader of
   the name's part before its first dot.
 
-A later cell adds its files and manifest entries; no file here changes.
+A judge holds:
+
+* ``param_shapes(model)``: parameter name -> shape of the plain reference,
+  which are the state-dict names of the program's model; the weights maker
+  draws these and both sides load them;
+* ``precision(name)``: a context in which the reference computes in
+  ``name`` (``"f32"``, or the control's lower precision);
+* the readings its drivers ask for once the window has closed (the CARE
+  judge's ``serve_readings``: the comparisons that decide ``correct``, and
+  with ``control`` the control's readings beside them);
+* ``check_forward(cfg, seed)``: at test size on the CPU (``cfg`` as the
+  tests cut it), the plain reference against the program on the same
+  weights drawn from ``seed``; raises on a mismatch;
+* ``FAULTS``: fault name -> ``plant(driver, setattr)``, which plants the
+  fault in the program's path under a run (``setattr`` is the tests'
+  ``monkeypatch.setattr``), and which the judge's comparison must catch.
+  Every configuration's judge has at least one.
+
+A later cell adds its files and manifest entries; no file here changes. A
+configuration of a new kind brings a judge of its own.
 """
 
 import importlib

@@ -16,8 +16,11 @@ the window's idle time:
   of ``care.dispatch``;
 * ``outside``: no span, the caller's copies and loop.
 
-A program without spans gives no reduction (None), and its readers
-nothing to read.
+That is the default table, ``GROUPS``, of the autoregressive decode. A
+reader of another kind's spans passes a table of its own (span name ->
+group) from a file of its own; each table's reduction is kept apart on the
+trace. A program without a table's spans gives no reduction (None), and
+its readers nothing to read.
 """
 
 GROUPS = {
@@ -80,40 +83,44 @@ def innermost(spans: list, moments: list) -> list:
     return out
 
 
-def reduce(trace):
-    """The window's reduction, made once and kept on ``trace``; None
-    without a trace or without spans in it."""
+def reduce(trace, groups: dict = GROUPS):
+    """The window's reduction by the span table ``groups`` (span name ->
+    group), made once per table and kept on ``trace``; None without a
+    trace or without the table's spans in it."""
     if trace is None:
         return None
     if not hasattr(trace, "care_spans"):
-        trace.care_spans = _reduce(trace)
-    return trace.care_spans
+        trace.care_spans = {}
+    key = tuple(sorted(groups.items()))
+    if key not in trace.care_spans:
+        trace.care_spans[key] = _reduce(trace, groups)
+    return trace.care_spans[key]
 
 
-def _reduce(trace):
+def _reduce(trace, groups):
     spans = [(max(s, trace.t0), min(t, trace.t1), name)
-             for name, s, t, _, _ in trace.cpu if name in GROUPS]
+             for name, s, t, _, _ in trace.cpu if name in groups]
     if not spans:
         return None
     count, host_s = {}, {}
     for s, t, name in spans:
         count[name] = count.get(name, 0) + 1
         host_s[name] = host_s.get(name, 0.0) + (t - s) / 1e9
-    idle_s = dict.fromkeys(list(set(GROUPS.values())) + [OUTSIDE], 0.0)
+    idle_s = dict.fromkeys(list(set(groups.values())) + [OUTSIDE], 0.0)
     gaps = _gaps(trace)
     inner = innermost(spans, [at for at, _ in gaps if at is not None])
     held = iter(inner)
     for at, length in gaps:
         name = next(held) if at is not None else None
-        idle_s[GROUPS[name] if name else OUTSIDE] += length / 1e9
+        idle_s[groups[name] if name else OUTSIDE] += length / 1e9
     return Reduction(idle_s, count, host_s)
 
 
-def idle_per(ctx, group: str, per: str):
-    """A group's idle seconds over the traced window's beam steps
-    (``per="steps"``) or batches (``"batches"``); None where there is
+def idle_per(ctx, group: str, per: str, groups: dict = GROUPS):
+    """A group of ``groups``' idle seconds over the traced window's beam
+    steps (``per="steps"``) or batches (``"batches"``); None where there is
     nothing to read."""
-    red = reduce(ctx.trace)
+    red = reduce(ctx.trace, groups)
     if red is None or not ctx.trace.ops:
         return None
     n = (ctx.trace_counts.get("translator.beam_steps", 0) if per == "steps"
