@@ -23,6 +23,14 @@ A ``forward_stats`` callable (``tokens -> (argmax ids, their
 probabilities)``, the fused statistics of ``ops/fused_head_topk.py``'s
 ``vocab_argmax_lse``) stands in for ``forward_logits``, so that the
 [N, L, V] logits never exist.
+
+Spans (``utils/profiling.trace_annotation``): each stretch of
+mask-predict's bookkeeping between two passes (a pass's PAD semantics, the
+template's canvas and probabilities, the choice of the positions to mask,
+the masked canvas, the merge of a pass's tokens) is a ``care.nar.select`` (a teacher pass that
+``masking_decision`` runs there is its own span inside it); the
+candidates' final log-probabilities are a ``care.nar.final``. The passes
+are the caller's.
 """
 
 from typing import Callable, Optional
@@ -30,6 +38,7 @@ from typing import Callable, Optional
 import torch
 
 from care_tpu_torch import constants
+from care_tpu_torch.utils.profiling import trace_annotation
 
 
 def generate_step_with_prob(logits, zero_ids=()):
@@ -60,11 +69,12 @@ def select_worst(token_probs, num_mask):
 
 
 def _apply_pad_semantics(tgt_tokens, token_probs, pad_mask, eos_mask):
-    tgt_tokens = torch.where(pad_mask, constants.PAD, tgt_tokens)
-    token_probs = torch.where(pad_mask, 1.0, token_probs)
-    token_probs = torch.where(eos_mask, 1.0, token_probs)
-    tgt_tokens = torch.where(eos_mask, constants.EOS, tgt_tokens)
-    return tgt_tokens, token_probs
+    with trace_annotation("care.nar.select"):
+        tgt_tokens = torch.where(pad_mask, constants.PAD, tgt_tokens)
+        token_probs = torch.where(pad_mask, 1.0, token_probs)
+        token_probs = torch.where(eos_mask, 1.0, token_probs)
+        tgt_tokens = torch.where(eos_mask, constants.EOS, tgt_tokens)
+        return tgt_tokens, token_probs
 
 
 def make_generate_fn(forward_logits: Callable, pad_mask, eos_mask):
@@ -88,9 +98,10 @@ def make_generate_fn_from_stats(forward_stats: Callable, pad_mask,
 
 
 def _setup(tgt_tokens, forward_logits, forward_stats, teacher_score):
-    pad_mask = tgt_tokens == constants.PAD
-    eos_mask = tgt_tokens == constants.EOS
-    seq_lens = tgt_tokens.shape[1] - pad_mask.sum(dim=1)
+    with trace_annotation("care.nar.select"):
+        pad_mask = tgt_tokens == constants.PAD
+        eos_mask = tgt_tokens == constants.EOS
+        seq_lens = tgt_tokens.shape[1] - pad_mask.sum(dim=1)
     generate = (make_generate_fn_from_stats(forward_stats, pad_mask,
                                             eos_mask)
                 if forward_stats is not None
@@ -105,24 +116,31 @@ def _setup(tgt_tokens, forward_logits, forward_stats, teacher_score):
 def _ct_pass(tgt_tokens, generate):
     """The coarse-grained template: one pass over the canvas with every
     MASK replaced by ``<vis>``; a position still predicted MASK gets
-    probability 0."""
-    vis_canvas = torch.where(tgt_tokens == constants.MASK, constants.VIS,
-                             tgt_tokens)
+    probability 0. Returns the tokens, their probabilities and those
+    positions."""
+    with trace_annotation("care.nar.select"):
+        vis_canvas = torch.where(tgt_tokens == constants.MASK,
+                                 constants.VIS, tgt_tokens)
     tgt_tokens, token_probs = generate(vis_canvas)
-    token_probs = torch.where(tgt_tokens == constants.MASK, 0.0, token_probs)
-    return tgt_tokens, token_probs
+    with trace_annotation("care.nar.select"):
+        still_masked = tgt_tokens == constants.MASK
+        token_probs = torch.where(still_masked, 0.0, token_probs)
+        return tgt_tokens, token_probs, still_masked
 
 
 def _refine(tgt_tokens, token_probs, mask_ind, generate):
-    masked = torch.where(mask_ind, constants.MASK, tgt_tokens)
+    with trace_annotation("care.nar.select"):
+        masked = torch.where(mask_ind, constants.MASK, tgt_tokens)
     new_tokens, new_probs = generate(masked)
-    return (torch.where(mask_ind, new_tokens, tgt_tokens),
-            torch.where(mask_ind, new_probs, token_probs))
+    with trace_annotation("care.nar.select"):
+        return (torch.where(mask_ind, new_tokens, tgt_tokens),
+                torch.where(mask_ind, new_probs, token_probs))
 
 
 def _final(tgt_tokens, token_probs, teacher_score):
     corresponding = teacher_score(tgt_tokens, True)
-    return tgt_tokens, torch.log(token_probs * corresponding + 1e-20)
+    with trace_annotation("care.nar.final"):
+        return tgt_tokens, torch.log(token_probs * corresponding + 1e-20)
 
 
 def mask_predict(
@@ -138,22 +156,23 @@ def mask_predict(
     pad_mask, eos_mask, seq_lens, generate, teacher_score = _setup(
         tgt_tokens, forward_logits, forward_stats, teacher_score)
     if use_ct:
-        tgt_tokens, token_probs = _ct_pass(tgt_tokens, generate)
-        ct_mask = tgt_tokens == constants.MASK
+        tgt_tokens, token_probs, ct_mask = _ct_pass(tgt_tokens, generate)
     else:
         tgt_tokens, token_probs = generate(tgt_tokens)
 
     T = iterations + 1 if use_ct else iterations
     for counter in range(1, T):
-        corresponding = teacher_score(tgt_tokens, False)
-        if use_ct and counter == 1:
-            mask_ind = ct_mask
-        else:
-            num_mask = _f32_count(seq_lens, 1.0 - counter / T)
-            mask_ind = select_worst(token_probs * corresponding, num_mask)
-            # never mask PAD / EOS again (their probability is pinned to
-            # 1.0, but rows of a few tokens need the guard)
-            mask_ind = mask_ind & ~pad_mask & ~eos_mask
+        with trace_annotation("care.nar.select"):
+            corresponding = teacher_score(tgt_tokens, False)
+            if use_ct and counter == 1:
+                mask_ind = ct_mask
+            else:
+                num_mask = _f32_count(seq_lens, 1.0 - counter / T)
+                mask_ind = select_worst(token_probs * corresponding,
+                                        num_mask)
+                # never mask PAD / EOS again (their probability is pinned
+                # to 1.0, but rows of a few tokens need the guard)
+                mask_ind = mask_ind & ~pad_mask & ~eos_mask
         tgt_tokens, token_probs = _refine(tgt_tokens, token_probs, mask_ind,
                                           generate)
     return _final(tgt_tokens, token_probs, teacher_score)
@@ -163,8 +182,9 @@ def _uncovered_start(tgt_tokens, pad_mask, use_ct, generate):
     """The canvas and probabilities an uncovering algorithm starts from,
     and the positions its first refinement masks under ``use_ct``."""
     if use_ct:
-        tgt_tokens, token_probs = _ct_pass(tgt_tokens, generate)
-        visual_mask = (tgt_tokens != constants.MASK) & ~pad_mask
+        tgt_tokens, token_probs, still_masked = _ct_pass(tgt_tokens,
+                                                         generate)
+        visual_mask = ~still_masked & ~pad_mask
     else:
         token_probs = torch.where(pad_mask, 1.0, 0.0)
         visual_mask = None

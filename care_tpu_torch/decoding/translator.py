@@ -49,7 +49,13 @@ its dispatch and ``care.collect`` around its collection (a dispatch and
 its collection pair up in order); the AR translator adds ``care.encode``
 (the encoders and the decoder's inputs), ``care.beam.init`` (the decode
 state) and ``care.collect.fetch`` (the outputs' copy to the host), and
-``decoding/beam_search.py`` the spans of the beam loop.
+``decoding/beam_search.py`` the spans of the beam loop. The NAR translator
+adds ``care.nar.encode`` (the encoders, the length beam, the decoder's
+inputs and the canvas), ``care.nar.pass`` (each student decoder forward
+with its statistics), ``care.nar.teacher`` (the teacher's encoding, and
+each rescoring pass) and ``care.nar.final`` (the length beam's choice),
+and ``decoding/nar.py`` ``care.nar.select`` (the bookkeeping between
+passes).
 
 Half-precision serving (``compute_dtype_decode: bfloat16``) decodes with a
 bf16 copy of the model's parameters (``decode_head_f32`` keeps the vocab
@@ -606,9 +612,10 @@ class TranslatorNARFormer(Translator):
         self.fused_chunk = int(opt.get("fused_head_chunk", 1024))
         # full decoder forwards run by this translator, all batches
         # together: the student's refinement passes and the teacher's
-        # rescoring passes
+        # rescoring passes, and the canvas rows (candidates) of them all
         self.decoder_passes = 0
         self.teacher_passes = 0
+        self.row_passes = 0
 
     def _length_beam(self, enc, N: int):
         """(lbs, lengths [N, lbs]) of the reference's length beam
@@ -631,10 +638,12 @@ class TranslatorNARFormer(Translator):
         (argmax, exp(max - lse)) from the hidden states (None without)."""
         def forward_logits(tokens):
             self.decoder_passes += 1
-            out = model.decoding_phase(tokens, inputs, collect_aux=False)
-            # softmax, argmax and the probabilities stay f32 under
-            # half-precision decode
-            return _last(out["logits"]).float()
+            self.row_passes += tokens.shape[0]
+            with trace_annotation("care.nar.pass"):
+                out = model.decoding_phase(tokens, inputs, collect_aux=False)
+                # softmax, argmax and the probabilities stay f32 under
+                # half-precision decode
+                return _last(out["logits"]).float()
 
         if not self.fused_head:
             return forward_logits, None
@@ -642,11 +651,14 @@ class TranslatorNARFormer(Translator):
 
         def forward_stats(tokens):
             self.decoder_passes += 1
-            out = model.decoding_phase(tokens, inputs, collect_aux=False,
-                                       compute_logits=False)
-            idx, mx, lse = vocab_argmax_lse(_last(out["hidden_states"]), W,
-                                            None, chunk_size=self.fused_chunk)
-            return idx, torch.exp(mx - lse)
+            self.row_passes += tokens.shape[0]
+            with trace_annotation("care.nar.pass"):
+                out = model.decoding_phase(tokens, inputs, collect_aux=False,
+                                           compute_logits=False)
+                idx, mx, lse = vocab_argmax_lse(
+                    _last(out["hidden_states"]), W, None,
+                    chunk_size=self.fused_chunk)
+                return idx, torch.exp(mx - lse)
 
         return forward_logits, forward_stats
 
@@ -658,10 +670,11 @@ class TranslatorNARFormer(Translator):
         ``masking_decision`` / ``no_candidate_decision`` gates leave a call
         at all-ones."""
         opt = self.opt
-        t_inputs = auto_enlarge(teacher.prepare_inputs_for_decoder(
-            teacher.encoding_phase(feats), batch_aux), lbs)
-        pad_mask = canvas == constants.PAD
-        eos_mask = canvas == constants.EOS
+        with trace_annotation("care.nar.teacher"):
+            t_inputs = auto_enlarge(teacher.prepare_inputs_for_decoder(
+                teacher.encoding_phase(feats), batch_aux), lbs)
+            pad_mask = canvas == constants.PAD
+            eos_mask = canvas == constants.EOS
         # a pointer teacher comes back with its logits, which the JAX
         # package then takes
         fused = (opt.get("fused_head_topk", True)
@@ -674,25 +687,29 @@ class TranslatorNARFormer(Translator):
                 return torch.ones(tokens.shape, dtype=torch.float32,
                                   device=tokens.device)
             self.teacher_passes += 1
-            toks = tokens if vocab_mapping is None else vocab_mapping[tokens]
-            bos = torch.full((toks.shape[0], 1), constants.BOS,
-                             dtype=toks.dtype, device=toks.device)
-            prev = torch.cat([bos, toks], dim=1)[:, :-1]
-            out = teacher.decoding_phase(prev, t_inputs, collect_aux=False,
-                                         compute_logits=not fused)
-            if fused:
-                _, _, lse, tok = vocab_argmax_lse(
-                    _last(out["hidden_states"]), _whole_head_weight(teacher),
-                    None,
-                    token_ids=toks, chunk_size=self.fused_chunk)
-                p = torch.exp(tok - lse)
-            else:
-                probs = torch.softmax(out["logits"].float(), dim=-1)
-                p = torch.gather(probs, 2, toks[:, :, None])[:, :, 0]
-            p = torch.where(pad_mask, 1.0, p)
-            if not is_last:
-                p = torch.where(eos_mask, 1.0, p)
-            return p
+            self.row_passes += tokens.shape[0]
+            with trace_annotation("care.nar.teacher"):
+                toks = (tokens if vocab_mapping is None
+                        else vocab_mapping[tokens])
+                bos = torch.full((toks.shape[0], 1), constants.BOS,
+                                 dtype=toks.dtype, device=toks.device)
+                prev = torch.cat([bos, toks], dim=1)[:, :-1]
+                out = teacher.decoding_phase(prev, t_inputs,
+                                             collect_aux=False,
+                                             compute_logits=not fused)
+                if fused:
+                    _, _, lse, tok = vocab_argmax_lse(
+                        _last(out["hidden_states"]),
+                        _whole_head_weight(teacher), None,
+                        token_ids=toks, chunk_size=self.fused_chunk)
+                    p = torch.exp(tok - lse)
+                else:
+                    probs = torch.softmax(out["logits"].float(), dim=-1)
+                    p = torch.gather(probs, 2, toks[:, :, None])[:, :, 0]
+                p = torch.where(pad_mask, 1.0, p)
+                if not is_last:
+                    p = torch.where(eos_mask, 1.0, p)
+                return p
 
         return teacher_score
 
@@ -709,15 +726,15 @@ class TranslatorNARFormer(Translator):
         feats = self._feats(batch)
         batch_aux = self._batch_inputs(batch)
         N = feats[0].shape[0]
-        enc = model.encoding_phase(feats)
-        lbs, beam = self._length_beam(enc, N)
-        inputs = auto_enlarge(model.prepare_inputs_for_decoder(enc,
-                                                               batch_aux),
-                              lbs)
-        lengths = beam.reshape(N * lbs)
-        pos = torch.arange(self.max_len, device=self.device)[None, :]
-        canvas = torch.where(pos < lengths[:, None], constants.MASK,
-                             constants.PAD)
+        with trace_annotation("care.nar.encode"):
+            enc = model.encoding_phase(feats)
+            lbs, beam = self._length_beam(enc, N)
+            inputs = auto_enlarge(model.prepare_inputs_for_decoder(
+                enc, batch_aux), lbs)
+            lengths = beam.reshape(N * lbs)
+            pos = torch.arange(self.max_len, device=self.device)[None, :]
+            canvas = torch.where(pos < lengths[:, None], constants.MASK,
+                                 constants.PAD)
 
         forward_logits, forward_stats = self._student_fns(model, inputs)
         teacher_score = None
@@ -741,15 +758,17 @@ class TranslatorNARFormer(Translator):
             canvas, forward_logits, teacher_score=teacher_score,
             forward_stats=forward_stats, **algo_kwargs)
 
-        hypotheses = hypotheses.reshape(N, lbs, self.max_len)
-        lprobs = lprobs.reshape(N, lbs, self.max_len)
-        tgt_lengths = lengths.reshape(N, lbs).to(torch.float32)
-        avg_log_prob = lprobs.sum(-1) / (tgt_lengths ** self.beam_alpha)
-        best = avg_log_prob.argmax(dim=-1)[:, None, None]
-        # [N, 1, max_len], the reference's output layout
-        return (torch.gather(hypotheses, 1,
-                             best.expand(N, 1, self.max_len)),
-                torch.gather(lprobs, 1, best.expand(N, 1, self.max_len)))
+        with trace_annotation("care.nar.final"):
+            hypotheses = hypotheses.reshape(N, lbs, self.max_len)
+            lprobs = lprobs.reshape(N, lbs, self.max_len)
+            tgt_lengths = lengths.reshape(N, lbs).to(torch.float32)
+            avg_log_prob = lprobs.sum(-1) / (tgt_lengths ** self.beam_alpha)
+            best = avg_log_prob.argmax(dim=-1)[:, None, None]
+            # [N, 1, max_len], the reference's output layout
+            return (torch.gather(hypotheses, 1,
+                                 best.expand(N, 1, self.max_len)),
+                    torch.gather(lprobs, 1,
+                                 best.expand(N, 1, self.max_len)))
 
     def collect(self, out):
         """(hypotheses, log-probs) as nested lists [N][1][max_len]."""
