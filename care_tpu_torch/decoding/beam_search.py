@@ -25,8 +25,10 @@ same step.
 Spans (``utils/profiling.trace_annotation``, recorded only while a
 profiler runs): ``care.beam.init`` (the initial tensors), ``care.beam.live``
 (each read of the loop condition), ``care.beam.step`` (one step) over
-``care.decoder.step``, ``care.head.topk``, ``care.beam.reorder`` and
-``care.beam.finish``, and ``care.beam.final`` (forced finish and ranking).
+``care.decoder.step``, ``care.head.topk``, ``care.beam.finish`` (the
+history's reorder and the finished bookkeeping, ``ops/beam_bookkeeping.py``:
+one kernel on CUDA) and ``care.beam.reorder`` (the carry's), and
+``care.beam.final`` (forced finish and ranking).
 
 The step is one body, run eagerly or, given a ``StepGraphs``, over static
 tensors in place and on CUDA as the replay of one CUDA graph a step
@@ -35,6 +37,7 @@ position (``decoding/step_graphs.py``). A replayed step records
 runs eagerly or is captured.
 """
 
+import types
 from typing import Any, Callable, Optional, Tuple
 
 import torch
@@ -43,37 +46,12 @@ import torch.nn.functional as F
 
 from care_tpu_torch import constants
 from care_tpu_torch.decoding.step_graphs import StepGraphs, copy_tree_
+from care_tpu_torch.ops.beam_bookkeeping import beam_bookkeeping
 from care_tpu_torch.ops.fused_head_topk import fused_head_beam_topk
 from care_tpu_torch.ops.topk import top_k
 from care_tpu_torch.utils.profiling import trace_annotation
 
 DEAD = -1e20
-
-
-class _Loop:
-    """The tensors the beam loop carries from step to step. A step's
-    results ``land`` in them: rebound, or with ``static`` copied into them
-    in place (a result a step already wrote there through ``out`` is left
-    as it is)."""
-
-    def __init__(self, static: bool = False, **tensors):
-        self.static = static
-        self.__dict__.update(tensors)
-
-    def fields(self) -> dict:
-        return {k: v for k, v in vars(self).items() if k != "static"}
-
-    def out(self, name: str):
-        """Where an op may write the result ``name``: its static tensor, or
-        None (a new one)."""
-        return getattr(self, name) if self.static else None
-
-    def land(self, **results) -> None:
-        for name, value in results.items():
-            if self.static:
-                copy_tree_(getattr(self, name), value)
-            else:
-                setattr(self, name, value)
 
 
 def beam_search(
@@ -130,7 +108,7 @@ def beam_search(
     long = dict(dtype=torch.long, device=device)
 
     with trace_annotation("care.beam.init"):
-        s = _Loop(
+        loop = dict(
             tokens=torch.zeros((N, K, max_len), **long),
             # only beam row 0 is live at the first expansion (reference
             # Beam.advance uses word_prob[0] when prev_ks is empty)
@@ -139,13 +117,14 @@ def beam_search(
             fin_scores=torch.full((N, Fb), DEAD, device=device),
             fin_lengths=torch.ones((N, Fb), **long),
             fin_tokens=torch.zeros((N, Fb, max_len), **long),
-            fin_count=torch.zeros((N,), **long),
-            rows=torch.arange(N, device=device))
-        s.tokens[:, :, 0] = bos_id
-        s.scores[:, 0] = 0.0
+            fin_count=torch.zeros((N,), **long))
+        loop["tokens"][:, :, 0] = bos_id
+        loop["scores"][:, 0] = 0.0
         if graphs is not None:
-            s = _Loop(static=True, **graphs.static("loop", s.fields()))
-        s.carry = init_carry
+            loop = graphs.static("loop", loop)
+        # each step updates the loop's tensors in place and lands its
+        # carry: rebound, or with ``graphs`` copied into the static one
+        s = types.SimpleNamespace(carry=init_carry, **loop)
         # the live instances, counted in int64: the sum of a bool tensor
         # would first cast it, one launch more a step
         live_rows = torch.empty((N,), **long)
@@ -168,41 +147,17 @@ def beam_search(
                 beam_lk = s.scores[:, :, None] + logp
                 beam_lk = beam_lk.masked_fill(eos_row[:, :, None], DEAD)
                 best_scores, best_ids = top_k(beam_lk.reshape(N, K * V), K)
-        with trace_annotation("care.beam.reorder"):
-            prev_k = torch.div(best_ids, V, rounding_mode="floor")
-            new_tok = torch.sub(best_ids, prev_k * V,
-                                out=s.out("last_tokens"))
-            # reorder the token history and append the new token at
-            # position t
-            tokens = torch.gather(
-                s.tokens, 1, prev_k[:, :, None].expand(N, K, max_len))
-            tokens[:, :, t] = new_tok
-            carry = gather_carry(carry,
-                                 (s.rows[:, None] * K + prev_k).reshape(-1))
-
         with trace_annotation("care.beam.finish"):
-            rows, fin_count = s.rows, s.fin_count
-            is_eos = new_tok == eos_id
-            offs = torch.cumsum(is_eos, dim=1) - is_eos.long()
-            slot = fin_count[:, None] + offs
-            admit = is_eos & (slot < Fb)
-            slot_c = slot.clamp(0, Fb - 1)
-            zero_col = torch.zeros((N, 1), **long)
-            for k in range(K):
-                a, sl = admit[:, k], slot_c[:, k]
-                s.fin_scores[rows, sl] = torch.where(
-                    a, best_scores[:, k], s.fin_scores[rows, sl])
-                s.fin_lengths[rows, sl] = torch.where(
-                    a, t, s.fin_lengths[rows, sl])
-                # generated tokens: positions 1..t of the history (BOS
-                # excluded)
-                gen = torch.cat([tokens[:, k, 1:], zero_col], dim=1)
-                s.fin_tokens[rows, sl] = torch.where(
-                    a[:, None], gen, s.fin_tokens[rows, sl])
-            fin_count = torch.clamp_max(fin_count + admit.sum(dim=1), Fb,
-                                        out=s.out("fin_count"))
-        s.land(tokens=tokens, scores=best_scores, last_tokens=new_tok,
-               fin_count=fin_count, carry=carry)
+            row_idx = beam_bookkeeping(
+                best_scores, best_ids, V, t, eos_id, s.tokens, s.scores,
+                s.last_tokens, s.fin_scores, s.fin_lengths, s.fin_tokens,
+                s.fin_count)
+        with trace_annotation("care.beam.reorder"):
+            carry = gather_carry(carry, row_idx)
+        if graphs is None:
+            s.carry = carry
+        else:
+            copy_tree_(s.carry, carry)
 
     for t in range(1, max_len):
         with trace_annotation("care.beam.live"):

@@ -1,6 +1,6 @@
 """Each beam step of one decode shape run as one CUDA graph.
 
-A fused-head AR decode launches about 170 kernels a beam step, and
+A fused-head AR decode launches about 70 kernels a beam step, and
 launched one by one from Python the launches take several times the
 device's work. ``StepGraphs`` keeps, for one model at one shape, the
 tensors a step reads and writes at fixed addresses (``static``) and one
@@ -20,13 +20,15 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from care_tpu_torch.ops import flash_attention, fused_head_topk, fused_xent
+from care_tpu_torch.ops import (beam_bookkeeping, flash_attention,
+                                fused_head_topk, fused_xent)
 
 
 def kernel_counters() -> list:
     """(module, name) of every kernel launch counter of the port's ops."""
     return [(mod, name)
-            for mod in (flash_attention, fused_head_topk, fused_xent)
+            for mod in (beam_bookkeeping, flash_attention, fused_head_topk,
+                        fused_xent)
             for name, value in vars(mod).items()
             if name.endswith("launches") and type(value) is int]
 

@@ -11,7 +11,7 @@ before the last line:
    torch and CUDA versions, which optional packages import (``h5py``,
    ``pandas``, ``nltk``, ``tensorboardX``). Fails at once without a CUDA
    device.
-2. build: every kernel of the serving and training paths (seven sources)
+2. build: every kernel of the serving and training paths (eight sources)
    is compiled with ``nvcc`` from ``care_tpu_torch/csrc``, all at once,
    printing the build seconds and the ``-Xptxas -v`` register and
    shared-memory summary.
@@ -20,7 +20,11 @@ before the last line:
    and ragged cases; the flash-attention kernels also against the dense
    attention and its autograd, at the decode shape q [64, 8, 5, 64] x 1654
    keys, the square shape [4, 8, 1568, 64], ragged tiles, every bias shape,
-   an all-masked instance and bf16.
+   an all-masked instance and bf16. The beam bookkeeping kernel (a beam
+   step's reorder and finished buffer, no TPU counterpart) bit for bit
+   against its plain version at the flagship's serving and latency states
+   (64 and 1 instances, beam 5, ``max_len`` 30): the first, a middle and
+   the last step, buffers with room, filling within the step and full.
 4. serve: the full-width CARE flagship (MSRVTT, Transformer, CARE, ViT,
    VA/VAT; random weights from a seed) captions 3 batches of 64 synthetic
    videos and one ragged batch of 17 through
@@ -115,11 +119,12 @@ before the last line:
    batches with dropout on and scheduled sampling at 0.25 in epoch 1 (the
    share of positions fed a sample printed and held to a binomial bound;
    VOE's running statistics must move) and serve one batch of 64 and the
-   ragged 17, every score re-checked by teacher forcing; no kernel
+   ragged 17, every score re-checked by teacher forcing; none of K1-K4c
    launches, as ``care_tpu`` keeps these models off the fused head and the
-   fused cross-entropy. The SALSTM batch is profiled, and SALSTM is served
-   in bf16 beside f32 (decode-step log-probs within 2% of the step's
-   largest |log-prob|).
+   fused cross-entropy (the beam bookkeeping kernel launches once a beam
+   step, as in every AR decode on the card). The SALSTM batch is profiled,
+   and SALSTM is served in bf16 beside f32 (decode-step log-probs within 2%
+   of the step's largest |log-prob|).
 7g. pointer: PointerGen Base and PointerGen CARE on MSRVTT
    (``scripts/exp_versatility_of_CARE.sh:70, :74``) at full width, 20
    retrieved captions of 30 token ids a video (``exclude_eos``; half the
@@ -131,16 +136,17 @@ before the last line:
    decodes one batch of 64 and the ragged 17 through the dense pointer
    step (scores re-checked by teacher forcing on the pointer's
    probabilities), the batch of 64 profiled with the pointer's share of
-   device time; no kernel launches, as ``care_tpu`` keeps pointer models
-   off K1, the fused cross-entropy and flash attention.
+   device time; none of K1-K4c launches, as ``care_tpu`` keeps pointer
+   models off K1, the fused cross-entropy and flash attention (the beam
+   bookkeeping kernel once a beam step).
 7h. ensemble: PointerGen CARE with itself decodes what it decodes alone
    (``==``); the heterogeneous ensemble of the flagship (``amir``) and
    PointerGen CARE (``amirt``) decodes 3 batches of 64 and the ragged 17,
    features split from the union by ``EnsembleSpec``, batch by batch and
    grouped (fused-K 4) with equal results, caps/s of each; then
    ``care_tpu_torch.translate.main -cp a b`` on the two checkpoints the
-   phase writes, over a synthetic dataset with a retrieval database. No
-   kernel launches.
+   phase writes, over a synthetic dataset with a retrieval database. None
+   of K1-K4c launches; the beam bookkeeping kernel does.
 7i. backbone: the visual front at full width. The flagship with CLIP
    ViT-B/32 (patch 32, width 768, 12 layers, 12 heads, output 512, 224 x
    224; ``with_backbones`` on the image stream) serves 64 + 17 videos of 28
@@ -194,7 +200,7 @@ before the last line:
    (random weights from the seed, a vocabulary file the phase writes)
    encodes 20 000 synthetic captions of 8-20 words and pools them by mean
    and max (captions/s with and without the tokenizer); 256 captions held
-   to the host's (f32, TF32 off, 1e-4); none of the seven kernels
+   to the host's (f32, TF32 off, 1e-4); none of the eight kernels
    launches.
 8. time: each kernel, its plain version, the unfused torch sequence and,
    for the flash kernels, ``F.scaled_dot_product_attention`` (timed here,
@@ -209,7 +215,11 @@ before the last line:
    shape (11 520 rows, with and without token ids, f32 and bf16) beside
    the unfused library sequence and its bound, under ``nar_`` keys of its
    line. K1 also at the vocab shard of the ``parallel`` phase (rows
-   [320, 512] x [5 500, 512]) under ``shard_`` keys of its line.
+   [320, 512] x [5 500, 512]) under ``shard_`` keys of its line. The beam
+   bookkeeping kernel and its plain version at 64 instances and at 1
+   (``latency_`` keys), event-timed and as device time, beside the bound
+   of its bytes. Every AR decode of the serving phases launches it once a
+   beam step (the counts are asserted).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is the device JSON object.
@@ -240,6 +250,7 @@ from care_tpu_torch.decoding import get_translator
 from care_tpu_torch.metrics import COCOScorer
 from care_tpu_torch.models import build_captioner
 from care_tpu_torch.ops import _build
+from care_tpu_torch.ops import beam_bookkeeping as bb
 from care_tpu_torch.ops import flash_attention as fa
 from care_tpu_torch.ops import fused_head_topk as fht
 from care_tpu_torch.ops import fused_xent as fx
@@ -282,6 +293,10 @@ KERNELS = {
     "flash_attention_bwd_dkv": dict(
         route="cuda", source="care_tpu_torch/csrc/flash_attention_bwd_dkv.cu",
         replaces="care_tpu/ops/pallas/flash_attention.py:219"),
+    # no TPU counterpart: XLA fuses the JAX package's beam bookkeeping
+    "beam_bookkeeping": dict(
+        route="cuda", source="care_tpu_torch/csrc/beam_bookkeeping.cu",
+        replaces=None),
 }
 # device kernels of each entry, as the profiler names them
 DEVICE_KERNELS = {
@@ -292,6 +307,7 @@ DEVICE_KERNELS = {
     "flash_attention_fwd": ("flash_fwd_kernel", "flash_fwd_decode_kernel"),
     "flash_attention_bwd_dq": ("flash_bwd_dq_kernel",),
     "flash_attention_bwd_dkv": ("flash_bwd_dkv_kernel",),
+    "beam_bookkeeping": ("beam_bookkeeping_kernel",),
 }
 
 
@@ -309,7 +325,8 @@ def _launch_counts() -> dict:
             "fused_xent_bwd_dw": fx.dw_launches,
             "flash_attention_fwd": fa.fwd_launches,
             "flash_attention_bwd_dq": fa.dq_launches,
-            "flash_attention_bwd_dkv": fa.dkv_launches}
+            "flash_attention_bwd_dkv": fa.dkv_launches,
+            "beam_bookkeeping": bb.launches}
 
 
 def _zero_launch_counts() -> None:
@@ -317,6 +334,7 @@ def _zero_launch_counts() -> None:
     fx.dh_launches = fx.dw_launches = 0
     fa.fwd_launches = fa.dq_launches = fa.dkv_launches = 0
     fa.fwd_bf16_launches = 0
+    bb.launches = 0
 
 
 def flagship_opt(arch: str = "base") -> dict:
@@ -438,7 +456,8 @@ def phase_check(opt) -> dict:
                                  11)
     W = W[torch.arange(V, device="cuda") % 37].contiguous()
     _check_head_case("K 16 ties", h, W, 16, ties_exact=True, b=b)
-    return {"fused_head_topk": err, **_check_xent(opt), **_check_flash()}
+    return {"fused_head_topk": err, **_check_xent(opt), **_check_flash(),
+            **_check_beam_bookkeeping(opt)}
 
 
 def _xent_inputs(rows, H, V, dtype, exact, with_bias, seed):
@@ -737,6 +756,87 @@ def _check_flash() -> dict:
                                            errs["dbias"])}
 
 
+def _bookkeeping_inputs(opt, N, t, mode, seed):
+    """One beam step's operands on the card at the configuration's beam,
+    ``max_len`` and vocabulary: the head's top-k (scores in rows of a wider
+    tensor, as ``top_k`` returns them; ids over the flat ``k * V + v``
+    space, about a third of them EOS) and a loop state. ``mode``:
+    ``room``, finished counts drawn from 0 to the capacity; ``fills``, one
+    slot left; ``full``, none. Returns (best_scores, best_ids, state)."""
+    K, L, V = opt["beam_size"], opt["max_len"], opt["vocab_size"]
+    Fb = max(K, opt["topk"])
+    g = torch.Generator().manual_seed(seed)
+    new_tok = torch.randint(4, V, (N, K), generator=g)
+    new_tok[torch.rand((N, K), generator=g) < 0.35] = constants.EOS
+    count = {"room": torch.randint(0, Fb + 1, (N,), generator=g),
+             "fills": torch.full((N,), Fb - 1),
+             "full": torch.full((N,), Fb)}[mode]
+    prev_k = torch.randint(0, K, (N, K), generator=g)
+    state = dict(
+        tokens=torch.randint(0, V, (N, K, L), generator=g),
+        scores=torch.randn((N, K), generator=g),
+        last_tokens=torch.randint(0, V, (N, K), generator=g),
+        fin_scores=torch.randn((N, Fb), generator=g),
+        fin_lengths=torch.randint(1, L, (N, Fb), generator=g),
+        fin_tokens=torch.randint(0, V, (N, Fb, L), generator=g),
+        fin_count=count)
+    wide = torch.randn((N, 2 * K), generator=g).cuda()
+    return (wide[:, :K], (prev_k * V + new_tok).cuda(),
+            {k: v.cuda() for k, v in state.items()})
+
+
+def _check_beam_bookkeeping(opt) -> dict:
+    """The bookkeeping kernel against ``beam_bookkeeping_plain`` on the card
+    at the flagship's serving (64 instances) and latency (1) states: every
+    output and the carry's row index bit for bit (each value is a copy or
+    integer arithmetic), one launch a call."""
+    L = opt["max_len"]
+    admitted, cases = 0, 0
+    for N in (BATCH, 1):
+        for t in (1, L // 2, L - 1):
+            for mode in ("room", "fills", "full"):
+                best_scores, best_ids, state = _bookkeeping_inputs(
+                    opt, N, t, mode, seed=1000 * N + 10 * t + len(mode))
+                plain = {k: v.clone() for k, v in state.items()}
+                count = state["fin_count"].clone()
+                room = max(opt["beam_size"], opt["topk"]) - count
+                n_eos = (best_ids % opt["vocab_size"] == constants.EOS).sum(1)
+                before = bb.launches
+                rows = bb.beam_bookkeeping(
+                    best_scores, best_ids, opt["vocab_size"], t,
+                    constants.EOS, **state)
+                want = bb.beam_bookkeeping_plain(
+                    best_scores, best_ids, opt["vocab_size"], t,
+                    constants.EOS, **plain)
+                torch.cuda.synchronize()
+                label = (N, t, mode)
+                assert bb.launches == before + 1, label
+                assert torch.equal(rows, want), label
+                for name, x in state.items():
+                    assert torch.equal(x, plain[name]), (label, name)
+                # each instance admits its EOS rows while it has room
+                took = int((state["fin_count"] - count).sum())
+                assert took == int(torch.minimum(n_eos, room).sum()), label
+                admitted += took
+                cases += 1
+    try:
+        best_scores, best_ids, state = _bookkeeping_inputs(
+            dict(opt, beam_size=33), 1, 1, "room", seed=7)
+        bb.beam_bookkeeping(best_scores, best_ids, opt["vocab_size"], 1,
+                            constants.EOS, **state)
+    except ValueError as e:
+        print(f"check beam_bookkeeping: refused beam 33: {e}")
+    else:
+        raise AssertionError("the wrapper took a beam the kernel does not")
+    print(f"check beam_bookkeeping: {cases} steps at {BATCH} and 1 "
+          f"instances, beam {opt['beam_size']}, max_len {L}, capacity "
+          f"{max(opt['beam_size'], opt['topk'])} (steps 1, {L // 2}, "
+          f"{L - 1}; buffers with room, filling, full): tokens, scores, "
+          f"last tokens, finished buffer and count, row index equal to the "
+          f"plain version bit for bit; {admitted} rows admitted")
+    return {"beam_bookkeeping": 0.0}
+
+
 # ---------------------------------------------------------------------------
 # serving the flagship
 # ---------------------------------------------------------------------------
@@ -892,6 +992,9 @@ def _serve(label, opt, batch_sizes, flash: bool, profile_kernels,
         (counts, steps)
     assert counts["flash_attention_fwd"] == (steps * layers if flash else 0), \
         (counts, steps)
+    # every AR decode on the card, dense ones too, does each step's
+    # reorder and finished bookkeeping in one kernel launch
+    assert counts["beam_bookkeeping"] == steps, (counts, steps)
     for name, n in bf16.items():
         assert n == (counts[name] if name in bf16_kernels else 0), \
             (name, bf16, counts)
@@ -984,7 +1087,7 @@ def phase_serve(opt) -> dict:
     the ``Base`` task's decoder runs bf16 and launches both in bf16.
     Returns the launch counts summed over the runs."""
     f32 = _serve("flagship", opt, [BATCH] * 3 + [RAGGED], False,
-                 ["fused_head_topk"])
+                 ["fused_head_topk", "beam_bookkeeping"])
     long_f32 = _serve("long keys, CARE", long_key_opt("CARE"),
                       [BATCH] * 2 + [RAGGED], True,
                       ["flash_attention_fwd", "fused_head_topk"])
@@ -1006,7 +1109,8 @@ def phase_serve(opt) -> dict:
         _against_f32(label, run, ref)
         runs.append(run)
     return {k: sum(r["counts"][k] for r in runs)
-            for k in ("fused_head_topk", "flash_attention_fwd")}
+            for k in ("fused_head_topk", "flash_attention_fwd",
+                      "beam_bookkeeping")}
 
 
 def phase_flash_gradient() -> dict:
@@ -1450,8 +1554,10 @@ def phase_parallel(opt, scratch) -> dict:
             steps = translator.beam_steps - steps0
             assert launched["fused_head_topk"] == steps > 0, (launched,
                                                               steps)
+            assert launched["beam_bookkeeping"] == steps, (launched, steps)
             if label == "data=1":
-                counts["fused_head_topk"] += launched["fused_head_topk"]
+                for name in ("fused_head_topk", "beam_bookkeeping"):
+                    counts[name] += launched[name]
             _, _, seconds = _serve_rows(translator, model, feats,
                                         slice(0, BATCH))
             beams[label] = ([o[:2] for o in out], seconds)
@@ -1502,9 +1608,11 @@ def phase_parallel(opt, scratch) -> dict:
         served, launched = r["served"], r["trained"]
         assert r["head_rows"] == (opt["vocab_size"] // 2, opt["dim_hidden"])
         assert served["fused_head_topk"] == served["beam_steps"] > 0, served
+        assert served["beam_bookkeeping"] == served["beam_steps"], served
         assert not r["fused"] and all(launched[k] == 0 for k in trained), (
             launched)
-        counts["fused_head_topk"] += served["fused_head_topk"]
+        for name in ("fused_head_topk", "beam_bookkeeping"):
+            counts[name] += served[name]
         assert r["loss"] == ranks[0]["loss"]
     rel = abs(ranks[0]["loss"] - ref_loss) / abs(ref_loss)
     assert rel <= 1e-5, (ranks[0]["loss"], ref_loss)
@@ -1933,10 +2041,11 @@ def phase_rnn(scratch) -> dict:
     ``RNN_BATCHES`` batches with dropout on and scheduled sampling at 0.25
     in epoch 1 (no kernel launches: the RNN loss stays dense, as in
     ``care_tpu``; VOE's running statistics must move), then ``_serve``
-    decodes one batch of 64 and the ragged 17 off the fused head (no
-    kernel launches; every score re-checked by teacher forcing; caps/s and
-    ms per beam step); the SALSTM batch is profiled, and SALSTM is served
-    in bf16 beside f32. Returns the launch counts of the phase, all 0."""
+    decodes one batch of 64 and the ragged 17 off the fused head (the
+    beam bookkeeping kernel once a beam step, no other; every score
+    re-checked by teacher forcing; caps/s and ms per beam step); the
+    SALSTM batch is profiled, and SALSTM is served in bf16 beside f32.
+    Returns the launch counts of the phase, all 0 but the bookkeeping's."""
     totals = dict.fromkeys(_launch_counts(), 0)
     for i, (label, flags, where) in enumerate(RNN):
         opt = dict(family_opt(flags), **RNN_SAMPLING)
@@ -2005,7 +2114,8 @@ def phase_rnn(scratch) -> dict:
                   f"{100 * gap:.3f}% of the step's largest |log-prob| of "
                   f"f32's (bound {100 * BF16_LOGP_REL:g}%)")
             del model
-    assert all(n == 0 for n in totals.values()), totals
+    assert all(n == 0 for k, n in totals.items()
+               if k != "beam_bookkeeping"), totals
     return totals
 
 
@@ -2079,8 +2189,8 @@ def phase_pointer(scratch) -> dict:
     64 is profiled with the pointer's share of device time, and the
     pointer of one beam step is timed alone. K1-K4c launch 0 times in the
     phase, as ``care_tpu`` keeps pointer models off the fused head, the
-    fused cross-entropy and flash attention. Returns the launch counts,
-    all 0."""
+    fused cross-entropy and flash attention; the beam bookkeeping kernel
+    once a beam step. Returns the launch counts."""
     from care_tpu_torch.models.pointer import Pointer
     totals = dict.fromkeys(_launch_counts(), 0)
     for i, (label, flags, where) in enumerate(POINTER):
@@ -2136,7 +2246,8 @@ def phase_pointer(scratch) -> dict:
             print(f"pointer {label}: device busy {busy:.3f} ms a batch of "
                   f"{BATCH}, the pointer {ranges['pointer']:.3f} ms of it "
                   f"({100 * ranges['pointer'] / busy:.1f}%)")
-    assert all(n == 0 for n in totals.values()), totals
+    assert all(n == 0 for k, n in totals.items()
+               if k != "beam_bookkeeping"), totals
     return totals
 
 
@@ -2164,8 +2275,9 @@ def phase_ensemble(scratch) -> dict:
     (``==``), caps/s of each; (3) ``care_tpu_torch.translate.main`` with
     the two checkpoints the phase writes (``-cp a b``) on the test split of
     a synthetic dataset of the union's modalities with a retrieval
-    database. No kernel launches: ensembles take the dense step, as in
-    ``care_tpu``."""
+    database. None of K1-K4c launches: ensembles take the dense step, as
+    in ``care_tpu``; the beam bookkeeping kernel does, as in every AR
+    decode on the card."""
     import care_tpu_torch.data as data_pkg
     from care_tpu_torch import translate
     from care_tpu_torch.models.ensemble import EnsembleSpec
@@ -2246,11 +2358,14 @@ def phase_ensemble(scratch) -> dict:
         preds = json.load(f)
     n_test = len(corpus["info"]["split"]["test"])
     assert len(preds) == n_test, (len(preds), n_test)
-    assert all(n == 0 for n in counts.values()), counts
+    assert all(n == 0 for k, n in counts.items()
+               if k != "beam_bookkeeping"), counts
+    assert counts["beam_bookkeeping"] > 0, counts
     print(f"ensemble: translate -cp <flagship> <PointerGen CARE> on "
           f"{n_test} test videos in {entry_s:.3f} s (load_model, loader and "
-          f"scoring included): CIDEr {scores['CIDEr']:.6f}; kernel "
-          f"launches in the phase 0")
+          f"scoring included): CIDEr {scores['CIDEr']:.6f}; K1-K4c "
+          f"launches in the phase 0, beam bookkeeping "
+          f"{counts['beam_bookkeeping']}")
     return counts
 
 
@@ -2532,7 +2647,9 @@ def phase_backbone(scratch) -> dict:
         decode_s = time.perf_counter() - t0
         counts, steps = _launch_counts(), translator.beam_steps
         assert counts["fused_head_topk"] == steps > 0, (counts, steps)
-        totals["fused_head_topk"] += counts["fused_head_topk"]
+        assert counts["beam_bookkeeping"] == steps, (counts, steps)
+        for name in ("fused_head_topk", "beam_bookkeeping"):
+            totals[name] += counts[name]
         assert all(np.isfinite(s[0]) for s in scores)
         cpu_model = build_captioner(popt, device="cpu")
         cpu_model.load_state_dict({k: v.cpu() for k, v in
@@ -2837,6 +2954,7 @@ def phase_pipeline(opt, scratch) -> dict:
     assert steps == PIPELINE_EPOCHS * len(loaders["train_loader"]), steps
     assert beam_steps > 0 and counts["fused_head_topk"] == beam_steps, \
         (counts, beam_steps)
+    assert counts["beam_bookkeeping"] == beam_steps, (counts, beam_steps)
     # a batch runs at most max_len - 1 beam steps (fewer once every beam
     # has emitted EOS)
     assert beam_steps <= (n_val + n_test) * (base["max_len"] - 1), beam_steps
@@ -2956,7 +3074,8 @@ def phase_pipeline(opt, scratch) -> dict:
     print(f"pipeline: resume: epoch 1 loss {got:.6f} against the "
           f"uninterrupted {want:.6f} (relative gap {rel:.2e} <= 1e-5), "
           f"parameters within {worst:.2e} (<= 1e-5)")
-    return ({name: counts[name] for name in ("fused_head_topk",) + trained},
+    return ({name: counts[name] for name in
+             ("fused_head_topk", "beam_bookkeeping") + trained},
             base, loader_fn, corpus, refs)
 
 
@@ -3107,6 +3226,7 @@ def phase_entry(opt, loader_fn, corpus, refs, scratch) -> dict:
     steps = sum(t.beam_steps for t in translators)
     assert len(translators) == 3 and steps > 0, (len(translators), steps)
     assert counts["fused_head_topk"] == steps, (counts, steps)
+    assert counts["beam_bookkeeping"] == steps, (counts, steps)
     assert fused == piped, (fused, piped)
     with open(os.path.join(out, "fused.json")) as f:
         fused_preds = json.load(f)
@@ -3132,7 +3252,8 @@ def phase_entry(opt, loader_fn, corpus, refs, scratch) -> dict:
           f"(latency.txt: {method} {task}); eval_json == run_eval's scores;"
           f" launches { {k: v for k, v in counts.items() if v} }: K1 == "
           f"{steps} beam steps")
-    return {"fused_head_topk": counts["fused_head_topk"]}
+    return {name: counts[name]
+            for name in ("fused_head_topk", "beam_bookkeeping")}
 
 
 # ---------------------------------------------------------------------------
@@ -3274,8 +3395,10 @@ def phase_mean_teacher(opt, scratch) -> tuple:
     assert beam_steps > 0 and counts["fused_head_topk"] == beam_steps, \
         (counts, beam_steps)
     assert beam_steps <= (MT_EPOCHS * n_val + n_test) * (base["max_len"] - 1)
+    assert counts["beam_bookkeeping"] == counts["fused_head_topk"], counts
     for name, n in counts.items():
-        assert name == "fused_head_topk" or n == 0, (name, counts)
+        assert name in ("fused_head_topk", "beam_bookkeeping") or n == 0, (
+            name, counts)
     assert not tr._fused_xent
     losses = [l for h in tr.history for l in h["step_losses"]]
     assert all(np.isfinite(losses)), losses
@@ -3333,8 +3456,9 @@ def phase_mean_teacher(opt, scratch) -> tuple:
           f"clock, warm epoch); peak allocated {peak:.1f} MiB against "
           f"{plain_peak:.1f} MiB (model, optimizer and activations: above "
           f"what was allocated before the trainer was built)")
-    return ({"fused_head_topk": counts["fused_head_topk"]}, base, loader_fn,
-            corpus)
+    return ({name: counts[name]
+             for name in ("fused_head_topk", "beam_bookkeeping")}, base,
+            loader_fn, corpus)
 
 
 def phase_convert(base, loader_fn, corpus, scratch) -> dict:
@@ -3394,8 +3518,10 @@ def phase_convert(base, loader_fn, corpus, scratch) -> dict:
     assert len(translators) == 2, len(translators)
     steps = translators[0].beam_steps
     assert steps > 0 and counts["fused_head_topk"] == steps, (counts, steps)
+    assert counts["beam_bookkeeping"] == counts["fused_head_topk"], counts
     for name, n in counts.items():
-        assert name == "fused_head_topk" or n == 0, (name, counts)
+        assert name in ("fused_head_topk", "beam_bookkeeping") or n == 0, (
+            name, counts)
     preds = {}
     for side in ("card", "host"):
         with open(os.path.join(root, side, "preds.json")) as f:
@@ -3414,7 +3540,8 @@ def phase_convert(base, loader_fn, corpus, scratch) -> dict:
           f"(CIDEr {card['CIDEr']:.6f}); launches "
           f"{ {k: v for k, v in counts.items() if v} }: K1 == {steps} beam "
           f"steps")
-    return {"fused_head_topk": counts["fused_head_topk"]}
+    return {name: counts[name]
+            for name in ("fused_head_topk", "beam_bookkeeping")}
 
 
 # bert-base-uncased's published widths
@@ -3440,7 +3567,7 @@ def phase_bert(scratch) -> None:
     """``BertEncoder`` at bert-base-uncased's widths (random weights from
     the seed) encodes 20 000 synthetic captions of 8-20 words and pools
     them by mean and max; 256 captions' pooled vectors held to the host's
-    (f32, TF32 off); none of the seven kernels launches."""
+    (f32, TF32 off); none of the eight kernels launches."""
     from care_tpu_torch.pretreatment.bert import (BertEncoder,
                                                   WordPieceTokenizer,
                                                   embed_captions)
@@ -3495,7 +3622,7 @@ def phase_bert(scratch) -> None:
           f"encoder alone {encode_s:.3f} s, {BERT_CAPTIONS / encode_s:.1f} "
           f"captions/s (f32, TF32 off); {BERT_CPU_CAPTIONS} captions against "
           f"the host: max |d| mean {errs['mean']:.3e}, max {errs['max']:.3e} "
-          f"(<= 1e-4); launches of the seven kernels: 0")
+          f"(<= 1e-4); launches of the eight kernels: 0")
 
 
 # ---------------------------------------------------------------------------
@@ -3923,7 +4050,45 @@ def phase_time(opt, errors, counts, nar_opt, nar_counts) -> list:
         entry.update({"bf16_" + k: v for k, v in extra.items()})
     entries += xent
     _time_argmax_lse_nar(xent[0], nar_opt, nar_counts)
-    return entries + _time_flash(errors, counts)
+    return (entries + _time_flash(errors, counts)
+            + [_time_beam_bookkeeping(opt, errors, counts)])
+
+
+def _time_beam_bookkeeping(opt, errors, counts) -> dict:
+    """The bookkeeping kernel through its wrapper and its plain version at
+    the flagship's serving state (64 instances) and latency state (1,
+    under ``latency_`` keys), a middle step, on a state the calls advance
+    in place; warm calls between CUDA events, and the kernel's device time
+    from the profiler. Its bound is its bytes at HBM bandwidth: the top-k,
+    the history read and written, the scores, last tokens, row index and
+    counts (the admitted rows' finished entries left out, so a lower
+    bound)."""
+    K, L = opt["beam_size"], opt["max_len"]
+    Fb = max(K, opt["topk"])
+    entry = dict(name="beam_bookkeeping", **KERNELS["beam_bookkeeping"],
+                 launches=counts["beam_bookkeeping"],
+                 max_abs_err=errors["beam_bookkeeping"])
+    for N, prefix in ((BATCH, ""), (1, "latency_")):
+        best_scores, best_ids, state = _bookkeeping_inputs(
+            opt, N, L // 2, "room", seed=31)
+        args = (best_scores, best_ids, opt["vocab_size"], L // 2,
+                constants.EOS)
+        ms = _time_ms(lambda: bb.beam_bookkeeping(*args, **state))
+        plain_ms = _time_ms(lambda: bb.beam_bookkeeping_plain(*args, **state),
+                            n=20, warm=3)
+        device_ms = _device_ms(lambda: bb.beam_bookkeeping(*args, **state),
+                               reps=50)
+        n_bytes = 16 * N * K * L + 32 * N * K + 16 * N
+        bound_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        shape = f"N {N}, K {K}, max_len {L}, capacity {Fb}"
+        entry.update({f"{prefix}ms": ms, f"{prefix}plain_ms": plain_ms,
+                      f"{prefix}device_ms": device_ms,
+                      f"{prefix}bound_ms": bound_ms,
+                      f"{prefix}bound_by": "bytes", f"{prefix}shape": shape})
+        print(f"time beam_bookkeeping at {shape}: kernel {ms:.4f} ms "
+              f"(device {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+              f"{bound_ms:.5f} ms (bytes: {n_bytes})")
+    return entry
 
 
 def _time_argmax_lse_nar(entry, opt, nar_counts) -> None:

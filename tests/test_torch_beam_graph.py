@@ -10,6 +10,7 @@ and profiler events to the eager loop's. This file imports neither JAX nor
 
 import json
 import os
+import sys
 import types
 
 import numpy as np
@@ -22,6 +23,7 @@ from care_tpu_torch.decoding import beam_search, get_translator
 from care_tpu_torch.decoding import translator as translator_module
 from care_tpu_torch.decoding.step_graphs import StepGraphs
 from care_tpu_torch.models import build_captioner
+from care_tpu_torch.ops import beam_bookkeeping as bb
 from care_tpu_torch.ops import flash_attention as fa
 from care_tpu_torch.ops import fused_head_topk as fht
 
@@ -328,3 +330,32 @@ def test_a_traced_replay_shows_k1(cuda_device):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("head_stats_tc_kernel" in n for n in names) == 29
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("eos_clock", [False, True], ids=["flagship", "eos"])
+def test_replays_equal_the_eager_plain_loop_on_the_card(cuda_device,
+                                                        monkeypatch,
+                                                        eos_clock):
+    """The flagship at full width, with captions that run to ``max_len``
+    and with the EOS clock's: replays through the bookkeeping kernel give
+    the tokens and scores of the eager loop on the plain torch ops, and
+    one kernel launch a beam step."""
+    opt, model, m = _bench_model("msrvtt-care-vit", cuda_device, 2**31 + 13,
+                                 eos_clock=eos_clock)
+    batches = [_bench_feats(m, 64, 300 + i) for i in range(3)]
+    search = sys.modules["care_tpu_torch.decoding.beam_search"]
+    monkeypatch.setattr(search, "beam_bookkeeping",
+                        bb.beam_bookkeeping_plain)
+    launches = bb.launches
+    want, want_n = _counted(_eager(opt, cuda_device), model, batches, 1)
+    assert bb.launches == launches
+    monkeypatch.undo()
+    tr = get_translator(opt, device=cuda_device)
+    got, got_n = _counted(tr, model, batches, 1)
+    assert got == want
+    assert got_n == want_n
+    assert bb.launches - launches == tr.beam_steps
+    assert tr.graph_steps > 0
+    if eos_clock:
+        assert tr.beam_steps < len(batches) * (opt["max_len"] - 1)
