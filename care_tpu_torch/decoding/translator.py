@@ -35,13 +35,14 @@ kernel of ``ops/fused_head_topk.py`` on a plain ``NaiveHead``; an AR
 (``exp(token logit - lse)``), its vocabulary reached through
 ``vocab_mapping``.
 
-Three ways through a stream of batches, all giving what
-:meth:`translate_batch` gives batch by batch: ``translate_batches`` keeps a
-few decodes' outputs on the device before fetching them;
-``translate_batches_fused`` decodes K batches back to back on the card's
-stream before it fetches their outputs; and ``translate_batches_grouped``,
-the ``--fused_k`` / ``eval_fused_k`` path of serving and validation, keeps
-up to K decodes in flight over a stream.
+One way through a stream of batches, giving what :meth:`translate_batch`
+gives batch by batch: up to ``depth`` decodes in flight on the card before
+their outputs are fetched, so the host's collection of one batch overlaps
+the device's work on the next. ``translate_batches`` takes the batches
+alone (depth 2 by default); ``translate_batches_grouped`` takes ``(tag,
+batch)`` pairs at the depth ``fused_k``, at least 2, which is all that
+``--fused_k`` / ``eval_fused_k`` mean here (no program is compiled for K
+batches).
 
 Spans (``utils/profiling.trace_annotation``, recorded only while a
 profiler runs): every way through a batch opens ``care.dispatch`` around
@@ -363,24 +364,16 @@ class Translator:
             t, out = pending.popleft()
             yield t, self._collect(out)
 
-    def translate_batches_fused(self, models, batches: List[Dict[str, Any]],
-                                **kwargs):
-        """Decode K batches back to back on the card's stream, then fetch
-        and collect their outputs; returns a list of per-batch (hyps,
-        scores), identical to per-batch :meth:`translate_batch`."""
-        outs = [self._dispatch(models, b, kwargs) for b in batches]
-        return [self._collect(out) for out in outs]
-
     def translate_batches_grouped(self, models, tagged_batches,
                                   fused_k: int, **kwargs):
         """Decode an iterable of ``(tag, batch)`` pairs with up to
-        ``fused_k`` decodes in flight on the card before their outputs are
-        fetched. Yields ``(tag, (hyps, scores))`` in input order, the
+        ``fused_k`` decodes in flight on the card, and at least 2, before
+        their outputs are fetched. Yields ``(tag, (hyps, scores))`` in input order, the
         results of per-batch :meth:`translate_batch`. The JAX package pads
         short batches and partial groups to the shapes of one compiled
         ``lax.map`` program; eager decodes need no padding, so every batch
         decodes at its own rows and none is decoded twice."""
-        yield from self._pipelined(models, tagged_batches, max(1, fused_k),
+        yield from self._pipelined(models, tagged_batches, max(2, fused_k),
                                    kwargs)
 
 

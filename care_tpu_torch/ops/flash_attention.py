@@ -19,8 +19,9 @@ Per function two implementations, chosen by the tensors' device alone:
   ``_flash_bwd_dkv_kernel``); ``_flash_bwd_plain`` repeats them.
 
 A CUDA tensor launches the kernels or raises; a CPU tensor takes the plain
-versions, which also serve the tests and ``chip_smoke.py`` as what the
-kernels are held against.
+versions, which also serve the ``gpu`` tests
+(``tests/test_torch_flash_attention.py``) as what the kernels are held
+against.
 
 What is part of the function: scores accumulate in f32, are scaled by
 ``Dh ** -0.5`` and take the f32 bias; the running maximum starts at -1e9,

@@ -12,8 +12,8 @@ ids. ``_finalize`` turns those into the beam's top-``K`` over the flat
 Two implementations of the statistics:
 
 * ``_stats_plain``: chunk by chunk in plain tensor code, as the JAX
-  package's ``_stats_xla``; the CPU path, and what the tests and
-  ``chip_smoke.py`` hold the kernel against;
+  package's ``_stats_xla``; the CPU path, and what the ``gpu`` tests
+  (``tests/test_torch_fused_head_topk.py``) hold the kernel against;
 * ``_stats_cuda``: the hand-written kernel ``csrc/fused_head_topk.cu``,
   which replaces the TPU kernel ``_fused_kernel``.
 

@@ -16,8 +16,8 @@ Forward: ``ops/fused_head_topk.py:argmax_lse_stats`` (the kernel
 ``csrc/vocab_argmax_lse.cu``). Backward, two implementations:
 
 * ``_bwd_plain``: chunk by chunk over the vocab in plain tensor code, as the
-  JAX package's ``lax.scan`` form; the CPU path, and what the tests and
-  ``chip_smoke.py`` hold the kernels against;
+  JAX package's ``lax.scan`` form; the CPU path, and what the ``gpu``
+  tests (``tests/test_torch_fused_xent.py``) hold the kernels against;
 * ``_bwd_cuda``: the hand-written kernels ``csrc/fused_xent_bwd_dh.cu`` and
   ``csrc/fused_xent_bwd_dw.cu``, which replace the TPU kernels
   ``_bwd_dh_kernel`` and ``_bwd_dw_kernel``.

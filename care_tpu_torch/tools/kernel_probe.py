@@ -15,7 +15,9 @@ Three probes:
   (``csrc/vocab_argmax_lse.cu``), K3a (``csrc/fused_xent_bwd_dh.cu``), K3b
   (``csrc/fused_xent_bwd_dw.cu``), K4b (``csrc/flash_attention_bwd_dq.cu``)
   and K4c (``csrc/flash_attention_bwd_dkv.cu``) built again with one part
-  taken out, each timed at the shapes ``chip_smoke.py`` times them. A
+  taken out, each timed at the serving and training shapes (K1 at the
+  flagship's serve step, K2-K3b at its train step, the flash kernels at
+  the shapes below). A
   variant's time says what the part costs where the others still run; the
   results of a variant are wrong by design and are not looked at.
 
@@ -392,9 +394,9 @@ def _dw_call(lib, dtype, H, rows=1856, V=11000):
         dW.data_ptr(), db.data_ptr(), stream), [dW, db])
 
 
-# the shapes of chip_smoke.py's flash timing, [B, H, Lq, Lk, Dh], hybrid
-# bias: the square shape (all three kernels), the decode step at batch 64
-# and at the ragged batch of 17 (K4a)
+# the flash kernels' shapes, [B, H, Lq, Lk, Dh], hybrid bias: the square
+# shape (all three kernels), the long-key decode step at batch 64 and at
+# the ragged batch of 17 (K4a); those of tests/torch_card_cases.py
 SQUARE = (4, 8, 1568, 1568, 64)
 DECODE = (64, 8, 5, 1654, 64)
 DECODE_RAGGED = (17, 8, 5, 1654, 64)

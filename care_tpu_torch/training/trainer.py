@@ -31,8 +31,8 @@ With ``device_feature_cache`` (the default) the train dataset's feature
 tables go to the device once (``data/feature_bank.py``), the dataset stops
 reading features (``skip_feats``) and every train batch gathers its
 features there from its video and frame ids; validation keeps a bank of its
-own dataset. Validation decodes in groups of ``eval_fused_k`` batches
-(``translate_batches_grouped``), or batch by batch when that is 1.
+own dataset. Validation decodes through ``translate_batches_grouped`` with
+up to ``eval_fused_k`` decodes in flight (at least 2).
 
 A NAR model with a ``teacher_path`` decodes with its AR teacher
 (``_get_teacher``): loaded once from its checkpoint, with the vocabulary
@@ -885,14 +885,6 @@ class Trainer:
         pred_batches = []
         # per-batch metric scalars stay on the device until the pass ends
         batch_metrics = []
-        # fused-K decode (the default): up to eval_fused_k decodes in
-        # flight before their outputs are fetched, K clamped to the
-        # validation set's batches; 1 decodes batch by batch
-        fused_k = int(self.opt.get("eval_fused_k", 4))
-        try:
-            fused_k = max(1, min(fused_k, len(loader)))
-        except TypeError:
-            pass
         # the validation set's features upload once; the dataset keeps
         # reading host features (no skip_feats), so a batch the bank does
         # not cover ships them
@@ -905,31 +897,16 @@ class Trainer:
             return served if served is not None else device_batch(
                 b, self.device)
 
-        if fused_k > 1:
-            def tagged():
-                for b, counts in self._local_batches(loader):
-                    db = to_device(b)
-                    yield (b, db, counts), db
+        def tagged():
+            for b, counts in self._local_batches(loader):
+                db = to_device(b)
+                yield (b, db, counts), db
 
-            stream = self.translator.translate_batches_grouped(
-                self.model, tagged(), fused_k, **tkw)
-        else:
-            # host batches in decode order; the device batch rides through
-            # translate_batches and is released per iteration
-            originals = []
-
-            def device_batches():
-                for b, counts in self._local_batches(loader):
-                    originals.append((b, counts))
-                    yield to_device(b)
-
-            def in_order():
-                for db, out in self.translator.translate_batches(
-                        self.model, device_batches(), **tkw):
-                    b, counts = originals.pop(0)
-                    yield (b, db, counts), out
-
-            stream = in_order()
+        # up to eval_fused_k decodes in flight before their outputs are
+        # fetched
+        stream = self.translator.translate_batches_grouped(
+            self.model, tagged(), int(self.opt.get("eval_fused_k", 4)),
+            **tkw)
 
         try:
             for (batch, db, counts), (hyps, scores) in stream:

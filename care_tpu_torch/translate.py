@@ -2,9 +2,10 @@
 time it.
 
 Port of ``translate.py`` (reference ``translate.py``): the manual eval loop
-(pipelined, or ``--fused_k`` groups of batches), per-video latency timing
-appended to ``latency.txt`` (``method\\ttask\\ttotal\\tn\\tavg``), prediction and
-per-sample detail-score JSON dumps, CSV rows, and the ``--loop_n_frames`` /
+(pipelined: up to ``--fused_k`` decodes in flight, 2 without it), per-video
+latency timing appended to ``latency.txt``
+(``method\\ttask\\ttotal\\tn\\tavg``), prediction and per-sample detail-score
+JSON dumps, CSV rows, and the ``--loop_n_frames`` /
 ``--loop_category`` sweeps.
 
     python -m care_tpu_torch.translate -cp exps/run/best.ckpt --fused_k 4
@@ -90,8 +91,8 @@ def parse_args(argv=None):
                    help="torch device; default the CUDA card, `cpu` for "
                         "the host")
     p.add_argument("--fused_k", type=int, default=0,
-                   help="decode groups of K batches back to back and fetch "
-                        "their outputs once")
+                   help="keep up to K decodes in flight before their "
+                        "outputs are fetched (2 when not above 1)")
     return p.parse_args(argv)
 
 
@@ -109,11 +110,6 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
     tkw = teacher_kwargs or {}
     preds = {}
     total_time, n_videos = 0.0, 0
-    try:
-        # K clamped to the stream's batches, as validation clamps it
-        fused_k = min(fused_k, len(loader)) if fused_k > 1 else fused_k
-    except TypeError:
-        pass
 
     def put(x):
         # f32 features (the translator casts them to its serving dtype);
@@ -142,27 +138,14 @@ def run_eval(models, opt, loader, references, vocab, latency=False,
                 out = translator.translate_batch(models, b, **tkw)
                 total_time += time.perf_counter() - t0
                 yield batch, out
-        elif fused_k > 1:
-            # up to K decodes in flight before their outputs are fetched
+        else:
+            # throughput: up to K decodes in flight before their outputs
+            # are fetched (2 without --fused_k), timed as wall clock over
+            # the whole stream
             t0 = time.perf_counter()
             tagged = ((batch, to_device(batch)) for batch in loader)
             yield from translator.translate_batches_grouped(
                 models, tagged, fused_k, **tkw)
-            total_time += time.perf_counter() - t0
-        else:
-            # throughput: pipelined decode (2 batches in flight), timed as
-            # wall clock over the whole stream
-            originals = []
-
-            def gen():
-                for batch in loader:
-                    originals.append(batch)
-                    yield to_device(batch)
-
-            t0 = time.perf_counter()
-            for i, (_, out) in enumerate(
-                    translator.translate_batches(models, gen(), **tkw)):
-                yield originals[i], out
             total_time += time.perf_counter() - t0
 
     for batch, (hyps, scores) in decoded_batches():

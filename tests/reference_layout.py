@@ -15,7 +15,8 @@ running variances in [0.7, 1.4].
 the reference's Lightning checkpoint (``captioner.*`` keys, and
 ``teacher_captioner.*`` for a mean-teacher run).
 
-Imports torch and numpy only, so that ``chip_smoke.py`` may use it.
+Imports torch and numpy only, so that ``chip_smoke.py`` may use it, as
+it uses the card's operand makers of ``tests/torch_card_cases.py``.
 """
 
 import numpy as np

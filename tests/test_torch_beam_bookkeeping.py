@@ -7,16 +7,18 @@ capacity ``max(beam, topk)`` in beam order while it has room), on random
 states: one instance and 64, beams of 1, 5 and 32, ``topk`` 1 and 7, the
 first step and the last, several EOS rows a step, buffers that fill
 within the step and buffers already full. The ``gpu`` tests hold the
-kernel to the plain version bit for bit on the same states, and a dense
-decode on the card to the plain loop's. This file imports neither JAX nor
-``care_tpu``, so the ``gpu`` run can collect it.
+kernel to the plain version bit for bit on the same states and on the
+flagship's serving and latency states, and a dense decode on the card to
+the plain loop's; ``torch_card_cases`` makes every state and holds the
+check. This file imports neither JAX nor ``care_tpu``, so the ``gpu`` run
+can collect it.
 """
 
 import sys
 
-import numpy as np
 import pytest
 import torch
+import torch_card_cases as cc
 
 from care_tpu_torch import constants
 from care_tpu_torch.decoding import get_translator
@@ -34,38 +36,6 @@ CASES = [(N, K, topk, t, mode) for N in (1, 64) for K in (1, 5, 32)
 
 def _case_id(case):
     return "N{}-K{}-topk{}-t{}-{}".format(*case)
-
-
-def make_state(N, K, topk, t, mode, seed, device="cpu", length=L):
-    """(best_scores, best_ids, state) of one step. ``mode``: ``mixed``,
-    random EOS rows and counts; ``fills``, one slot left and at least two
-    EOS rows where the beam has them; ``full``, no slot left. The top-k's
-    scores sit in rows of a wider tensor, as ``top_k`` returns them."""
-    rs = np.random.RandomState(seed)
-    Fb = max(K, topk)
-    new_tok = rs.randint(4, V, (N, K))
-    if mode == "mixed":
-        new_tok[rs.rand(N, K) < 0.4] = EOS
-        count = rs.randint(0, Fb + 1, N)
-    else:
-        for n in range(N):
-            new_tok[n, rs.choice(K, min(K, rs.randint(2, 5)),
-                                 replace=False)] = EOS
-        count = np.full(N, Fb - 1 if mode == "fills" else Fb)
-    prev_k = rs.randint(0, K, (N, K))
-    wide = rs.randn(N, 2 * K).astype(np.float32)
-    as_t = lambda a, dtype=torch.long: torch.as_tensor(a, dtype=dtype,
-                                                      device=device)
-    state = dict(
-        tokens=as_t(rs.randint(0, V, (N, K, length))),
-        scores=as_t(rs.randn(N, K), torch.float32),
-        last_tokens=as_t(rs.randint(0, V, (N, K))),
-        fin_scores=as_t(rs.randn(N, Fb), torch.float32),
-        fin_lengths=as_t(rs.randint(1, length, (N, Fb))),
-        fin_tokens=as_t(rs.randint(0, V, (N, Fb, length))),
-        fin_count=as_t(count))
-    best_scores = as_t(wide, torch.float32)[:, :K]
-    return best_scores, as_t(prev_k * V + new_tok), state
 
 
 def reference_step(best_scores, best_ids, t, state):
@@ -100,7 +70,8 @@ def reference_step(best_scores, best_ids, t, state):
 
 @pytest.mark.parametrize("case", CASES, ids=_case_id)
 def test_plain_follows_the_reference_beam(case):
-    best_scores, best_ids, state = make_state(*case, seed=sum(case[:4]))
+    best_scores, best_ids, state = cc.bookkeeping_state(
+        *case, sum(case[:4]), V, L)
     t = case[3]
     want, want_rows = reference_step(best_scores, best_ids, t, state)
     admits = [min(Fb_left, n_eos) for Fb_left, n_eos in zip(
@@ -121,7 +92,7 @@ def test_plain_follows_the_reference_beam(case):
 
 def test_the_wrapper_takes_the_plain_version_on_the_cpu():
     case = (64, 5, 7, 1, "mixed")
-    best_scores, best_ids, state = make_state(*case, seed=11)
+    best_scores, best_ids, state = cc.bookkeeping_state(*case, 11, V, L)
     plain = {k: v.clone() for k, v in state.items()}
     launches = bb.launches
     rows = bb.beam_bookkeeping(best_scores, best_ids, V, 1, EOS, **state)
@@ -158,29 +129,24 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _both(case, seed, device, length=L):
-    """The kernel's and the plain version's results on one state."""
-    best_scores, best_ids, state = make_state(*case, seed=seed,
-                                              device=device, length=length)
-    plain = {k: v.clone() for k, v in state.items()}
-    t = case[3]
-    launches = bb.launches
-    got = bb.beam_bookkeeping(best_scores, best_ids, V, t, EOS, **state)
-    assert bb.launches == launches + 1
-    want = bb.beam_bookkeeping_plain(best_scores, best_ids, V, t, EOS,
-                                     **plain)
-    torch.cuda.synchronize()
-    return (got, state), (want, plain)
+# the flagship's serving (64 instances) and latency (1) states: beam 5,
+# topk 1, V 11 000, max_len 30; the first step, a middle one and the last
+FLAGSHIP_CASES = [(N, cc.BEAM, cc.TOPK, t, mode) for N in (cc.BATCH, 1)
+                  for t in (1, cc.MAX_LEN // 2, cc.MAX_LEN - 1)
+                  for mode in ("mixed", "fills", "full")]
+CARD_CASES = ([pytest.param(c, V, L, id=_case_id(c)) for c in CASES]
+              + [pytest.param(c, cc.V, cc.MAX_LEN,
+                              id="flagship-" + _case_id(c))
+                 for c in FLAGSHIP_CASES])
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", CASES, ids=_case_id)
-def test_kernel_equals_plain_on_the_card(cuda_device, case):
-    (got, state), (want, plain) = _both(case, 2**31 + sum(case[:4]),
-                                        cuda_device)
-    assert torch.equal(got, want)
-    for name in STATE:
-        assert torch.equal(state[name], plain[name]), name
+@pytest.mark.parametrize("case,vocab,length", CARD_CASES)
+def test_kernel_equals_plain_on_the_card(cuda_device, case, vocab, length):
+    """The kernel against the plain version bit for bit on this file's
+    states and on the flagship's
+    (``torch_card_cases.check_bookkeeping``)."""
+    cc.check_bookkeeping(case, 2**31 + sum(case[:4]), vocab, length)
 
 
 @pytest.mark.gpu
@@ -188,17 +154,14 @@ def test_kernel_equals_plain_on_the_card(cuda_device, case):
                                       (130, 129)])
 def test_kernel_walks_long_histories(cuda_device, length, t):
     """Histories wider than one pass of the kernel's shared memory."""
-    (got, state), (want, plain) = _both((5, 5, 7, t, "mixed"), length + t,
-                                        cuda_device, length)
-    assert torch.equal(got, want)
-    for name in STATE:
-        assert torch.equal(state[name], plain[name]), name
+    cc.check_bookkeeping((5, 5, 7, t, "mixed"), length + t, V, length)
 
 
 @pytest.mark.gpu
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     def state(K=5, topk=1, device=cuda_device):
-        return make_state(3, K, topk, 1, "mixed", seed=K, device=device)
+        return cc.bookkeeping_state(3, K, topk, 1, "mixed", K, V, L,
+                                    device)
 
     best_scores, best_ids, st = state(K=33)
     with pytest.raises(ValueError, match="beam 33"):

@@ -74,6 +74,17 @@ def test_yaml_grid_has_no_other_files():
     assert names == set(PRESETS)
 
 
+def test_card_cases_are_at_the_flagship_widths():
+    """The widths ``tests/torch_card_cases.py`` gives the ``gpu`` tests are
+    the flagship's that ``chip_smoke.py`` serves and trains."""
+    import chip_smoke
+    import torch_card_cases as cc
+    opt = chip_smoke.flagship_opt()
+    assert (cc.BEAM, cc.TOPK, cc.MAX_LEN, cc.H, cc.V) == (
+        opt["beam_size"], opt["topk"], opt["max_len"], opt["dim_hidden"],
+        opt["vocab_size"])
+
+
 def test_port_imports_neither_jax_nor_care_tpu():
     """Import every module of the port, and chip_smoke.py, in a fresh
     interpreter: neither JAX nor the JAX package may be loaded."""
@@ -283,7 +294,8 @@ def test_ensembles_and_fused_batches_raise():
     np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-5)
     batches = [{"feats": synthetic_batch(opt, 2, seed=s)["feats"]}
                for s in (1, 2)]
-    assert translator.translate_batches_fused([model], batches) == [
+    assert [out for _, out in translator.translate_batches_grouped(
+        [model], enumerate(batches), len(batches))] == [
         translator.translate_batch(model, b) for b in batches]
 
 

@@ -9,14 +9,16 @@ softmax. Tolerances are the JAX suite's own: atol 2e-5, rtol 1e-4 forward;
 atol 3e-5, rtol 1e-4 gradients (the sums are taken blockwise, in another
 order than the dense softmax's).
 
-The ``gpu``-marked test holds the CUDA kernels against their plain versions
-on a card, where the JAX package does not import: the JAX side is imported
-inside the helpers that use it.
+The ``gpu``-marked tests hold the CUDA kernels against their plain
+versions on a card, the long-key shapes through ``torch_card_cases``'s
+check and cases, where the JAX package does not import: the JAX side is
+imported inside the helpers that use it.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch_card_cases as cc
 
 from care_tpu_torch.ops import flash_attention as fa
 from care_tpu_torch.ops.attention import dot_product_attention
@@ -350,3 +352,35 @@ def test_flash_kernels_match_plain_on_the_card():
             counts[0] + 2, counts[1] + 1, counts[2] + 1)
         again = fa._flash_bwd_cuda(q, k, v, bias, want_lse, do, delta)
         assert all(torch.equal(a, r) for a, r in zip(got, again))
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", cc.FLASH_CASES, ids=lambda c: c[0])
+def test_flash_kernels_match_plain_and_dense_at_the_long_key_shapes(case):
+    """K4a against its plain version and the dense attention, and the
+    gradients of ``backward="kernel"`` (K4b, K4c) against the plain
+    backward and dense autograd (``torch_card_cases.check_flash_case``):
+    the long-key decode step with and without the hybrid bias, the square
+    shape, a pad mask, a query-extent bias (the dense rule), an instance
+    whose keys are all masked, and the ragged decode batch of 17 in
+    bf16."""
+    _card()
+    cc.check_flash_case(*case)
+
+
+@pytest.mark.gpu
+def test_flash_wrapper_refuses_on_the_card():
+    """The wrapper refuses what the kernels do not take, on card tensors:
+    a head width of 48, and f64."""
+    _card()
+    (q, _, _, _), _ = cc.flash_inputs((2, 4, 70, 333, 64), torch.float32,
+                                      None, 21)
+    for bad in (q[..., :48].contiguous(), q.double()):
+        with pytest.raises((ValueError, TypeError)):
+            fa.flash_attention(bad, bad, bad)

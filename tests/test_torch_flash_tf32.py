@@ -7,8 +7,8 @@ variant: scores, then p v; at the end of this file),
 through the tensor cores as three TF32 products (3xTF32, as the vocab
 kernels: ``tests/test_torch_tf32_split.py``). This file emulates, with
 numpy in float32, their arithmetic in their accumulation order and holds
-it against an f64 backward at the tolerance ``chip_smoke.py`` holds the
-kernels to (rtol 1e-4 + atol 1e-4):
+it against an f64 backward at the tolerance the ``gpu`` tests hold the
+kernels to (``tests/torch_card_cases.py``: rtol 1e-4 + atol 1e-4):
 
 * the scores s = q k^T (dq kernel) and s^T = k q^T (dk/dv kernel) from
   zero over the head width, one mma step of depth 8 at a time, its three
@@ -175,8 +175,8 @@ def test_one_tf32_product_misses(grads, name):
 # step of depth 8 at a time, its TF32 terms in order; x = s * scale + bias;
 # the online softmax per tile (maximum from -1e9, alpha = exp(m - m_new),
 # the sum of the unrounded weights); the output accumulators rescaled by
-# alpha and each tile's p v added from zero with an f32 add. chip_smoke.py
-# holds the kernel at rtol 1e-4 + atol 2e-5 for out and 1e-5 + 2e-5 for lse.
+# alpha and each tile's p v added from zero with an f32 add. The gpu tests
+# hold the kernel at rtol 1e-4 + atol 2e-5 for out and 1e-5 + 2e-5 for lse.
 
 FWD_TOL = {"out": dict(rtol=1e-4, atol=2e-5), "lse": dict(rtol=1e-5, atol=2e-5)}
 

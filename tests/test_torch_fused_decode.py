@@ -2,8 +2,9 @@
 decoding and against the JAX package (``tests/test_pipelined_decode.py``'s
 AR cases), on the same weights (``params_from_jax``), dropout off.
 
-* ``translate_batches_fused`` equals per-batch ``translate_batch``, which
-  equals the JAX package's beams (token-identical, scores 1e-4);
+* ``translate_batches_grouped`` with all the batches in flight equals
+  per-batch ``translate_batch``, which equals the JAX package's beams
+  (token-identical, scores 1e-4);
 * ``translate_batches_grouped`` decodes an aux mismatch, a ragged tail
   and short batches inside the stream at their own rows, one decode a
   batch (hypotheses and scores ``==`` the per-batch decode), and keeps
@@ -127,7 +128,8 @@ def test_fused_k_batches_equal_sequential_and_jax(base_pair):
     tr = get_translator(opt, device="cpu")
     batches = _batches(opt, [3, 3, 3])
     seq = [tr.translate_batch(port, b) for b in batches]
-    assert tr.translate_batches_fused([port], batches) == seq
+    assert [out for _, out in tr.translate_batches_grouped(
+        [port], enumerate(batches), len(batches))] == seq
     jtr = jax_get_translator(opt)
     want = [jtr.translate_batch([(jmodel, variables)], b) for b in batches]
     _assert_decode_equal(seq, want, tol=1e-4)

@@ -3,7 +3,8 @@
 ``fused_head_beam_topk``, run as the JAX suite runs it on the CPU: the
 Pallas kernel in interpret mode, and the ``xla`` backend. On the CPU the
 port takes its plain version (``_stats_plain`` + ``_finalize``); the CUDA
-kernel is held against that plain version by the ``gpu`` test below.
+kernel is held against that plain version by the ``gpu`` test below,
+through ``torch_card_cases``'s check.
 
 The cases are those of ``tests/test_fused_head_topk.py``. Ids must be
 identical; values agree within 1e-6 (both sides compute in f32, and only
@@ -13,6 +14,7 @@ the order of the f32 sums inside the products and the softmax differs).
 import numpy as np
 import pytest
 import torch
+import torch_card_cases as cc
 
 from care_tpu_torch.ops import fused_head_topk as port_fht
 
@@ -151,18 +153,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _chip_smoke():
-    """``chip_smoke.py``, whose operand makers and checks the ``gpu`` tests
-    share; imported only once a card is there."""
-    import chip_smoke
-    return chip_smoke
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [False, True])
 @pytest.mark.parametrize("rows,V,K,ties", [
     (320, 11000, 5, True),      # the flagship's shape, columns repeating
+    (320, 11000, 5, False),     # the flagship's shape
     (320, 10997, 5, False),     # the serve shape; V a multiple of no tile
     (85, 10997, 5, False),      # a ragged batch (17 videos x beam 5)
     (85, 10997, 16, True),      # beams above 8: the kernel's 32-long lists
@@ -170,18 +166,17 @@ def _chip_smoke():
 def test_kernel_matches_plain(cuda_device, rows, V, K, ties, with_bias,
                               dtype):
     """The CUDA kernel against the plain version, H 512, through
-    ``chip_smoke.py``'s check: m and log s within 1e-5 relative + 1e-6, cv
-    within 1e-4, and ids equal wherever values are exact (dyadic operands:
-    bf16, and the ``ties`` cases, where every column repeats 37 later) or
-    else separated from their neighbours by more than 1e-4."""
-    cs = _chip_smoke()
+    ``torch_card_cases.check_head_case``: m and log s within 1e-5 relative
+    + 1e-6, cv within 1e-4, and ids equal wherever values are exact (dyadic
+    operands: bf16, and the ``ties`` cases, where every column repeats 37
+    later) or else separated from their neighbours by more than 1e-4."""
     exact = ties or dtype == torch.bfloat16
-    h, W, b, _, _ = cs._xent_inputs(rows, 512, V, dtype, exact, with_bias,
-                                    rows + K)
+    h, W, b, _, _ = cc.xent_inputs(rows, 512, V, dtype, exact, with_bias,
+                                   rows + K)
     if ties:
-        W = W[torch.arange(V, device=W.device) % 37].contiguous()
+        W = cc.tie(W)
     before = port_fht.launches
-    cs._check_head_case(f"rows {rows} V {V} K {K}", h, W, K, exact, b)
+    cc.check_head_case(f"rows {rows} V {V} K {K}", h, W, K, exact, b)
     assert port_fht.launches == before + 1
 
 

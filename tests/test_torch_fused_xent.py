@@ -9,13 +9,15 @@ interpret mode. Inputs come from numpy seeds; f32 on both sides. The port's
 relative on the sum, equal argmax; gradients 2e-5 relative + 2e-6
 absolute (summation order differs between the chunked forms).
 
-The ``gpu``-marked test holds the CUDA kernels against the plain versions
-on a card; it imports nothing of the JAX package.
+The ``gpu``-marked tests hold the CUDA kernels against the plain versions
+on a card, through ``torch_card_cases``'s check; they import
+nothing of the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch_card_cases as cc
 
 from care_tpu_torch.ops import fused_head_topk as fht
 from care_tpu_torch.ops import fused_xent as fx
@@ -265,36 +267,38 @@ def test_cuda_kernels_match_plain_versions():
     assert h.grad.shape == h.shape and W.grad.shape == W.shape
 
 
-def _chip_smoke():
-    """``chip_smoke.py``, whose operand makers and checks the ``gpu`` tests
-    share; imported only once a card is there."""
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    import chip_smoke
-    return chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_bias", [False, True])
-@pytest.mark.parametrize("rows,H", [(320, 512), (85, 512), (85, 576),
-                                    (85, 768), (85, 1024)])
-def test_kernels_match_plain_at_width(rows, H, with_bias, dtype):
-    """K2, K3a and K3b against the plain versions through ``chip_smoke.py``'s
-    check (K2: lse within 1e-5; K3a and K3b: dh and dW within rtol 1e-4 +
-    atol 2e-7 in f32, 2**-6 + 1e-4 in bf16), at a V (10997) that is a
-    multiple of no tile. H 512 is the flagship's; 576 the widest f32 head
+@pytest.mark.parametrize("rows,H,V", [
+    (320, 512, 10997), (85, 512, 10997), (85, 576, 10997), (85, 768, 10997),
+    (85, 1024, 10997),
+    # the trainer's rows at the flagship's shape (batch 64 and the ragged
+    # 17, x 29 positions) and at the median preset's width
+    (cc.XENT_ROWS, cc.H, cc.V), (cc.RAGGED * (cc.MAX_LEN - 1), cc.H, cc.V),
+    (cc.RAGGED * (cc.MAX_LEN - 1), 768, cc.V)])
+def test_kernels_match_plain_at_width(rows, H, V, with_bias, dtype):
+    """K2, K3a and K3b against the plain versions through
+    ``torch_card_cases.check_xent_case`` (K2: lse within 1e-5; K3a and K3b:
+    dh and dW within rtol 1e-4 + atol 2e-7 in f32, 2**-6 + 1e-4 in bf16),
+    at a V (10997) that is a multiple of no tile, and at the flagship's
+    training shapes. H 512 is the flagship's; 576 the widest f32 head
     whose tiles the three kernels keep resident; 768 and 1024 (the
     ``median`` and ``large`` presets) take their streaming variants in f32
     and, in K3a and K3b, a second slice of dh's or dW's columns in both
     types. Two calls of each kernel repeat bit for bit."""
-    cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
+    _card()
     exact = dtype == torch.bfloat16
-    h, W, b, labels, cot = cs._xent_inputs(rows, H, 10997, dtype, exact,
-                                           with_bias, rows + H)
+    h, W, b, labels, cot = cc.xent_inputs(rows, H, V, dtype, exact,
+                                          with_bias, rows + H)
     before = (fht.argmax_lse_launches, fx.dh_launches, fx.dw_launches)
-    cs._check_xent_case(f"rows {rows} H {H}", h, W, b, labels, cot, exact)
+    cc.check_xent_case(f"rows {rows} H {H}", h, W, b, labels, cot, exact)
     lse = fht._argmax_lse_plain(h, W, b, labels, 1024, False)[2]
     first, second = (fx._bwd_cuda(h, W, b, labels, lse, *cot)
                      for _ in range(2))
@@ -315,16 +319,33 @@ def test_kernel_ties_across_tile_borders(rows, H, dtype):
     row tiles of K3a and K3b (rows 200: four 64-row tiles of K2, seven
     32-row tiles of K3a). Small dyadic operands make every logit exact, so
     the argmax, max, label logit and sum must equal the plain version's bit
-    for bit (``chip_smoke.py``'s exact check), dh and dW within their
-    tolerances."""
-    cs = _chip_smoke()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    V = 10997
-    h, W, b, labels, cot = cs._xent_inputs(rows, H, V, dtype, True, True,
-                                           rows + H + 1)
-    W = W[torch.arange(V, device="cuda") % 37].contiguous()
-    b = b[torch.arange(V, device="cuda") % 37].contiguous()
-    cs._check_xent_case(f"ties rows {rows} H {H}", h, W, b, labels, cot, True)
+    for bit (``torch_card_cases.check_xent_case``'s exact check), dh and dW
+    within their tolerances."""
+    _card()
+    h, W, b, labels, cot = cc.xent_inputs(rows, H, 10997, dtype, True, True,
+                                          rows + H + 1)
+    cc.check_xent_case(f"ties rows {rows} H {H}", h, cc.tie(W), cc.tie(b),
+                       labels, cot, True)
+
+
+@pytest.mark.gpu
+def test_serving_entry_without_token_ids():
+    """``vocab_argmax_lse`` as NAR serving calls it: no token ids, a bias,
+    leading dims kept; three outputs, max and lse within 1e-5 of the plain
+    version's."""
+    _card()
+    h, W, b, _, _ = cc.xent_inputs(cc.XENT_ROWS, cc.H, cc.V, torch.float32,
+                                   False, True, 9)
+    got = fht.vocab_argmax_lse(h.reshape(cc.BATCH, -1, cc.H), W, b)
+    want = fht._argmax_lse_plain(h, W, b, None, 1024, False)
+    torch.cuda.synchronize()
+    assert len(got) == 3 and got[0].shape == (cc.BATCH,
+                                              cc.XENT_ROWS // cc.BATCH)
+    assert want[3] is None and want[4] is None
+    cc.max_err("token_ids=None", "max", got[1].reshape(-1), want[1], 1e-5,
+               1e-5)
+    cc.max_err("token_ids=None", "lse", got[2].reshape(-1), want[2], 1e-5,
+               1e-5)
 
 
 @pytest.mark.gpu
@@ -333,10 +354,11 @@ def test_fused_train_steps_at_median_width():
     preset's H 768 in f32 (K3b's streaming variant): K3b launches once a
     step, and the losses follow the dense step's from the same seed, step 0
     within 1e-5 relative, the next within 1e-3 (``chip_smoke.py``'s bounds
-    at the flagship's width)."""
-    cs = _chip_smoke()
+    at the flagship's width, whose configuration, loader and step losses
+    it takes)."""
+    _card()
+    import chip_smoke as cs
     from care_tpu_torch.training import Trainer
-    torch.backends.cuda.matmul.allow_tf32 = False
     opt = dict(cs.flagship_opt("median"), epochs=1, hidden_dropout_prob=0.0,
                encoder_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
     assert opt["dim_hidden"] == 768

@@ -162,7 +162,7 @@ def _spy_decodes(pt):
             return inner(model, *args, **kwargs)
         setattr(translator, method, wrapped)
 
-    spy("translate_batches")
+    spy("translate_batches_grouped")
     spy("translate_batch")
     return seen
 
@@ -189,7 +189,7 @@ def test_mean_teacher_follows_care_tpu(data, tmp_path):
                   noise)
     assert pt.best_scores == jt.best_scores
     # validation decoded the student, once a batch each epoch
-    assert seen == [("translate_batches", False)] * 2
+    assert seen == [("translate_batches_grouped", False)] * 2
 
     # every checkpoint holds the teacher: last.ckpt exactly the final one
     ckpt_dir = opt["checkpoint_path"]

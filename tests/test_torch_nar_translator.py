@@ -153,8 +153,8 @@ def test_grouped_decoding_equals_batch_by_batch(students, teacher):
         teacher=teacher[1]))
     assert [t for t, _ in got] == list(range(len(batches)))
     assert [out for _, out in got] == want
-    assert tr.translate_batches_fused(port, batches[:2],
-                                      teacher=teacher[1]) == want[:2]
+    assert [out for _, out in tr.translate_batches_grouped(
+        port, enumerate(batches[:2]), 2, teacher=teacher[1])] == want[:2]
 
 
 @pytest.mark.parametrize("head_f32", [False, True])

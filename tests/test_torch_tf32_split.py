@@ -6,7 +6,7 @@ hi = tf32_rn(x) and lo = tf32_rn(x - hi), and a product accumulates
 lo*hi + hi*lo + hi*hi in f32, one mma step of depth 8 at a time. This file
 keeps a plain emulation of that arithmetic (numpy, float32) and holds it
 against an f64 product at a narrow size, with the tolerances
-``chip_smoke.py`` holds the kernels to:
+the ``gpu`` tests hold the kernels to (``tests/torch_card_cases.py``):
 
 * K1 (fused head + top-k): m and log s within 1e-5 relative + 1e-6, the
   top-5 values within 1e-4;
@@ -73,7 +73,7 @@ ARITHMETIC = {"3xtf32": THREE, "1xtf32": ONE}
 
 
 def head_inputs(seed):
-    """The distribution of ``chip_smoke.py:_head_inputs`` (f32)."""
+    """The distribution of ``torch_card_cases.head_inputs`` (f32)."""
     rs = np.random.RandomState(seed)
     h = rs.standard_normal((ROWS, H)).astype(np.float32)
     W = ((rs.random_sample((V, H)) * 2 - 1)
@@ -107,7 +107,7 @@ def test_head_statistics_tolerance(arith):
 
 def xent_dw(h, W, product):
     """dW [V, H] of the fused cross-entropy with the cotangents of
-    ``chip_smoke.py:_xent_inputs`` (f32, no bias): the logits and dW through
+    ``torch_card_cases.xent_inputs`` (f32, no bias): the logits and dW through
     ``product``, lse from the f64 forward as the kernel takes it."""
     rs = np.random.RandomState(1)
     labels = rs.randint(6, V, ROWS)
@@ -216,7 +216,7 @@ def stepwise_product(a, b, terms):
 
 def xent_case(H):
     """Rows of h, W, labels (one row on PAD) and the cotangents of
-    ``chip_smoke.py:_xent_inputs`` (f32, no bias) at the full vocab."""
+    ``torch_card_cases.xent_inputs`` (f32, no bias) at the full vocab."""
     rs = np.random.RandomState(5)
     h = rs.standard_normal((XROWS, H)).astype(np.float32)
     W = ((rs.random_sample((XV, H)) * 2 - 1)
