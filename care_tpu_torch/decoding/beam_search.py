@@ -34,7 +34,10 @@ The step is one body, run eagerly or, given a ``StepGraphs``, over static
 tensors in place and on CUDA as the replay of one CUDA graph a step
 position (``decoding/step_graphs.py``). A replayed step records
 ``care.beam.step`` alone: its inner spans are entered only when the step
-runs eagerly or is captured.
+runs eagerly or is captured. The ranking after the last step is a body
+of the same kind (``"final"``), its outputs copied out of the static ones
+once it has run; the loop's initial tensors (``initial_loop``) may come
+from the caller, reset in place (``reset_loop_``) by a body of its own.
 """
 
 import types
@@ -71,6 +74,7 @@ def beam_search(
     model_axis=None,
     count_live: Optional[Callable[[int, int], None]] = None,
     graphs: Optional[StepGraphs] = None,
+    loop: Optional[dict] = None,
 ):
     """Run beam search; returns (hyp_tokens [N, topk, max_len],
     hyp_scores [N, topk], hyp_lengths [N, topk], hyp_valid [N, topk]).
@@ -95,6 +99,10 @@ def beam_search(
     place, and on a CUDA device each step runs as the replay of its CUDA
     graph (``decoding/step_graphs.py``). ``init_carry`` is then static too:
     ``gather_carry`` reorders it in place, or its result is copied into it.
+    The ranking runs as the body ``"final"``, and the outputs are copies of
+    its static ones, which the next batch's ranking overwrites.
+    ``loop``: the loop's tensors as ``initial_loop`` makes them, at their
+    initial values (with ``graphs``, static ones); else they are made here.
     """
     sync = model_axis is not None and model_axis.size > 1
     N, K, V = batch_size, beam_size, vocab_size
@@ -108,20 +116,10 @@ def beam_search(
     long = dict(dtype=torch.long, device=device)
 
     with trace_annotation("care.beam.init"):
-        loop = dict(
-            tokens=torch.zeros((N, K, max_len), **long),
-            # only beam row 0 is live at the first expansion (reference
-            # Beam.advance uses word_prob[0] when prev_ks is empty)
-            scores=torch.full((N, K), DEAD, device=device),
-            last_tokens=torch.full((N, K), bos_id, **long),
-            fin_scores=torch.full((N, Fb), DEAD, device=device),
-            fin_lengths=torch.ones((N, Fb), **long),
-            fin_tokens=torch.zeros((N, Fb, max_len), **long),
-            fin_count=torch.zeros((N,), **long))
-        loop["tokens"][:, :, 0] = bos_id
-        loop["scores"][:, 0] = 0.0
-        if graphs is not None:
-            loop = graphs.static("loop", loop)
+        if loop is None:
+            loop = initial_loop(N, K, max_len, topk, bos_id, device)
+            if graphs is not None:
+                loop = graphs.static("loop", loop)
         # each step updates the loop's tensors in place and lands its
         # carry: rebound, or with ``graphs`` copied into the static one
         s = types.SimpleNamespace(carry=init_carry, **loop)
@@ -177,34 +175,80 @@ def beam_search(
                 graphs.run(t, lambda: advance(t))
 
     with trace_annotation("care.beam.final"):
-        # forced finish for instances that never emitted EOS (reference
-        # Beam.advance, the `len(next_ys) == max_len` branch): all rows
-        # enter. Every tensor from here on is new: static ones are the
-        # next batch's
-        never = s.fin_count == 0
-        gen_all = torch.cat([s.tokens[:, :, 1:],
-                             torch.zeros((N, K, 1), **long)], dim=2)
-        forced_len = torch.full((N, K), max_len - 1, **long)
-        fin_scores = torch.where(never[:, None],
-                                 F.pad(s.scores, (0, Fb - K), value=DEAD),
-                                 s.fin_scores)
-        fin_lengths = torch.where(never[:, None],
-                                  F.pad(forced_len, (0, Fb - K), value=1),
-                                  s.fin_lengths)
-        fin_tokens = torch.where(never[:, None, None],
-                                 F.pad(gen_all, (0, 0, 0, Fb - K)),
-                                 s.fin_tokens)
+        if graphs is None:
+            return _rank(s, beam_alpha, topk)
+        graphs.run("final", lambda: graphs.static(
+            "final", _rank(s, beam_alpha, topk)))
+        # the next batch's ranking overwrites the static outputs
+        return tuple(t.clone() for t in graphs.held("final"))
 
-        # length-normalised ranking: score / timestep**alpha
-        norm = fin_scores / fin_lengths.float() ** beam_alpha
-        order = torch.argsort(-norm, dim=1, stable=True)[:, :topk]
-        hyp_scores = torch.gather(norm, 1, order)
-        hyp_lengths = torch.gather(fin_lengths, 1, order)
-        hyp_tokens = torch.gather(fin_tokens, 1,
-                                  order[:, :, None].expand(N, topk, max_len))
-        # unfilled finished slots are not hypotheses (the reference returns
-        # min(topk, n_finished))
-        hyp_valid = torch.gather(fin_scores, 1, order) > DEAD / 2
-        pos = torch.arange(max_len, device=device)[None, None, :]
-        hyp_tokens = torch.where(pos < hyp_lengths[:, :, None], hyp_tokens, 0)
+
+def initial_loop(N: int, K: int, max_len: int, topk: int = 1,
+                 bos_id: int = constants.BOS, device=None) -> dict:
+    """The beam loop's tensors for ``N`` instances of ``K`` beams, at
+    their values before the first step: the generated tokens, the beams'
+    scores and last tokens, and the finished buffer of ``max(K, topk)``
+    hypotheses an instance with its count."""
+    Fb = max(K, topk)
+    long = dict(dtype=torch.long, device=device)
+    return reset_loop_(dict(
+        tokens=torch.empty((N, K, max_len), **long),
+        scores=torch.empty((N, K), device=device),
+        last_tokens=torch.empty((N, K), **long),
+        fin_scores=torch.empty((N, Fb), device=device),
+        fin_lengths=torch.empty((N, Fb), **long),
+        fin_tokens=torch.empty((N, Fb, max_len), **long),
+        fin_count=torch.empty((N,), **long)), bos_id)
+
+
+def reset_loop_(loop: dict, bos_id: int = constants.BOS) -> dict:
+    """``initial_loop``'s values written into ``loop``'s tensors."""
+    loop["tokens"].zero_()
+    loop["tokens"][:, :, 0] = bos_id
+    # only beam row 0 is live at the first expansion (reference
+    # Beam.advance uses word_prob[0] when prev_ks is empty)
+    loop["scores"].fill_(DEAD)
+    loop["scores"][:, 0] = 0.0
+    loop["last_tokens"].fill_(bos_id)
+    loop["fin_scores"].fill_(DEAD)
+    loop["fin_lengths"].fill_(1)
+    loop["fin_tokens"].zero_()
+    loop["fin_count"].zero_()
+    return loop
+
+
+def _rank(s, beam_alpha: float, topk: int):
+    """The loop's outcome ranked (``s``: the loop's tensors after its last
+    step): (hyp_tokens, hyp_scores, hyp_lengths, hyp_valid), new tensors."""
+    N, K, max_len = s.tokens.shape
+    Fb = s.fin_scores.shape[1]
+    long = dict(dtype=torch.long, device=s.tokens.device)
+    # forced finish for instances that never emitted EOS (reference
+    # Beam.advance, the `len(next_ys) == max_len` branch): all rows enter
+    never = s.fin_count == 0
+    gen_all = torch.cat([s.tokens[:, :, 1:],
+                         torch.zeros((N, K, 1), **long)], dim=2)
+    forced_len = torch.full((N, K), max_len - 1, **long)
+    fin_scores = torch.where(never[:, None],
+                             F.pad(s.scores, (0, Fb - K), value=DEAD),
+                             s.fin_scores)
+    fin_lengths = torch.where(never[:, None],
+                              F.pad(forced_len, (0, Fb - K), value=1),
+                              s.fin_lengths)
+    fin_tokens = torch.where(never[:, None, None],
+                             F.pad(gen_all, (0, 0, 0, Fb - K)),
+                             s.fin_tokens)
+
+    # length-normalised ranking: score / timestep**alpha
+    norm = fin_scores / fin_lengths.float() ** beam_alpha
+    order = torch.argsort(-norm, dim=1, stable=True)[:, :topk]
+    hyp_scores = torch.gather(norm, 1, order)
+    hyp_lengths = torch.gather(fin_lengths, 1, order)
+    hyp_tokens = torch.gather(fin_tokens, 1,
+                              order[:, :, None].expand(N, topk, max_len))
+    # unfilled finished slots are not hypotheses (the reference returns
+    # min(topk, n_finished))
+    hyp_valid = torch.gather(fin_scores, 1, order) > DEAD / 2
+    pos = torch.arange(max_len, device=s.tokens.device)[None, None, :]
+    hyp_tokens = torch.where(pos < hyp_lengths[:, :, None], hyp_tokens, 0)
     return hyp_tokens, hyp_scores, hyp_lengths, hyp_valid

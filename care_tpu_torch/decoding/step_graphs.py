@@ -1,14 +1,18 @@
-"""Each beam step of one decode shape run as one CUDA graph.
+"""Each beam step of one decode shape, and the batch's edges around them,
+run as one CUDA graph each.
 
 A fused-head AR decode launches about 70 kernels a beam step, and
 launched one by one from Python the launches take several times the
-device's work. ``StepGraphs`` keeps, for one model at one shape, the
-tensors a step reads and writes at fixed addresses (``static``) and one
-CUDA graph per step position ``t``. The first run at a position runs the
-step eagerly on a side stream (the warm-up a capture needs) and then
-captures it there; every later run at that position replays the capture.
-The graphs of one shape share one memory pool: a step's intermediates are
-dead when its graph ends, so the graphs may replay in any order.
+device's work; so do the batch's edges (the encoders and the decode's
+initial state before the steps, the ranking after them). ``StepGraphs``
+keeps, for one model at one shape, the tensors a body reads and writes at
+fixed addresses (``static``) and one CUDA graph per body: a step position
+``t`` (an int), or an edge of the batch (a name). The first run of a body
+runs it eagerly on a side stream (the warm-up a capture needs) and then
+captures it there; every later run of it replays the capture. The graphs
+of one shape share one memory pool: a body's intermediates are dead when
+its graph ends (what outlives it is written into static tensors), so the
+graphs may replay in any order.
 
 A replay runs no Python, so the counters a step moves (the kernels'
 ``*launches``, the caller's step counter) are read around each capture,
@@ -16,7 +20,7 @@ and each replay adds what its capture added. Off CUDA a step runs eagerly,
 on the same static tensors.
 """
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Hashable, Optional, Sequence, Tuple
 
 import torch
 
@@ -61,11 +65,11 @@ def copy_tree_(dst, src) -> None:
 class StepGraphs:
     """The static tensors and the per-step CUDA graphs of one decode shape.
 
-    ``counters``: (holder, attribute) of the integer counters a step moves;
-    ``on_replay``: called after each replay."""
+    ``counters``: (holder, attribute) of the integer counters a body moves;
+    ``on_replay(t)``: called after each replay of body ``t``."""
 
     def __init__(self, device, counters: Sequence[Tuple[object, str]] = (),
-                 on_replay: Optional[Callable[[], None]] = None):
+                 on_replay: Optional[Callable[[Hashable], None]] = None):
         self.device = torch.device(device)
         self.counters = list(counters)
         self.on_replay = on_replay
@@ -82,10 +86,14 @@ class StepGraphs:
         copy_tree_(held, tree)
         return held
 
-    def run(self, t: int, body: Callable[[], None]) -> None:
-        """Run ``body``, one step at position ``t`` over the static
-        tensors: by a replay of its graph, else eagerly (capturing the
-        graph on CUDA)."""
+    def held(self, name: str):
+        """The static tensors kept under ``name``, as they stand."""
+        return self._static[name]
+
+    def run(self, t: Hashable, body: Callable[[], None]) -> None:
+        """Run ``body`` (the step at position ``t``, or the edge named
+        ``t``) over the static tensors: by a replay of its graph, else
+        eagerly (capturing the graph on CUDA)."""
         if self.device.type != "cuda":
             body()
             return
@@ -98,7 +106,7 @@ class StepGraphs:
         for (holder, name), n in zip(self.counters, added):
             setattr(holder, name, getattr(holder, name) + n)
         if self.on_replay is not None:
-            self.on_replay()
+            self.on_replay(t)
 
     def _capture(self, body):
         current = torch.cuda.current_stream(self.device)

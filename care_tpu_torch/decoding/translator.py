@@ -12,8 +12,11 @@ rows, and runs the beam loop. With the default ``fused_head_topk`` each
 step's vocab expansion goes through the fused head + top-k kernel, so the
 [B*beam, V] logits never exist; on the card such a decode of one model
 keeps its tensors at fixed addresses between batches of one shape
-(``_StaticDecode``) and replays each beam step as one CUDA graph
-(``decoding/step_graphs.py``). Every other decode takes the dense step,
+(``_StaticDecode``: the batch's inputs, the decode state, the loop's
+tensors) and replays one CUDA graph (``decoding/step_graphs.py``) for the
+batch's front edge (the encoders, the decoder's inputs, the decode state
+and the loop's initial tensors), one for each beam step and one for the
+ranking after them. Every other decode takes the dense step,
 as the JAX package rules (``care_tpu/decoding/translator.py:225-230``): an
 RNN decoder steps its carry (``init_rnn_carry`` on the beam-enlarged
 inputs, ``rnn_decode_step``, the nested carry reordered with the beams), a
@@ -76,7 +79,8 @@ import torch
 
 from care_tpu_torch import constants
 from care_tpu_torch.decoding import nar
-from care_tpu_torch.decoding.beam_search import beam_search
+from care_tpu_torch.decoding.beam_search import (beam_search, initial_loop,
+                                                 reset_loop_)
 from care_tpu_torch.decoding.step_graphs import StepGraphs, kernel_counters
 from care_tpu_torch.models.common import unsupported
 from care_tpu_torch.models.decoders import is_rnn_decoder
@@ -175,37 +179,44 @@ def _shapes(tree):
     return None if tree is None else (tuple(tree.shape), tree.dtype)
 
 
-def _step_ptrs(model):
-    """Where the tensors a decode step reads of ``model`` sit: its
-    decoder's and vocab head's parameters and buffers."""
-    return tuple(t.data_ptr() for part in (model.decoder, model.cls_head)
-                 for t in itertools.chain(part.parameters(), part.buffers()))
+def _model_ptrs(model):
+    """Where every parameter and buffer of ``model`` sits: the encoders,
+    the predictor and the embeddings a batch's front edge reads, the
+    decoder and vocab head its steps read. One walk over the modules
+    (``parameters()`` and ``buffers()`` would walk them twice)."""
+    return tuple(t.data_ptr() for mod in model.modules()
+                 for t in itertools.chain(mod._parameters.values(),
+                                          mod._buffers.values())
+                 if t is not None)
+
+
+def _lying(x) -> torch.Tensor:
+    """``x`` as a tensor where it lies, on the host or the device."""
+    return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
 
 
 class _StaticDecode:
-    """What a fused decode of one model at one shape keeps between batches
-    when its steps run as CUDA graphs: the carry at fixed addresses (the
-    cross and concept K/V, the decoder's per-row inputs and the
-    self-attention cache), a second slot of each layer's self-attention
-    cache, and the step graphs. Valid while the model lives and each tensor
-    of it that a step reads sits where it sat at the first batch: the
-    addresses the graphs read."""
+    """What a fused decode of one model keeps between batches whose inputs
+    have one shape, when it runs as CUDA graphs: at fixed addresses the
+    batch's inputs (``inputs``: its feature streams and the decoder inputs
+    it carries), the carry (the cross and concept K/V, the decoder's
+    per-row inputs and the self-attention cache, made by the first
+    batch's front edge) with a second slot of each layer's self-attention
+    cache, and the beam loop's tensors; and the graphs of the front edge,
+    the steps and the ranking. Valid while the model lives and each of its
+    tensors sits where it sat at the first batch: the addresses the graphs
+    read."""
 
-    def __init__(self, model, carry, graphs: StepGraphs):
+    def __init__(self, model, inputs, loop: dict, graphs: StepGraphs):
         self.model = weakref.ref(model)
-        self.ptrs = _step_ptrs(model)
+        self.ptrs = _model_ptrs(model)
         self.graphs = graphs
-        self.carry = graphs.static("carry", carry)
-        # step t (position t - 1) reads and appends to slot (t - 1) % 2 of
-        # each layer's self-attention cache, and its beam reorder writes
-        # the other: index_select may not write its own input, and a copy
-        # back would move the cache twice
-        self.kv_slots = [{key: (st[key], torch.empty_like(st[key]))
-                          for key in ("self_k", "self_v")}
-                         for st in self.carry["layers"]]
+        self.inputs = inputs
+        self.loop = loop
+        self.carry = self.kv_slots = None
 
     def valid(self, model) -> bool:
-        return self.model() is model and _step_ptrs(model) == self.ptrs
+        return self.model() is model and _model_ptrs(model) == self.ptrs
 
     def point(self, slot: int) -> None:
         """Point the carry at each self-attention cache's ``slot``."""
@@ -213,10 +224,21 @@ class _StaticDecode:
             for key, pair in slots.items():
                 st[key] = pair[slot]
 
-    def load(self, carry):
-        """A batch's fresh carry copied into the static one."""
+    def load(self, carry) -> None:
+        """A batch's fresh carry copied into the static one; the first
+        batch's becomes it."""
+        if self.carry is None:
+            self.carry = self.graphs.static("carry", carry)
+            # step t (position t - 1) reads and appends to slot (t - 1) % 2
+            # of each layer's self-attention cache, and its beam reorder
+            # writes the other: index_select may not write its own input,
+            # and a copy back would move the cache twice
+            self.kv_slots = [{key: (st[key], torch.empty_like(st[key]))
+                              for key in ("self_k", "self_v")}
+                             for st in self.carry["layers"]]
+            return
         self.point(0)
-        return self.graphs.static("carry", carry)
+        self.graphs.static("carry", carry)
 
     def gather(self, state, row_idx):
         """``_gather_self_kv`` into the other slot."""
@@ -393,7 +415,13 @@ class TranslatorARFormer(Translator):
         self.live_instance_steps = 0
         # beam steps run by a replay of their CUDA graph
         self.graph_steps = 0
-        # _StaticDecode by (model, carry shapes), the latest used last
+        # batches through the front edge (the encoders, the decoder's
+        # inputs and the decode state), and those whose edge ran as the
+        # replay of its CUDA graph
+        self.edge_passes = 0
+        self.graph_edge_passes = 0
+        # _StaticDecode by (model, the shapes and dtypes of the batch's
+        # inputs), the latest used last
         self._static = OrderedDict()
 
     def _count_live(self, instances: int, live: int) -> None:
@@ -407,11 +435,15 @@ class TranslatorARFormer(Translator):
         :meth:`collect`). A teacher given with the batch is not used, as in
         the JAX package."""
         models = [self.serving_model(m) for m in self._models(models)]
-        feats = self._feats(batch)
-        per_model = isinstance(feats[0], list)
-        if per_model and len(feats) != len(models):
-            raise ValueError(f"{len(feats)} feature lists for "
+        per_model = isinstance(batch["feats"][0], (list, tuple))
+        if per_model and len(batch["feats"]) != len(models):
+            raise ValueError(f"{len(batch['feats'])} feature lists for "
                              f"{len(models)} models")
+        self.edge_passes += 1
+        if (self.fused_head and len(models) == 1
+                and self._graphs_engage(models[0])):
+            return self._dispatch_static(models[0], batch)
+        feats = self._feats(batch)
         aux = self._batch_inputs(batch)
         N = (feats[0][0] if per_model else feats[0]).shape[0]
         members = []
@@ -421,7 +453,11 @@ class TranslatorARFormer(Translator):
                 members.append((model,
                                 model.prepare_inputs_for_decoder(enc, aux)))
         if self.fused_head and len(members) == 1:
-            return self._dispatch_fused(*members[0], N)
+            model, inputs = members[0]
+            with trace_annotation("care.beam.init"):
+                carry = model.init_decode_state(inputs, self.max_len,
+                                                self.beam_size)
+            return self._dispatch_fused(model, carry, N)
         return self._dispatch_dense(members, N)
 
     def _graphs_engage(self, model) -> bool:
@@ -432,20 +468,56 @@ class TranslatorARFormer(Translator):
         ax = model_axis(model)
         return self.device.type == "cuda" and (ax is None or ax.size == 1)
 
-    def _count_graph_step(self) -> None:
-        self.graph_steps += 1
+    def _count_replay(self, body) -> None:
+        if body == "edge":
+            self.graph_edge_passes += 1
+        elif isinstance(body, int):
+            self.graph_steps += 1
 
-    def _static_decode(self, model, carry) -> _StaticDecode:
-        """The static state and step graphs of ``model`` at this carry's
-        shapes, the carry loaded into it. The first batch's carry becomes
-        the static one; a model whose tensors moved (another model, a
-        loaded state whose tensors were replaced) starts anew, so a graph
-        never reads a stale address."""
-        key = (id(model), _shapes(carry))
+    def _batch_tensors(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """The batch's feature streams (nested as ``_feats`` nests them)
+        and the decoder inputs it carries (``_batch_inputs``'s), each a
+        tensor where it lies."""
+        return {"feats": [[_lying(x) for x in f]
+                          if isinstance(f, (list, tuple)) else _lying(f)
+                          for f in batch["feats"]],
+                "aux": {k: _lying(batch[k])
+                        for k in ("category", "category_embs") if k in batch}}
+
+    def _input_buffers(self, tensors):
+        """Device tensors of their own holding what ``_batch_tensors``
+        gave, as ``_feats`` and ``_batch_inputs`` put it on the device."""
+        return {"feats": [[x.clone() for x in f] if isinstance(f, list)
+                          else f.clone() for f in self._feats(tensors)],
+                "aux": {k: t.clone() for k, t in
+                        self._batch_inputs(tensors["aux"]).items()}}
+
+    def _load_inputs(self, dst, src) -> None:
+        """Each tensor of ``src`` (``_batch_tensors``) written into the
+        buffer at its place as ``_tensor`` puts it on the device: one of
+        the buffer's dtype, on the host or the device, straight in."""
+        if isinstance(dst, dict):
+            for key in dst:
+                self._load_inputs(dst[key], src[key])
+        elif isinstance(dst, list):
+            for d, s in zip(dst, src):
+                self._load_inputs(d, s)
+        else:
+            dst.copy_(src if src.dtype == dst.dtype else self._tensor(src))
+
+    def _static_decode(self, model, tensors) -> _StaticDecode:
+        """The static state and graphs of ``model`` for batches whose
+        inputs (``_batch_tensors``) have these shapes and dtypes, which fix
+        the carry's, the batch's inputs in it. A model whose tensors moved
+        (another model, a loaded state whose tensors were replaced) starts
+        anew, so a graph never reads a stale address."""
+        key = (id(model), _shapes(tensors))
         entry = self._static.pop(key, None)
         if entry is not None and not entry.valid(model):
             entry = None
-        if entry is None:
+        if entry is not None:
+            self._load_inputs(entry.inputs, tensors)
+        else:
             # drop the static decodes of models gone and the least recently
             # used beyond the bound, once the card has run their graphs
             if self.device.type == "cuda":
@@ -455,25 +527,49 @@ class TranslatorARFormer(Translator):
                 del self._static[k]
             while len(self._static) >= _GRAPH_SHAPES:
                 self._static.popitem(last=False)
-            entry = _StaticDecode(model, carry, StepGraphs(
-                self.device, [(self, "beam_steps")] + kernel_counters(),
-                on_replay=self._count_graph_step))
+            feats = tensors["feats"][0]
+            N = (feats[0] if isinstance(feats, list) else feats).shape[0]
+            entry = _StaticDecode(
+                model, self._input_buffers(tensors),
+                initial_loop(N, self.beam_size, self.max_len, self.topk,
+                             device=self.device),
+                StepGraphs(self.device,
+                           [(self, "beam_steps")] + kernel_counters(),
+                           on_replay=self._count_replay))
         self._static[key] = entry
-        entry.load(carry)
         return entry
 
-    def _dispatch_fused(self, model, inputs, N: int):
-        """One model through the fused head + top-k: the step returns the
-        decoder's hidden states. Where ``_graphs_engage``, the decode runs
-        over a ``_StaticDecode``'s tensors and each step replays a CUDA
+    def _edge(self, model, static: _StaticDecode) -> None:
+        """The front edge of a batch over ``static``'s inputs, as
+        :meth:`dispatch` and :meth:`_dispatch_fused` run it eagerly: the
+        encoders and the decoder's inputs, the decode state loaded into
+        the static carry, and the loop's tensors reset."""
+        feats = static.inputs["feats"]
+        enc = model.encoding_phase(feats[0] if isinstance(feats[0], list)
+                                   else feats)
+        inputs = model.prepare_inputs_for_decoder(enc, static.inputs["aux"])
+        static.load(model.init_decode_state(inputs, self.max_len,
+                                            self.beam_size))
+        reset_loop_(static.loop)
+
+    def _dispatch_static(self, model, batch: Dict[str, Any]):
+        """One model through the fused head where ``_graphs_engage``: the
+        batch's inputs copied into a ``_StaticDecode``'s, then its front
+        edge, each beam step and the ranking, each the replay of its CUDA
         graph."""
-        static = None
-        with trace_annotation("care.beam.init"):
-            carry = model.init_decode_state(inputs, self.max_len,
-                                            self.beam_size)
-            if self._graphs_engage(model):
-                static = self._static_decode(model, carry)
-                carry = static.carry
+        tensors = self._batch_tensors(batch)
+        with trace_annotation("care.encode"):
+            static = self._static_decode(model, tensors)
+            static.graphs.run("edge", lambda: self._edge(model, static))
+        return self._dispatch_fused(model, static.carry,
+                                    static.loop["scores"].shape[0],
+                                    static)
+
+    def _dispatch_fused(self, model, carry, N: int,
+                        static: Optional[_StaticDecode] = None):
+        """One model through the fused head + top-k from its decode state:
+        the step returns the decoder's hidden states. With ``static``, the
+        decode runs over its tensors and each step replays a CUDA graph."""
 
         def step_fn(tokens, position, state):
             self.beam_steps += 1
@@ -490,7 +586,8 @@ class TranslatorARFormer(Translator):
             max_len=self.max_len, beam_alpha=self.beam_alpha, topk=self.topk,
             fused_head=(model.cls_head.tgt_word_prj.weight, None),
             model_axis=model_axis(model), count_live=self._count_live,
-            graphs=None if static is None else static.graphs)
+            graphs=None if static is None else static.graphs,
+            loop=None if static is None else static.loop)
 
     def _dispatch_dense(self, members, N: int):
         """The dense step of one model or an ensemble: each member's carry

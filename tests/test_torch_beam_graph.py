@@ -1,11 +1,12 @@
-"""The AR beam step run over static tensors and, on the card, replayed as
-one CUDA graph a step (``decoding/step_graphs.py``): on the CPU the static
-body, run eagerly, gives exactly the eager loop's beams; the dense,
-ensemble, RNN, pointer and model-axis decodes keep the eager loop; a model
-whose tensors moved starts a new static decode. The ``gpu`` tests hold the
-replays to the eager loop bit for bit at full width, and their counters
-and profiler events to the eager loop's. This file imports neither JAX nor
-``care_tpu``, so the ``gpu`` run can collect it.
+"""The AR beam step and the batch's edges run over static tensors and, on
+the card, replayed as one CUDA graph each (``decoding/step_graphs.py``):
+on the CPU the static bodies, run eagerly, give exactly the eager
+dispatch's beams; the dense, ensemble, RNN, pointer and model-axis decodes
+keep the eager loop; a model whose tensors moved starts a new static
+decode. The ``gpu`` tests hold the replays to the eager loop bit for bit
+at full width, and their counters and profiler events to the eager
+loop's. This file imports neither JAX nor ``care_tpu``, so the ``gpu`` run
+can collect it.
 """
 
 import json
@@ -221,6 +222,108 @@ def test_moved_weights_start_a_new_static_decode(flagship):
     assert len(tr._static) == 2
 
 
+def _tiny_bench_model(config):
+    """A benchmark configuration at its tests' widths on the CPU, with the
+    benchmark's weights (``msrvtt-care-vit-eos``: captions that end at
+    several lengths)."""
+    from portbench import lookup, program
+    from portbench.tests import tiny
+    cfg = tiny.config(config)
+    m = cfg["model"]
+    params = lookup.module("weights", cfg["weights"]).make(
+        lookup.module("judges", cfg["judge"]).param_shapes(m), 11, "cpu", m)
+    opt = program.program_opt(cfg)
+    return opt, program.build_model(opt, params, "cpu"), m
+
+
+@pytest.mark.parametrize("config", ["msrvtt-care-vit", "msrvtt-care-vit-eos"],
+                         ids=["flagship", "eos"])
+def test_static_edges_equal_the_eager_dispatch(config):
+    """Batches of two sizes in turn, each dispatched before any is
+    collected: the outputs of the front edge, steps and ranking run as
+    static bodies equal the eager dispatch's bit for bit (tokens, scores,
+    lengths, validity), and none is overwritten by a later batch."""
+    torch.set_num_threads(2)
+    opt, model, m = _tiny_bench_model(config)
+    batches = [_bench_feats(m, n, 40 + i)
+               for i, n in enumerate((4, 3, 4, 3, 4))]
+    eager = get_translator(opt, device="cpu")
+    static = _static(get_translator(opt, device="cpu"))
+    want = [eager.dispatch(model, b) for b in batches]
+    got = [static.dispatch(model, b) for b in batches]
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 4
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert len(static._static) == 2
+    assert static.beam_steps == eager.beam_steps
+    if config.endswith("eos"):
+        lengths = {int(n) for out in want for n in out[2].flatten()}
+        assert len(lengths) > 1, lengths
+
+
+class _Replaying(StepGraphs):
+    """Off CUDA, each body runs eagerly, and every run of a body after its
+    first counts as a replay, as a capture and its replays count on the
+    card."""
+
+    def run(self, t, body):
+        seen = self.__dict__.setdefault("seen", set())
+        body()
+        if t in seen and self.on_replay is not None:
+            self.on_replay(t)
+        seen.add(t)
+
+
+def test_edge_counters(flagship, monkeypatch):
+    """``edge_passes`` counts every AR batch, ``graph_edge_passes`` those
+    whose front edge replayed: none off CUDA, or in a dense decode; on the
+    card every batch after a shape's first."""
+    opt, model = flagship
+    batches = [_feats(opt, n, seed=60 + i)
+               for i, n in enumerate((4, 3, 4, 4, 3))]
+    for tr in (get_translator(opt, device="cpu"),
+               get_translator(dict(opt, fused_head_topk=False),
+                              device="cpu"),
+               _static(get_translator(opt, device="cpu"))):
+        list(tr.translate_batches(model, batches))
+        assert (tr.edge_passes, tr.graph_edge_passes) == (5, 0)
+    monkeypatch.setattr(translator_module, "StepGraphs", _Replaying)
+    tr = _static(get_translator(opt, device="cpu"))
+    got = [out for _, out in tr.translate_batches(model, batches)]
+    assert got == [get_translator(opt, device="cpu").translate_batch(
+        model, b) for b in batches]
+    assert (tr.edge_passes, tr.graph_edge_passes) == (5, 3)
+    assert 0 < tr.graph_steps < tr.beam_steps
+
+
+@pytest.mark.parametrize("part", ["encoder", "predictor"])
+def test_a_moved_edge_tensor_starts_a_new_static_decode(flagship, part):
+    """The front edge reads the encoder and the predictor: a tensor of
+    either changed in place keeps the static decode, one replaced (a new
+    address) starts a new one."""
+    opt, _ = flagship
+    model = _model(opt, seed=7)
+    batch = _feats(opt, 4, seed=8)
+    tr = _static(get_translator(opt, device="cpu"))
+
+    def decode_and_check():
+        got = tr.translate_batch(model, batch)
+        assert got == get_translator(opt, device="cpu").translate_batch(
+            model, batch)
+        (entry,) = tr._static.values()
+        return entry
+
+    first = decode_and_check()
+    weight = next(getattr(model, part).parameters())
+    with torch.no_grad():
+        weight.mul_(1.5)
+    assert decode_and_check() is first
+    with torch.no_grad():
+        weight.data = weight.data * 0.5
+    assert decode_and_check() is not first
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -278,11 +381,11 @@ def _eager(opt, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows", [64, 1])
+@pytest.mark.parametrize("rows", [64, 17, 1])
 def test_replays_equal_the_eager_loop_on_the_card(cuda_device, rows):
-    """The flagship at full width: the first batch captures, the next two
-    replay; tokens and scores equal the eager loop's bit for bit, and so
-    do K1's launches and the beam steps."""
+    """The flagship at full width: the first batch captures its edges and
+    steps, the next two replay them; tokens and scores equal the eager
+    loop's bit for bit, and so do K1's launches and the beam steps."""
     opt, model, m = _bench_model("msrvtt-care-vit", cuda_device, 2**31 + 5)
     batches = [_bench_feats(m, rows, 100 + i) for i in range(3)]
     want, want_n = _counted(_eager(opt, cuda_device), model, batches, 1)
@@ -291,6 +394,34 @@ def test_replays_equal_the_eager_loop_on_the_card(cuda_device, rows):
     assert got == want
     assert got_n == want_n
     assert tr.graph_steps == 2 * (opt["max_len"] - 1)
+    assert (tr.edge_passes, tr.graph_edge_passes) == (3, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", ["msrvtt-care-vit",
+                                    "msrvtt-care-swinbert"],
+                         ids=["flagship", "long keys"])
+def test_replayed_edges_keep_pending_outputs_on_the_card(cuda_device,
+                                                         config):
+    """Five batches of 64 dispatched before any is collected, more than a
+    stream at depth 2 keeps pending (three): each batch's four output
+    tensors, its edges replayed, equal the eager dispatch's bit for bit
+    (tokens, scores, lengths, validity) after the later batches ran."""
+    opt, model, m = _bench_model(config, cuda_device, 2**31 + 17,
+                                 eos_clock=True)
+    batches = [_bench_feats(m, 64, 400 + i) for i in range(5)]
+    eager = _eager(opt, cuda_device)
+    want = [eager.dispatch(model, b) for b in batches]
+    tr = get_translator(opt, device=cuda_device)
+    got = [tr.dispatch(model, b) for b in batches]
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 4
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert (tr.edge_passes, tr.graph_edge_passes) == (5, 4)
+    lengths = {int(n) for out in want for n in out[2].flatten()}
+    assert len(lengths) > 1, lengths               # the EOS clock's ends
 
 
 @pytest.mark.gpu
@@ -310,6 +441,7 @@ def test_long_key_replays_with_early_stops_two_in_flight(cuda_device):
     assert want_n[1] == want_n[2] * opt["num_hidden_layers_decoder"]
     assert want_n[2] < len(batches) * (opt["max_len"] - 1)  # early stops
     assert 0 < tr.graph_steps < want_n[2]
+    assert (tr.edge_passes, tr.graph_edge_passes) == (4, 2)
 
 
 @pytest.mark.gpu
@@ -330,6 +462,65 @@ def test_a_traced_replay_shows_k1(cuda_device):
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("head_stats_tc_kernel" in n for n in names) == 29
+
+
+def _graph_launches(events, span):
+    """The device operations each ``cudaGraphLaunch`` inside the host
+    range ``span`` launched, by launch."""
+    cpu = [e for e in events
+           if e.device_type() == torch.autograd.DeviceType.CPU]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in cpu if e.name() == span]
+    launches = [e.correlation_id() for e in cpu
+                if e.name().startswith("cudaGraphLaunch")
+                and any(s <= e.start_ns() <= t for s, t in ranges)]
+    ops = [e for e in events
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    return [[e.name() for e in ops if e.correlation_id() == c]
+            for c in launches]
+
+
+@pytest.mark.gpu
+def test_a_traced_replay_launches_the_edges_in_their_spans(cuda_device):
+    """A profiler opened after the capture: the front edge's kernels come
+    from one graph launch inside ``care.encode`` (at least as many as the
+    eager edge launches inside ``care.encode`` and ``care.beam.init``),
+    the ranking's from one inside ``care.beam.final``, so their idle gaps
+    stay in the batch edges' group."""
+    opt, model, m = _bench_model("msrvtt-care-vit", cuda_device, 2**31 + 5)
+    batch = _bench_feats(m, 64, 9)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+
+    def traced(tr):
+        tr.translate_batch(model, batch)
+        with torch.profiler.profile(activities=acts) as prof:
+            tr.translate_batch(model, batch)
+            torch.cuda.synchronize()
+        return prof.profiler.kineto_results.events()
+
+    eager = traced(_eager(opt, cuda_device))
+    dev = [e for e in eager
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    cpu = [e for e in eager
+           if e.device_type() == torch.autograd.DeviceType.CPU]
+    ranges = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in cpu
+              if e.name() in ("care.encode", "care.beam.init")]
+    launched = {e.correlation_id() for e in cpu
+                if e.name().startswith(("cudaLaunch", "cuLaunch"))
+                and any(s <= e.start_ns() <= t for s, t in ranges)}
+    eager_edge = sum(e.correlation_id() in launched for e in dev)
+    tr = get_translator(opt, device=cuda_device)
+    events = traced(tr)
+    assert tr.graph_edge_passes == 1
+    (edge,) = _graph_launches(events, "care.encode")
+    (final,) = _graph_launches(events, "care.beam.final")
+    assert eager_edge > 20
+    assert sum(not n.startswith(("Memcpy", "Memset"))
+               for n in edge) >= eager_edge
+    assert any("gemm" in n.lower() for n in edge)
+    assert len(final) > 5
+    assert _graph_launches(events, "care.beam.init") == []
 
 
 @pytest.mark.gpu
