@@ -38,6 +38,7 @@ from care_tpu_torch.models.heads import get_cls_head
 from care_tpu_torch.models.pointer import get_pointer
 from care_tpu_torch.models.predictors import Predictor, has_predictor
 from care_tpu_torch.utils.device import resolve_device
+from care_tpu_torch.utils.profiling import trace_annotation
 
 
 def input_keys_for_decoder(opt: dict) -> List[str]:
@@ -313,18 +314,20 @@ class Captioner(nn.Module):
                     inputs_for_decoder: Dict[str, Any] = None):
         """One AR step: returns (out [B, V], state, is_prob). A pointer
         model given its (beam-enlarged) ``inputs_for_decoder`` returns
-        ``log(probs + 1e-9)`` and ``is_prob`` True; otherwise ``out`` is
-        the logits and ``is_prob`` False."""
+        ``log(probs + 1e-9)`` and ``is_prob`` True, the copy head and the
+        log inside the span ``care.pointer``; otherwise ``out`` is the
+        logits and ``is_prob`` False."""
         h, state = self.decoder.decode_step(token_ids, position, state)
         logits = self.cls_head(h)
         if self.pointer is None or inputs_for_decoder is None:
             return logits, state, False
-        probs = self.pointer(
-            hidden_states=h[:, None, :],
-            ret_text_embs=inputs_for_decoder["ret_text_embs"],
-            ret_input_ids=inputs_for_decoder["ret_input_ids"],
-            logits=logits[:, None, :])["probs"][:, 0, :]
-        return torch.log(probs + 1e-9), state, True
+        with trace_annotation("care.pointer"):
+            probs = self.pointer(
+                hidden_states=h[:, None, :],
+                ret_text_embs=inputs_for_decoder["ret_text_embs"],
+                ret_input_ids=inputs_for_decoder["ret_input_ids"],
+                logits=logits[:, None, :])["probs"][:, 0, :]
+            return torch.log(probs + 1e-9), state, True
 
     # ------------------------------------------------------------------
     # RNN decoding

@@ -14,6 +14,11 @@ mass is added by :func:`copy_scatter`, which repeats bit for bit on the
 card: retrieved captions repeat words, and an accumulating scatter
 (``scatter_add_``, ``index_add_``) adds equal ids in an order that changes
 from run to run there.
+
+Span (``utils/profiling.trace_annotation``, recorded only while a profiler
+runs): ``care.pointer.kv`` around the key and value projection of the
+retrieved captions, which ``kv_launches`` counts; a serving decode
+projects them at every beam step.
 """
 
 from typing import Any, Dict
@@ -25,6 +30,10 @@ from care_tpu_torch import constants
 from care_tpu_torch.models.common import dense
 from care_tpu_torch.models.layers import MultiHeadAttention, merge_heads
 from care_tpu_torch.ops.attention import NEG_INF, dot_product_attention
+from care_tpu_torch.utils.profiling import trace_annotation
+
+# key and value projections of the retrieved captions, all calls together
+kv_launches = 0
 
 
 class _CopyScatter(torch.autograd.Function):
@@ -81,6 +90,7 @@ class Pointer(nn.Module):
         ``ret_input_ids`` [B, R, S]; ``logits`` [B, T, V], or [B, V] of the
         last position with ``last_time_step_logits``. Returns {"probs":
         [B, T, V]} ([B, V] with ``last_time_step_logits``)."""
+        global kv_launches
         if last_time_step_logits:
             hidden_states = hidden_states[:, -1:, :]
         if ret_input_ids.dim() != 3 or ret_text_embs.dim() != 4:
@@ -97,7 +107,9 @@ class Pointer(nn.Module):
         pad_bias = pad_bias[:, None, None, :].float()
 
         q = self.attention.project_q(hs)
-        k, v = self.attention.project_kv(embs)
+        with trace_annotation("care.pointer.kv"):
+            k, v = self.attention.project_kv(embs)
+        kv_launches += 1
         ctx_h, probs = dot_product_attention(q, k, v, bias=pad_bias,
                                              return_probs=True)
         context = merge_heads(ctx_h)                       # [B*R, T, D]

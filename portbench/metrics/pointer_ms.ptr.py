@@ -1,0 +1,10 @@
+"""Device time a batch of the operations launched inside the copy head
+(``care.pointer`` and the ``care.pointer.kv`` within it;
+``portbench/spans_ptr.py``), over the traced window's batches. A program
+without the copy head's spans gives nothing to read."""
+
+from portbench import spans_ptr
+
+
+def read(ctx):
+    return spans_ptr.ms_per_batch(ctx, (spans_ptr.POINTER, spans_ptr.KV))
