@@ -21,9 +21,10 @@ as the JAX package rules (``care_tpu/decoding/translator.py:225-230``): an
 RNN decoder steps its carry (``init_rnn_carry`` on the beam-enlarged
 inputs, ``rnn_decode_step``, the nested carry reordered with the beams), a
 pointer model's step returns the log of its copy-mixed probabilities (its
-retrieved captions enlarged to the beam rows), and an ensemble of several
-``Captioner``s (``models`` a list) keeps each member's encoding, inputs
-and state and averages the members' f32 log-probabilities each step; a
+retrieved captions' keys and values projected once a batch, then enlarged
+to the beam rows), and an ensemble of several ``Captioner``s (``models`` a
+list) keeps each member's encoding, inputs and state and averages the
+members' f32 log-probabilities each step; a
 heterogeneous ensemble takes one feature list per model
 (``models/ensemble.py:EnsembleSpec.split_feats``).
 
@@ -606,10 +607,14 @@ class TranslatorARFormer(Translator):
                     carries.append(model.init_decode_state(
                         inputs, self.max_len, beam))
                     # the pointer reads the retrieved captions at every
-                    # beam row, as the JAX package enlarges them
+                    # beam row, as the JAX package enlarges them; their
+                    # keys and values depend on the video alone, so they
+                    # are projected once at the videos' rows and enlarged
+                    # on the video axis (row n * beam + k: video n)
                     inputs = (auto_enlarge(
-                        {k: inputs[k] for k in ("ret_text_embs",
-                                                "ret_input_ids")}, beam)
+                        {**model.pointer.project_memory(
+                            inputs["ret_text_embs"]),
+                         "ret_input_ids": inputs["ret_input_ids"]}, beam)
                               if model.pointer is not None else None)
                 step_inputs.append(inputs)
 

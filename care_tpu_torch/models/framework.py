@@ -316,17 +316,18 @@ class Captioner(nn.Module):
         model given its (beam-enlarged) ``inputs_for_decoder`` returns
         ``log(probs + 1e-9)`` and ``is_prob`` True, the copy head and the
         log inside the span ``care.pointer``; otherwise ``out`` is the
-        logits and ``is_prob`` False."""
+        logits and ``is_prob`` False. The inputs hold ``ret_input_ids``
+        and either the retrieved captions' ``ret_text_embs``, which the
+        copy head then projects, or their projections ``ret_k`` /
+        ``ret_v`` (``Pointer.project_memory``)."""
         h, state = self.decoder.decode_step(token_ids, position, state)
         logits = self.cls_head(h)
         if self.pointer is None or inputs_for_decoder is None:
             return logits, state, False
         with trace_annotation("care.pointer"):
-            probs = self.pointer(
-                hidden_states=h[:, None, :],
-                ret_text_embs=inputs_for_decoder["ret_text_embs"],
-                ret_input_ids=inputs_for_decoder["ret_input_ids"],
-                logits=logits[:, None, :])["probs"][:, 0, :]
+            probs = self.pointer(hidden_states=h[:, None, :],
+                                 logits=logits[:, None, :],
+                                 **inputs_for_decoder)["probs"][:, 0, :]
             return torch.log(probs + 1e-9), state, True
 
     # ------------------------------------------------------------------

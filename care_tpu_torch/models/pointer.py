@@ -15,10 +15,16 @@ card: retrieved captions repeat words, and an accumulating scatter
 (``scatter_add_``, ``index_add_``) adds equal ids in an order that changes
 from run to run there.
 
+The key and value of the retrieved captions depend on the video alone:
+:meth:`Pointer.project_memory` projects them once, and a serving decode
+does so once a batch, at the videos' rows, before the beam loop
+(``decoding/translator.py:_dispatch_dense``); each beam step then reads
+the result, enlarged to the beam's rows. Given the raw embeddings,
+:meth:`Pointer.forward` projects them itself, as training does.
+
 Span (``utils/profiling.trace_annotation``, recorded only while a profiler
 runs): ``care.pointer.kv`` around the key and value projection of the
-retrieved captions, which ``kv_launches`` counts; a serving decode
-projects them at every beam step.
+retrieved captions, which ``kv_launches`` counts.
 """
 
 from typing import Any, Dict
@@ -83,33 +89,53 @@ class Pointer(nn.Module):
         self.Wc = dense(D, 1, generator)
         self.copy_scale = opt.get("copy_scale", 1)
 
-    def forward(self, hidden_states, ret_text_embs, ret_input_ids, logits,
-                last_time_step_logits: bool = False,
-                **unused) -> Dict[str, Any]:
-        """``hidden_states`` [B, T, D]; ``ret_text_embs`` [B, R, S, D];
-        ``ret_input_ids`` [B, R, S]; ``logits`` [B, T, V], or [B, V] of the
-        last position with ``last_time_step_logits``. Returns {"probs":
-        [B, T, V]} ([B, V] with ``last_time_step_logits``)."""
+    def project_memory(self, ret_text_embs) -> Dict[str, torch.Tensor]:
+        """The key and value of the retrieved captions ``ret_text_embs``
+        [B, R, S, D], as ``attention.project_kv`` gives them, on the video
+        axis: {"ret_k", "ret_v"}, each [B, R, heads, S, Dh]. The keys are
+        :meth:`forward`'s, which then projects nothing."""
         global kv_launches
+        bsz, n_retrieval, seq_len = ret_text_embs.shape[:3]
+        with trace_annotation("care.pointer.kv"):
+            k, v = self.attention.project_kv(
+                ret_text_embs.reshape(bsz * n_retrieval, seq_len, -1))
+        kv_launches += 1
+        return {"ret_k": k.reshape(bsz, n_retrieval, *k.shape[1:]),
+                "ret_v": v.reshape(bsz, n_retrieval, *v.shape[1:])}
+
+    def forward(self, hidden_states, ret_text_embs=None, ret_input_ids=None,
+                logits=None, last_time_step_logits: bool = False,
+                ret_k=None, ret_v=None, **unused) -> Dict[str, Any]:
+        """``hidden_states`` [B, T, D]; ``ret_text_embs`` [B, R, S, D], or
+        their projections ``ret_k`` / ``ret_v`` [B, R, heads, S, Dh] from
+        :meth:`project_memory`; ``ret_input_ids`` [B, R, S]; ``logits``
+        [B, T, V], or [B, V] of the last position with
+        ``last_time_step_logits``. Returns {"probs": [B, T, V]} ([B, V]
+        with ``last_time_step_logits``)."""
         if last_time_step_logits:
             hidden_states = hidden_states[:, -1:, :]
-        if ret_input_ids.dim() != 3 or ret_text_embs.dim() != 4:
+        if ret_k is None:
+            if ret_text_embs.dim() != 4:
+                raise ValueError("retrieved embeddings "
+                                 f"{tuple(ret_text_embs.shape)} are not "
+                                 "[B, R, S, D]")
+            memory = self.project_memory(ret_text_embs)
+            ret_k, ret_v = memory["ret_k"], memory["ret_v"]
+        if ret_input_ids.dim() != 3 or ret_k.dim() != 5:
             raise ValueError(f"retrieved ids {tuple(ret_input_ids.shape)} / "
-                             f"embeddings {tuple(ret_text_embs.shape)} are "
-                             f"not [B, R, S] / [B, R, S, D]")
+                             f"keys {tuple(ret_k.shape)} are not [B, R, S] "
+                             f"/ [B, R, heads, S, Dh]")
         bsz, n_retrieval, seq_len = ret_input_ids.shape
         T, d = hidden_states.shape[1], hidden_states.shape[-1]
         hs = hidden_states[:, None].expand(bsz, n_retrieval, T, d).reshape(
             bsz * n_retrieval, T, d)
-        embs = ret_text_embs.reshape(bsz * n_retrieval, seq_len, -1)
         ids_flat = ret_input_ids.reshape(bsz * n_retrieval, seq_len)
         pad_bias = torch.where(ids_flat == constants.PAD, NEG_INF, 0.0)
         pad_bias = pad_bias[:, None, None, :].float()
 
         q = self.attention.project_q(hs)
-        with trace_annotation("care.pointer.kv"):
-            k, v = self.attention.project_kv(embs)
-        kv_launches += 1
+        k = ret_k.reshape(bsz * n_retrieval, *ret_k.shape[2:])
+        v = ret_v.reshape(bsz * n_retrieval, *ret_v.shape[2:])
         ctx_h, probs = dot_product_attention(q, k, v, bias=pad_bias,
                                              return_probs=True)
         context = merge_heads(ctx_h)                       # [B*R, T, D]

@@ -1,7 +1,8 @@
 """PointerGen on the card (``-m gpu``): beams there equal the CPU port's,
-training repeats bit for bit, and the copy scatter repeats on ids that
-repeat. This file imports neither JAX nor ``care_tpu`` (the card's machine
-has no flax), so the ``gpu`` run can collect it;
+also those of a CPU decode whose every step projects the retrieved
+captions, training repeats bit for bit, and the copy scatter repeats on
+ids that repeat. This file imports neither JAX nor ``care_tpu`` (the
+card's machine has no flax), so the ``gpu`` run can collect it;
 ``tests/test_torch_pointer.py`` and ``tests/test_torch_paper_grid_pointer.py``
 hold the port to ``care_tpu`` on the CPU.
 """
@@ -13,7 +14,10 @@ import torch
 from care_tpu_torch import constants
 from care_tpu_torch.config import get_opt
 from care_tpu_torch.decoding import get_translator
+from care_tpu_torch.decoding.beam_search import beam_search
+from care_tpu_torch.decoding.translator import _gather_self_kv
 from care_tpu_torch.models import build_captioner
+from care_tpu_torch.models import pointer as pointer_module
 from care_tpu_torch.models.pointer import copy_scatter
 from care_tpu_torch.models.weights import params_to_jax
 from care_tpu_torch.training import Trainer
@@ -78,6 +82,51 @@ def test_pointer_translate_on_the_card_equals_the_cpu(cuda_device, task):
         out.append(get_translator(opt, device=device).translate_batch(
             model, {"feats": feats}))
     (want_h, want_s), (got_h, got_s) = out
+    assert got_h == want_h
+    np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-4)
+
+
+@torch.no_grad()
+def decode_projecting_every_step(tr, model, batch):
+    """``tr.translate_batch(model, batch)`` of one f32 pointer model with
+    the retrieved captions' projection left in the loop: every beam step
+    hands ``decode_step`` the raw captions enlarged to the beam's rows,
+    and the copy head projects them."""
+    inputs = model.prepare_inputs_for_decoder(
+        model.encoding_phase(tr._feats(batch)), tr._batch_inputs(batch))
+    beam = tr.beam_size
+    raw = {n: inputs[n].repeat_interleave(beam, dim=0)
+           for n in ("ret_text_embs", "ret_input_ids")}
+
+    def step_fn(tokens, position, carry):
+        out, carry, is_prob = model.decode_step(tokens, position, carry, raw)
+        assert is_prob
+        return out.float(), carry
+    return tr.collect(beam_search(
+        step_fn, model.init_decode_state(inputs, tr.max_len, beam),
+        batch_size=inputs["ret_input_ids"].shape[0],
+        vocab_size=tr.opt["vocab_size"], gather_carry=_gather_self_kv,
+        device=tr.device, beam_size=beam, max_len=tr.max_len,
+        beam_alpha=tr.beam_alpha, topk=tr.topk))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("task", ["Base", "CARE"])
+def test_hoisted_decode_on_the_card_equals_the_cpu_projecting_each_step(
+        cuda_device, task):
+    """The card's decode, which projects the retrieved captions once a
+    batch, against the CPU's with the projection at every beam step:
+    identical tokens, scores within 1e-4."""
+    opt = _opt(task)
+    batch = {"feats": _feats(opt, 4, seed=33)}
+    want_h, want_s = decode_projecting_every_step(
+        get_translator(opt, device="cpu"),
+        build_captioner(opt, device="cpu", seed=31), batch)
+    model = build_captioner(opt, device=cuda_device, seed=31)
+    before = pointer_module.kv_launches
+    got_h, got_s = get_translator(opt, device=cuda_device).translate_batch(
+        model, batch)
+    assert pointer_module.kv_launches - before == 1
     assert got_h == want_h
     np.testing.assert_allclose(got_s, want_s, rtol=0, atol=1e-4)
 

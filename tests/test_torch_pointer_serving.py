@@ -12,9 +12,14 @@ from a seed by the benchmark's weights maker:
 * a served beam's scores against the reference's length-normalised
   log-probabilities of its tokens, every caption of two batches;
 * under a profiler, one ``care.pointer`` span a beam step inside its
-  ``care.decoder.step``, one ``care.pointer.kv`` inside it, and
-  ``models.pointer.kv_launches`` raised once a beam step; the decode
-  under the profiler is bitwise the one without it;
+  ``care.decoder.step``, one ``care.pointer.kv`` a batch inside its
+  ``care.beam.init``, and ``models.pointer.kv_launches`` raised once a
+  batch; the decode under the profiler is bitwise the one without it;
+* the retrieved captions' keys and values projected once a batch: row
+  n * beam + k of the beam's inputs holds video n's projections, the
+  served beams equal those of a decode whose every step projects the
+  enlarged raw captions, and ``decode_step`` given raw captions projects
+  them at each call;
 * the planted faults (the copy gate at 0, the retrieved captions tiled
   over the beam instead of repeated, the KV cache left stale) caught by
   the cell's comparison.
@@ -36,6 +41,7 @@ from portbench.judges import pointer as judge
 from portbench.reference import care
 from portbench.reference import pointer as ref
 from portbench.tests import tiny
+from test_torch_pointer_card import decode_projecting_every_step
 
 CONFIG, CELL = "msrvtt-pointergen-care-vit", "pointergen.serve.b64"
 pointer_module = importlib.import_module("care_tpu_torch.models.pointer")
@@ -155,7 +161,7 @@ def test_copy_head_spans_and_kv_launches(cell):
     cfg, mx, model, _ = cell
     before = pointer_module.kv_launches
     tr, _, plain = _serve(cfg, mx, model, 7)
-    assert pointer_module.kv_launches - before == tr.beam_steps
+    assert pointer_module.kv_launches - before == tr.edge_passes == 2
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         tr2, _, traced = _serve(cfg, mx, model, 7)
@@ -164,9 +170,101 @@ def test_copy_head_spans_and_kv_launches(cell):
     assert steps == tr2.beam_steps == 2 * (cfg["model"]["max_len"] - 1)
     inside = _within(spans, "care.pointer", "care.decoder.step")
     assert len(inside) == steps and all(inside)
-    inside = _within(spans, "care.pointer.kv", "care.pointer")
-    assert len(inside) == steps and all(inside)
+    inside = _within(spans, "care.pointer.kv", "care.beam.init")
+    assert len(inside) == tr2.edge_passes == 2 and all(inside)
     assert traced == plain
+
+
+def _batch_inputs(tr, model, feed):
+    """A feed's decoder inputs as the translator builds them."""
+    return model.prepare_inputs_for_decoder(
+        model.encoding_phase(tr._feats(feed)), tr._batch_inputs(feed))
+
+
+@torch.no_grad()
+def test_hoisted_keys_and_values_are_each_videos(cell):
+    """The beam's inputs hold, at row n * beam + k, the projections of
+    video n's retrieved captions, the same tensors at every step."""
+    cfg, mx, model, _ = cell
+    m = cfg["model"]
+    pool = retrieved_captions.make(m, mx, 11, "cpu")[:1]
+    feed = {"feats": [torch.as_tensor(x) for x in pool[0]]}
+    tr = get_translator(program.program_opt(cfg), device="cpu")
+    seen = []
+    hook = model.pointer.register_forward_hook(
+        lambda mod, args, kwargs, out: seen.append(kwargs), with_kwargs=True)
+    try:
+        tr.translate_batch(model, feed)
+    finally:
+        hook.remove()
+    assert len(seen) == tr.beam_steps == m["max_len"] - 1
+    assert all("ret_text_embs" not in kw for kw in seen)
+    inputs = _batch_inputs(tr, model, feed)
+    embs, ids = inputs["ret_text_embs"], inputs["ret_input_ids"]
+    B, R, S, D = embs.shape
+    beam = m["beam_size"]
+    k, v = model.pointer.attention.project_kv(embs.reshape(B * R, S, D))
+    video = torch.arange(B * beam) // beam
+    for got, want in ((seen[0]["ret_k"], k), (seen[0]["ret_v"], v)):
+        assert got.shape == (B * beam, R, *want.shape[1:])
+        assert torch.equal(got, want.reshape(B, R, *want.shape[1:])[video])
+    assert not torch.equal(seen[0]["ret_k"][0], seen[0]["ret_k"][beam])
+    assert torch.equal(seen[0]["ret_input_ids"], ids[video])
+    for kw in seen[1:]:
+        assert all(kw[n] is seen[0][n]
+                   for n in ("ret_k", "ret_v", "ret_input_ids"))
+
+
+@pytest.mark.parametrize("seed", [2**31 + 9, 613])
+@torch.no_grad()
+def test_hoisted_decode_equals_projecting_at_every_step(cell, seed):
+    """A served batch against the same beam search whose every step hands
+    ``decode_step`` the raw captions enlarged to the beam's rows, so that
+    the copy head projects them at each step: the same tokens, scores
+    within 1e-6."""
+    cfg, mx, model, _ = cell
+    m = cfg["model"]
+    pool = retrieved_captions.make(m, mx, seed, "cpu")[:1]
+    feed = {"feats": [torch.as_tensor(x) for x in pool[0]]}
+    tr = get_translator(program.program_opt(cfg), device="cpu")
+    want_h, want_s = tr.translate_batch(model, feed)
+    before = pointer_module.kv_launches
+    got_h, got_s = decode_projecting_every_step(tr, model, feed)
+    assert pointer_module.kv_launches - before == m["max_len"] - 1
+    assert got_h == want_h
+    gap = max(abs(a - b) for ga, wa in zip(got_s, want_s)
+              for a, b in zip(ga, wa))
+    assert gap <= 1e-6, gap
+
+
+@torch.no_grad()
+def test_decode_step_projects_raw_captions_at_each_call(cell):
+    """``decode_step`` given raw captions projects them once a call, given
+    their projections not at all, and both give the same log-probs."""
+    cfg, _, model, _ = cell
+    m = cfg["model"]
+    beam = m["beam_size"]
+    feats, ret = judge.inputs(m, 2, 23)
+    inputs = model.prepare_inputs_for_decoder(model.encoding_phase(
+        [ret if c == "t" else feats[c] for c in m["modality"]]), {})
+    raw = {n: inputs[n].repeat_interleave(beam, dim=0)
+           for n in ("ret_text_embs", "ret_input_ids")}
+    before = pointer_module.kv_launches
+    memory = model.pointer.project_memory(inputs["ret_text_embs"])
+    hoisted = {n: t.repeat_interleave(beam, dim=0) for n, t in
+               dict(memory, ret_input_ids=inputs["ret_input_ids"]).items()}
+    assert pointer_module.kv_launches - before == 1
+    tokens = torch.full((2 * beam,), care.BOS, dtype=torch.long)
+    states = [model.init_decode_state(inputs, m["max_len"], beam)
+              for _ in range(2)]
+    for t in range(3):
+        before = pointer_module.kv_launches
+        a, states[0], _ = model.decode_step(tokens, t, states[0], raw)
+        assert pointer_module.kv_launches - before == 1
+        b, states[1], _ = model.decode_step(tokens, t, states[1], hoisted)
+        assert pointer_module.kv_launches - before == 1
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+        tokens = a.argmax(dim=-1)
 
 
 @pytest.mark.parametrize("fault", sorted(judge.FAULTS))
